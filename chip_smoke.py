@@ -1,0 +1,444 @@
+"""Chip smoke test of the PyTorch / CUDA port on one NVIDIA H100.
+
+  python3 chip_smoke.py            # what CI runs: build, kernel phases, serve
+  python3 chip_smoke.py --profile  # also a torch.profiler window of serving
+                                   # (full table: --profile-out PATH)
+
+Phases, each fatal on failure:
+  1. build the three CUDA kernels from src/repro_torch/csrc (nvcc, sm_90a);
+  2. hold each kernel against its plain PyTorch version at the serving
+     path's shapes, in bf16 and fp32, and time kernel / plain / library
+     on the device (CUDA-graph replay), plus the kernel's eager call;
+  3. serve granite-moe-1b-a400m at full width and depth (bf16, seeded
+     random weights) through ServingLoop with the kernel launch counters
+     reset just before, and check every request completed and every
+     kernel ran;
+  4. serve the smoke-size granite at fp32 on the card (kernels) and on
+     the CPU (plain versions) from the same weights: tokens must agree.
+Prints one JSON line per kernel phase, the `kernels` JSON line, the
+card's name and power limit, and last the `ok` JSON line. Imports
+nothing of JAX: the machine with the card has none.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import math
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+
+from repro_torch.configs import get_config, reduce_for_smoke  # noqa: E402
+from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels.expert_gemv import expert_ffn_gemv  # noqa: E402
+from repro_torch.kernels.moe_gemm import moe_gemm  # noqa: E402
+from repro_torch.kernels.paged_attention import (  # noqa: E402
+    linearize_blocks,
+    paged_prefill_gqa,
+)
+from repro_torch.models.model import init_params  # noqa: E402
+from repro_torch.serving.batching import Request  # noqa: E402
+from repro_torch.serving.engine import (  # noqa: E402
+    fill_tiers_from_params,
+    init_tiered_for_model,
+)
+from repro_torch.serving.loop import ServingLoop  # noqa: E402
+from repro_torch.serving.paged_kv import PagedStats  # noqa: E402
+
+HBM_BPS = 3.35e12  # H100 SXM HBM3 bytes/s (NVIDIA data sheet)
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense, no TF32
+ARCH = "granite-moe-1b-a400m"
+KERNELS = {  # name -> (wrapper, source, TPU kernel it replaces)
+    "paged_prefill_gqa": (paged_prefill_gqa, "src/repro_torch/csrc/paged_attention.cu",
+                          "src/repro/kernels/paged_attention/paged_attention.py:105"),
+    "moe_gemm": (moe_gemm, "src/repro_torch/csrc/moe_gemm.cu",
+                 "src/repro/kernels/moe_gemm/moe_gemm.py:34"),
+    "expert_ffn_gemv": (expert_ffn_gemv, "src/repro_torch/csrc/expert_gemv.cu",
+                        "src/repro/kernels/expert_gemv/expert_gemv.py:44"),
+}
+TOL = {  # (atol, rtol) of kernel vs plain version, by dtype
+    # fp32: same products, other summation order (k up to 1024 terms)
+    torch.float32: (1e-4, 1e-4),
+    # bf16: the output is rounded to bf16 (8 mantissa bits), and the
+    # intermediate h / P roundings can flip by one bf16 ulp
+    torch.bfloat16: (3e-2, 3e-2),
+}
+
+
+def fail(msg: str) -> None:
+    print(f"FAIL: {msg}", flush=True)
+    sys.exit(1)
+
+
+def _events_ms(run, reps: int) -> float:
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        run()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end)
+
+
+def call_time_ms(fn, iters: int, warmup: int = 3) -> float:
+    """Mean time of one eager call: CUDA events around a loop of calls,
+    so the host's cost per call (checks, ctypes, allocation) is in it."""
+    for _ in range(warmup):
+        fn()
+    return _events_ms(fn, iters) / iters
+
+
+def device_time_ms(fn, arg_sets, calls: int = 32, reps: int = 5) -> float:
+    """Mean device time of fn(*args): `calls` calls, cycling over
+    `arg_sets`, captured in one CUDA graph whose replays are timed with
+    CUDA events. No host work is left between the kernels, and the
+    cycled inputs are sized to exceed L2, so each call reads them from
+    HBM as the serving path does (every layer has its own weights)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up off the capture, as graphs need
+        for args in arg_sets[:2]:
+            fn(*args)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(calls):
+            fn(*arg_sets[i % len(arg_sets)])
+    graph.replay()
+    return _events_ms(graph.replay, reps) / (reps * calls)
+
+
+def compare(name, got, want, dtype, mask=None):
+    if not torch.isfinite(got.float()).all():
+        fail(f"{name}: kernel output has non-finite values")
+    g, w = got.float(), want.float()
+    if mask is not None:
+        g, w = g[mask], w[mask]
+    err = (g - w).abs()
+    atol, rtol = TOL[dtype]
+    bad = err > atol + rtol * w.abs()
+    max_abs = float(err.max())
+    max_rel = float((err / w.abs().clamp_min(1e-6)).max())
+    if bad.any():
+        fail(f"{name} [{dtype}]: {int(bad.sum())} elements off, max abs err {max_abs:.3e}")
+    return max_abs, max_rel
+
+
+def bound_ms(nbytes: float, flops: float, dtype) -> tuple:
+    tb, tf = nbytes / HBM_BPS * 1e3, flops / PEAK_FLOPS[dtype] * 1e3
+    return (tb, "bytes") if tb >= tf else (tf, "operations")
+
+
+# --------------------------------------------------------- kernel phases
+L2_BYTES = 50 * 2 ** 20  # H100 SXM L2 cache
+MAX_SETS = 32  # input sets cycled through by the timed graph
+
+
+def attention_case(dtype, *, b, c, nb, past, dev, gen):
+    """Random pools and tables at the serving shapes: Kv=8, G=2, hd=64,
+    bs=4, each row's blocks a random permutation of the pool. Library:
+    SDPA over the linearized, head-expanded K/V with the position mask."""
+    kv, g, hd, bs = 8, 2, 64, 4
+    n_blocks = 8 * 18  # batch 8 x ceil(72 / 4) blocks per slot
+    perm = torch.randperm(n_blocks, generator=gen, device="cpu")[: b * nb]
+    tables = perm.reshape(b, nb).to(torch.int32).to(dev)
+    q = torch.randn(b, c, kv, g, hd, generator=gen).to(dev, dtype)
+    pool_k = torch.randn(n_blocks + 1, bs, kv, hd, generator=gen).to(dev, dtype)
+    pool_v = torch.randn(n_blocks + 1, bs, kv, hd, generator=gen).to(dev, dtype)
+    past_len = torch.tensor(past, dtype=torch.int32, device=dev)
+    lengths = torch.full((b,), c, dtype=torch.int32, device=dev)
+    args = (q, pool_k, pool_v, tables, past_len, lengths)
+    keys = linearize_blocks(pool_k, tables).repeat_interleave(g, dim=2).transpose(1, 2)
+    vals = linearize_blocks(pool_v, tables).repeat_interleave(g, dim=2).transpose(1, 2)
+    qh = q.reshape(b, c, kv * g, hd).transpose(1, 2)
+    qpos = past_len[:, None] + torch.arange(c, device=dev)[None, :]
+    mask = (torch.arange(keys.shape[2], device=dev)[None, None, :] <= qpos[:, :, None])[:, None]
+    # least work: each walked key block read once per row, q read, out written
+    isz = q.element_size()
+    walked = sum(min(nb, (p + c - 1) // 4 + 1) * 4 for p in past)
+    nbytes = 2 * q.numel() * isz + 2 * walked * kv * hd * isz + tables.numel() * 4
+    visible = sum(sum(p + i + 1 for i in range(c)) for p in past)
+    return dict(
+        args=args, lib_args=(qh, keys, vals, mask),
+        kernel=lambda *a: paged_prefill_gqa(*a, backend="cuda"),
+        plain=lambda *a: paged_prefill_gqa(*a, backend="ref"),
+        library=lambda qh, k, v, m: F.scaled_dot_product_attention(qh, k, v, attn_mask=m),
+        held=sum(t.numel() * t.element_size() for t in args),
+        bound=bound_ms(nbytes, 4.0 * visible * kv * g * hd, dtype),
+    )
+
+
+def moe_gemm_case(dtype, *, n_slots, rows, k, n, pair, dev, gen):
+    """Hot tier of a prefill chunk: n_slots groups of `rows` real rows
+    padded to 128; gate|up reads two panels of the [n, 3, D, F] buffer.
+    Library: torch.bmm over the concatenated (or copied) weights."""
+    bm = 128
+    c_pad = -(-rows // bm) * bm
+    buf = (torch.randn(n_slots, 3, 1024, 512, generator=gen) * 1024 ** -0.5).to(dev, dtype)
+    x = torch.zeros(n_slots, c_pad, k, dtype=dtype, device=dev)
+    x[:, :rows] = torch.randn(n_slots, rows, k, generator=gen).to(dev, dtype)
+    x = x.reshape(n_slots * c_pad, k)
+    w = (buf[:, 0], buf[:, 1]) if pair else buf[:, 2].transpose(1, 2)
+    te = torch.arange(n_slots, dtype=torch.int32, device=dev).repeat_interleave(c_pad // bm)
+    wj = torch.cat(list(w), -1) if pair else w.contiguous()
+    isz = x.element_size()
+    nbytes = (x.numel() + n_slots * k * n + x.shape[0] * n) * isz
+    return dict(
+        args=(x, w, te), lib_args=(x.reshape(n_slots, c_pad, k), wj),
+        kernel=lambda *a: moe_gemm(*a, backend="cuda"),
+        plain=lambda *a: moe_gemm(*a, backend="ref"),
+        library=torch.bmm,
+        held=(buf.numel() + x.numel()) * isz,
+        bound=bound_ms(nbytes, 2.0 * x.shape[0] * k * n, dtype),
+    )
+
+
+def gemv_case(dtype, *, n_slots, t, dev, gen):
+    """One tier of a decode step: n_slots experts, t tokens each, read as
+    views of the [n, 3, D, F] tier buffer (down matrix transposed).
+    Library: bmm of the concatenated gate|up, SiLU * up, bmm down."""
+    d, f = 1024, 512
+    buf = (torch.randn(n_slots, 3, d, f, generator=gen) * d ** -0.5).to(dev, dtype)
+    x = torch.randn(n_slots, t, d, generator=gen).to(dev, dtype)
+    w1, w3, w2 = buf[:, 0], buf[:, 1], buf[:, 2].transpose(1, 2)
+
+    def library(x, w13, w2c):
+        gu = torch.bmm(x, w13)
+        return torch.bmm(F.silu(gu[..., :f]) * gu[..., f:], w2c)
+
+    isz = x.element_size()
+    nbytes = (3 * n_slots * d * f + 2 * x.numel()) * isz
+    return dict(
+        args=(x, w1, w3, w2), lib_args=(x, torch.cat([w1, w3], -1), w2.contiguous()),
+        kernel=lambda *a: expert_ffn_gemv(*a, backend="cuda"),
+        plain=lambda *a: expert_ffn_gemv(*a, backend="ref"),
+        library=library,
+        held=(buf.numel() + x.numel()) * isz,
+        bound=bound_ms(nbytes, 6.0 * n_slots * t * d * f, dtype),
+    )
+
+
+KERNEL_CASES = [  # (kernel, label, case, kwargs); the first per kernel is its JSON row
+    ("paged_prefill_gqa", "decode B=4 nb=16", attention_case,
+     dict(b=4, c=1, nb=16, past=[40, 51, 60, 63])),
+    ("paged_prefill_gqa", "prefill B=4 C=32 nb=16", attention_case,
+     dict(b=4, c=32, nb=16, past=[0, 16, 16, 24])),
+    ("moe_gemm", "gate|up hot 8x128x1024x1024", moe_gemm_case,
+     dict(n_slots=8, rows=128, k=1024, n=1024, pair=True)),
+    ("moe_gemm", "down hot 8x128x512x1024", moe_gemm_case,
+     dict(n_slots=8, rows=128, k=512, n=1024, pair=False)),
+    ("expert_ffn_gemv", "cold 16 slots T=8", gemv_case, dict(n_slots=16, t=8)),
+    ("expert_ffn_gemv", "hot 8 slots T=4", gemv_case, dict(n_slots=8, t=4)),
+]
+
+
+def run_case(name, label, make, dtype, kw, dev, gen) -> dict:
+    """Hold the kernel against its plain version on one input set, then
+    time kernel, plain version and library call on the device (CUDA-graph
+    replay over enough input sets to exceed L2), and the kernel's eager
+    call with its host cost."""
+    first = make(dtype, dev=dev, gen=gen, **kw)
+    n_sets = max(1, min(MAX_SETS, math.ceil(2 * L2_BYTES / first["held"])))
+    sets = [first] + [make(dtype, dev=dev, gen=gen, **kw) for _ in range(n_sets - 1)]
+    got = first["kernel"](*first["args"])
+    want = first["plain"](*first["args"])
+    torch.cuda.synchronize()
+    max_abs, max_rel = compare(f"{name}/{label}", got, want, dtype)
+    args = [s["args"] for s in sets]
+    b_ms, b_by = first["bound"]
+    return dict(
+        phase="kernel", kernel=name, case=label, dtype=str(dtype)[6:],
+        kernel_ms=device_time_ms(first["kernel"], args),
+        kernel_call_ms=call_time_ms(lambda: first["kernel"](*first["args"]), 50),
+        plain_ms=device_time_ms(first["plain"], args),
+        library_ms=device_time_ms(first["library"], [s["lib_args"] for s in sets]),
+        bound_ms=b_ms, bound_by=b_by, max_abs_err=max_abs, max_rel_err=max_rel,
+        input_sets=n_sets,
+    )
+
+
+def kernel_phases(dev) -> dict:
+    gen = torch.Generator().manual_seed(0)
+    rows = {}
+    for name, label, make, kw in KERNEL_CASES:
+        for dtype in (torch.bfloat16, torch.float32):
+            line = run_case(name, label, make, dtype, kw, dev, gen)
+            print(json.dumps(line), flush=True)
+            if dtype == torch.bfloat16 and name not in rows:
+                rows[name] = line
+    return rows
+
+
+# ------------------------------------------------------------- serving
+def make_traffic(vocab: int, n: int, seed: int, new_tokens: int = 16):
+    """n requests: a shared 16-token system prompt plus 8-40 random tokens."""
+    rng = np.random.default_rng(seed)
+    system = rng.integers(0, vocab, 16)
+    return [
+        Request(rid=rid, prompt=np.concatenate(
+            [system, rng.integers(0, vocab, int(rng.integers(8, 41)))]).astype(np.int32),
+            max_new_tokens=new_tokens)
+        for rid in range(n)
+    ]
+
+
+def reset_counters() -> None:
+    for fn, _, _ in KERNELS.values():
+        fn.launches = 0
+
+
+def serve_full(dev, profile_out) -> dict:
+    cfg = get_config(ARCH)
+    torch.cuda.reset_peak_memory_stats(dev)  # peak_mem_gb: serving only
+    t0 = time.time()
+    params = init_params(0, cfg, device=dev)
+    loop = ServingLoop(cfg, params, batch_size=8, n_groups=2, cache_len=72,
+                       block_size=4, prefill_chunk_tokens=32, device=dev)
+    del params  # the engine keeps the stripped params, the tiers the experts
+    torch.cuda.synchronize()
+    setup_s = time.time() - t0
+    # warm-up (cuBLAS handles, allocator) on prompts sharing nothing with
+    # the measured traffic; then every metric and counter starts at 0
+    for r in make_traffic(cfg.vocab_size, 2, seed=99, new_tokens=4):
+        loop.submit(r)
+    loop.run()
+    loop.obs.registry.reset()
+    loop.kv.stats = PagedStats()
+    reqs = make_traffic(cfg.vocab_size, 12, seed=1)
+    n_before = len(loop.completions)
+    reset_counters()
+    for r in reqs:
+        loop.submit(r)
+    done = loop.run()[n_before:]
+    launches = {name: fn.launches for name, (fn, _, _) in KERNELS.items()}
+    if len(done) != len(reqs) or any(len(r.generated) != 16 for r in done):
+        fail(f"served {len(done)}/{len(reqs)} requests completely")
+    toks = np.concatenate([np.asarray(r.generated) for r in done])
+    if toks.min() < 0 or toks.max() >= cfg.vocab_size:
+        fail("generated token ids outside the vocabulary")
+    for name, n in launches.items():
+        if n == 0:
+            fail(f"kernel {name} was never launched on the serving path")
+    st, eng = loop.stats, loop.engine
+    out = dict(
+        phase="serve", arch=ARCH, dtype=cfg.param_dtype, layers=cfg.n_layers,
+        d_model=cfg.d_model, requests=len(done), generated_tokens=st.generated_tokens,
+        wall_s=st.wall_s, tokens_per_s=st.tokens_per_s, ttft_p50_s=st.ttft_p50_s,
+        itl_p50_s=st.itl_p50_s, itl_p95_s=st.itl_p95_s, decode_steps=st.decode_steps,
+        prefill_chunks=st.prefill_chunks, replans=st.replans, migrations=st.migrations,
+        prefix_hit_rate=loop.kv.stats.hit_rate, tier_sizes=list(eng.sizes),
+        setup_s=setup_s, peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+        launches=launches,
+    )
+    print(json.dumps(out), flush=True)
+    if profile_out:
+        profile_serving(loop, cfg, Path(profile_out))
+    return out
+
+
+def profile_serving(loop, cfg, out: Path) -> None:
+    """torch.profiler window over a second wave of traffic: device time
+    by kernel name (the full table is written to `out`)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    reqs = make_traffic(cfg.vocab_size, 8, seed=2)
+    for r in reqs:
+        loop.submit(r)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        loop.run()
+        wall = time.time() - t0
+    table = prof.key_averages().table(sort_by="cuda_time_total", row_limit=40)
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.write_text(table)
+    dev_us = sum(e.time_range.elapsed_us() for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA)
+    print(json.dumps(dict(phase="profile", wall_s=wall, device_busy_s=dev_us / 1e6,
+                          device_busy_share=dev_us / 1e6 / wall)), flush=True)
+    print(table[:6000], flush=True)
+
+
+def serve_smoke_parity(dev) -> None:
+    """fp32 smoke granite: the kernels on the card against the plain
+    versions on the CPU, same weights and tier state -> same tokens."""
+    cfg = reduce_for_smoke(get_config(ARCH))
+    cfg = dataclasses.replace(cfg, param_dtype="float32", compute_dtype="float32")
+    params = init_params(0, cfg, device="cpu")
+    gen = torch.Generator().manual_seed(1)
+    tiered = fill_tiers_from_params(params, init_tiered_for_model(gen, cfg), cfg)
+
+    def to(tree, d):
+        return {k: to(v, d) for k, v in tree.items()} if isinstance(tree, dict) else tree.to(d)
+
+    got = {}
+    for d in (dev, torch.device("cpu")):
+        loop = ServingLoop(cfg, to(params, d), to(tiered, d), batch_size=4, n_groups=2,
+                           cache_len=64, prefill_chunk_tokens=8, device=d)
+        for r in make_traffic(cfg.vocab_size, 6, seed=3, new_tokens=8):
+            loop.submit(r)
+        got[d.type] = {r.rid: r.generated for r in loop.run()}
+    if got["cuda"] != got["cpu"]:
+        fail(f"fp32 smoke serving: card tokens {got['cuda']} != CPU tokens {got['cpu']}")
+    print(json.dumps(dict(phase="smoke_parity", requests=len(got["cpu"]),
+                          identical_tokens=True)), flush=True)
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--profile", action="store_true",
+                    help="also trace a serving window with torch.profiler")
+    ap.add_argument("--profile-out", default="profile_out/serve_profile.txt",
+                    help="where --profile writes its full table")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("FAIL: no CUDA device: chip_smoke.py runs on the GPU", flush=True)
+        return 1
+    dev = torch.device("cuda:0")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         check=True).stdout.strip().splitlines()[0]
+    print(f"card: {smi}", flush=True)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    t0 = time.time()
+    build.build_all()
+    print(json.dumps(dict(phase="build", seconds=time.time() - t0)), flush=True)
+    for name, log in build.BUILD_LOG.items():
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"ptxas[{name}] {line.strip()}", flush=True)
+
+    rows = kernel_phases(dev)
+    serve = serve_full(dev, args.profile_out if args.profile else None)
+    serve_smoke_parity(dev)
+
+    kernels = []
+    for name, (fn, src, replaces) in KERNELS.items():
+        r = rows[name]
+        kernels.append(dict(
+            name=name, route="cuda", source=src, replaces=replaces,
+            launches=serve["launches"][name], max_abs_err=r["max_abs_err"], ms=r["kernel_ms"],
+            plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+            library_ms=r["library_ms"],
+        ))
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(smi, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
