@@ -1,28 +1,34 @@
 """Chip smoke test of the PyTorch / CUDA port on one NVIDIA H100.
 
   python3 chip_smoke.py            # what CI runs: build, kernel phases, serve
-  python3 chip_smoke.py --profile  # also a torch.profiler window of serving
-                                   # (full table: --profile-out PATH)
+  python3 chip_smoke.py --profile  # also a torch.profiler window of each serve
+                                   # (full tables: --profile-out PATH, one file
+                                   # per model, named PATH's stem-<arch>)
 
 Phases, each fatal on failure:
-  1. build the three CUDA kernels from src/repro_torch/csrc (nvcc, sm_90a);
-  2. hold each kernel against its plain PyTorch version at the serving
-     path's shapes, in bf16 and fp32, and time kernel / plain / library
-     on the device (CUDA-graph replay), plus the kernel's eager call;
-  3. serve granite-moe-1b-a400m at full width and depth (bf16, seeded
-     random weights) through ServingLoop with the kernel launch counters
-     reset just before, and check every request completed and every
-     kernel ran;
-  4. serve the smoke-size granite at fp32 on the card (kernels) and on
-     the CPU (plain versions) from the same weights: tokens must agree.
-Prints one JSON line per kernel phase, the `kernels` JSON line, the
-card's name and power limit, and last the `ok` JSON line. Imports
-nothing of JAX: the machine with the card has none.
+  1. build the five CUDA kernels from src/repro_torch/csrc (nvcc, sm_90a);
+  2. hold each kernel against its plain PyTorch version at its path's
+     shapes, in bf16 and fp32, and time kernel / plain / library on the
+     device (CUDA-graph replay), plus the kernel's eager call;
+  3. drive flash attention's entry point `mha` with the launch counters
+     reset just before;
+  4. serve granite-moe-1b-a400m (GQA) at full width and depth, then
+     deepseek-v2-236b (MLA, dense layer 0, shared experts) at full width
+     with its depth cut to 3 layers (bf16, seeded random weights),
+     through ServingLoop with the kernel launch counters reset just
+     before each, and check every request completed and every kernel of
+     the path ran (and the other attention kernel did not);
+  5. serve each smoke-size model at fp32 on the card (kernels) and on the
+     CPU (plain versions) from the same weights: tokens must agree.
+Prints one JSON line per phase, the `kernels` JSON line, the card's name
+and power limit, and last the `ok` JSON line. Imports nothing of JAX:
+the machine with the card has none.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
 import math
 import subprocess
@@ -39,10 +45,16 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 from repro_torch.configs import get_config, reduce_for_smoke  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.expert_gemv import expert_ffn_gemv  # noqa: E402
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    flash_attention,
+    mha,
+    rounding_bound,
+)
 from repro_torch.kernels.moe_gemm import moe_gemm  # noqa: E402
 from repro_torch.kernels.paged_attention import (  # noqa: E402
     linearize_blocks,
     paged_prefill_gqa,
+    paged_prefill_mla,
 )
 from repro_torch.models.model import init_params  # noqa: E402
 from repro_torch.serving.batching import Request  # noqa: E402
@@ -55,20 +67,30 @@ from repro_torch.serving.paged_kv import PagedStats  # noqa: E402
 
 HBM_BPS = 3.35e12  # H100 SXM HBM3 bytes/s (NVIDIA data sheet)
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense, no TF32
-ARCH = "granite-moe-1b-a400m"
-KERNELS = {  # name -> (wrapper, source, TPU kernel it replaces)
+GQA_ARCH = "granite-moe-1b-a400m"
+MLA_ARCH = "deepseek-v2-236b"
+MLA_LAYERS = 3  # deepseek depth cut 60 -> 3: dense layer 0 + 2 MoE layers
+MHA_PATH = "mha"
+# name -> (wrapper, source, TPU kernel it replaces, the path it was ported
+# on: the `kernels` line's `launches` is that path's own count)
+KERNELS = {
     "paged_prefill_gqa": (paged_prefill_gqa, "src/repro_torch/csrc/paged_attention.cu",
-                          "src/repro/kernels/paged_attention/paged_attention.py:105"),
+                          "src/repro/kernels/paged_attention/paged_attention.py:105", GQA_ARCH),
+    "paged_prefill_mla": (paged_prefill_mla, "src/repro_torch/csrc/paged_attention_mla.cu",
+                          "src/repro/kernels/paged_attention/paged_attention.py:219", MLA_ARCH),
     "moe_gemm": (moe_gemm, "src/repro_torch/csrc/moe_gemm.cu",
-                 "src/repro/kernels/moe_gemm/moe_gemm.py:34"),
+                 "src/repro/kernels/moe_gemm/moe_gemm.py:34", GQA_ARCH),
     "expert_ffn_gemv": (expert_ffn_gemv, "src/repro_torch/csrc/expert_gemv.cu",
-                        "src/repro/kernels/expert_gemv/expert_gemv.py:44"),
+                        "src/repro/kernels/expert_gemv/expert_gemv.py:44", GQA_ARCH),
+    "flash_attention": (flash_attention, "src/repro_torch/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention/flash_attention.py:66", MHA_PATH),
 }
 TOL = {  # (atol, rtol) of kernel vs plain version, by dtype
     # fp32: same products, other summation order (k up to 1024 terms)
     torch.float32: (1e-4, 1e-4),
     # bf16: the output is rounded to bf16 (8 mantissa bits), and the
-    # intermediate h / P roundings can flip by one bf16 ulp
+    # intermediate h / P roundings can flip by one bf16 ulp (flash
+    # attention holds its bf16 cases to `rounding_bound` instead)
     torch.bfloat16: (3e-2, 3e-2),
 }
 
@@ -117,20 +139,25 @@ def device_time_ms(fn, arg_sets, calls: int = 32, reps: int = 5) -> float:
     return _events_ms(graph.replay, reps) / (reps * calls)
 
 
-def compare(name, got, want, dtype, mask=None):
+def compare(name, got, want, dtype, tol=None):
+    """Fail unless |got - want| is within `tol` everywhere: an (atol, rtol)
+    pair (default TOL[dtype]) or a tensor of per-element bounds. Returns
+    (max abs error, max rel error, largest error / allowed error)."""
     if not torch.isfinite(got.float()).all():
         fail(f"{name}: kernel output has non-finite values")
     g, w = got.float(), want.float()
-    if mask is not None:
-        g, w = g[mask], w[mask]
     err = (g - w).abs()
-    atol, rtol = TOL[dtype]
-    bad = err > atol + rtol * w.abs()
+    if isinstance(tol, torch.Tensor):
+        allowed = tol.float()
+    else:
+        atol, rtol = tol or TOL[dtype]
+        allowed = atol + rtol * w.abs()
+    bad = err > allowed
     max_abs = float(err.max())
     max_rel = float((err / w.abs().clamp_min(1e-6)).max())
     if bad.any():
         fail(f"{name} [{dtype}]: {int(bad.sum())} elements off, max abs err {max_abs:.3e}")
-    return max_abs, max_rel
+    return max_abs, max_rel, float((err / allowed.clamp_min(1e-30)).max())
 
 
 def bound_ms(nbytes: float, flops: float, dtype) -> tuple:
@@ -227,6 +254,71 @@ def gemv_case(dtype, *, n_slots, t, dev, gen):
     )
 
 
+def mla_case(dtype, *, b, c, past, dev, gen):
+    """Absorbed MLA at deepseek-v2's widths (H=128, r=512, rd=64, scale
+    192^-0.5) over 4-token blocks, 18 per row (cache_len 72): fp32
+    queries, latent pools in `dtype`. The math is fp32 on both sides in
+    either pool dtype, so both are held to the fp32 tolerance. Library:
+    SDPA over [q_lat | q_rope] against [ckv | krope] broadcast to the
+    heads, values ckv, with the position mask."""
+    h, r, rd, bs, nb = 128, 512, 64, 4, 18
+    scale = (128 + 64) ** -0.5
+    n_blocks = 8 * nb
+    perm = torch.randperm(n_blocks, generator=gen, device="cpu")[: b * nb]
+    tables = perm.reshape(b, nb).to(torch.int32).to(dev)
+    q_lat = torch.randn(b, c, h, r, generator=gen).to(dev)
+    q_rope = torch.randn(b, c, h, rd, generator=gen).to(dev)
+    pool_ckv = torch.randn(n_blocks + 1, bs, r, generator=gen).to(dev, dtype)
+    pool_krope = torch.randn(n_blocks + 1, bs, rd, generator=gen).to(dev, dtype)
+    past_len = torch.tensor(past, dtype=torch.int32, device=dev)
+    lengths = torch.full((b,), c, dtype=torch.int32, device=dev)
+    args = (q_lat, q_rope, pool_ckv, pool_krope, tables, past_len, lengths)
+    ckv = linearize_blocks(pool_ckv, tables).float()  # [B, S, r]
+    keys = torch.cat([ckv, linearize_blocks(pool_krope, tables).float()], -1)
+    qh = torch.cat([q_lat, q_rope], -1).transpose(1, 2)  # [B, H, C, r + rd]
+    n_keys = keys.shape[1]
+    kh = keys[:, None].expand(b, h, n_keys, r + rd)  # one latent stream, all heads
+    vh = ckv[:, None].expand(b, h, n_keys, r)
+    qpos = past_len[:, None] + torch.arange(c, device=dev)[None, :]
+    mask = (torch.arange(n_keys, device=dev)[None, None, :] <= qpos[:, :, None])[:, None]
+    # least work: walked latents read once per row, q read, o_lat written
+    walked = sum(min(nb, (p + c - 1) // bs + 1) * bs for p in past)
+    nbytes = ((2 * q_lat.numel() + q_rope.numel()) * 4
+              + walked * (r + rd) * pool_ckv.element_size() + tables.numel() * 4)
+    visible = sum(sum(p + i + 1 for i in range(c)) for p in past)
+    return dict(
+        args=args, lib_args=(qh, kh, vh, mask),
+        kernel=lambda *a: paged_prefill_mla(*a, scale=scale, backend="cuda"),
+        plain=lambda *a: paged_prefill_mla(*a, scale=scale, backend="ref"),
+        library=lambda q, k, v, m: F.scaled_dot_product_attention(q, k, v, attn_mask=m,
+                                                                  scale=scale),
+        held=sum(t.numel() * t.element_size() for t in args),
+        bound=bound_ms(nbytes, 2.0 * visible * h * (2 * r + rd), torch.float32),
+        tol=TOL[torch.float32],
+    )
+
+
+def flash_case(dtype, *, b, s, h, dh, dev, gen):
+    """Causal dense attention in the kernel layout [B*H, S, dh]. Library:
+    SDPA(is_causal=True) in [B, H, S, dh]. The largest case cuts the
+    graph to a few calls: its plain version materializes the S x S
+    scores. bf16 is held to `rounding_bound`, which scales with each
+    output (a fixed 3e-2 is as large as a late row's output at S=8192)."""
+    q, k, v = (torch.randn(b * h, s, dh, generator=gen).to(dev, dtype) for _ in range(3))
+    isz = q.element_size()
+    return dict(
+        args=(q, k, v), lib_args=tuple(t.reshape(b, h, s, dh) for t in (q, k, v)),
+        kernel=lambda *a: flash_attention(*a, causal=True, backend="cuda"),
+        plain=lambda *a: flash_attention(*a, causal=True, backend="ref"),
+        library=lambda q, k, v: F.scaled_dot_product_attention(q, k, v, is_causal=True),
+        held=3 * q.numel() * isz,
+        bound=bound_ms(4 * q.numel() * isz, 4.0 * dh * b * h * s * (s + 1) / 2, dtype),
+        calls=2 if s > 2048 else 32,
+        tol=(lambda: rounding_bound(q[None], k[None], v[None], causal=True)[0])
+        if dtype == torch.bfloat16 else TOL[torch.float32],
+    )
+
+
 KERNEL_CASES = [  # (kernel, label, case, kwargs); the first per kernel is its JSON row
     ("paged_prefill_gqa", "decode B=4 nb=16", attention_case,
      dict(b=4, c=1, nb=16, past=[40, 51, 60, 63])),
@@ -238,6 +330,14 @@ KERNEL_CASES = [  # (kernel, label, case, kwargs); the first per kernel is its J
      dict(n_slots=8, rows=128, k=512, n=1024, pair=False)),
     ("expert_ffn_gemv", "cold 16 slots T=8", gemv_case, dict(n_slots=16, t=8)),
     ("expert_ffn_gemv", "hot 8 slots T=4", gemv_case, dict(n_slots=8, t=4)),
+    ("paged_prefill_mla", "decode B=4 H=128 r=512 nb=18", mla_case,
+     dict(b=4, c=1, past=[40, 51, 60, 71])),
+    ("paged_prefill_mla", "prefill B=4 C=32 H=128 r=512 nb=18", mla_case,
+     dict(b=4, c=32, past=[0, 16, 24, 40])),
+    ("flash_attention", "mha B=1 S=512 H=4 dh=64 causal", flash_case,
+     dict(b=1, s=512, h=4, dh=64)),
+    ("flash_attention", "llama3.2-3b H=24 dh=128 S=8192 causal", flash_case,
+     dict(b=1, s=8192, h=24, dh=128)),
 ]
 
 
@@ -251,18 +351,24 @@ def run_case(name, label, make, dtype, kw, dev, gen) -> dict:
     sets = [first] + [make(dtype, dev=dev, gen=gen, **kw) for _ in range(n_sets - 1)]
     got = first["kernel"](*first["args"])
     want = first["plain"](*first["args"])
+    tol = first.get("tol")
+    tol = tol() if callable(tol) else tol
     torch.cuda.synchronize()
-    max_abs, max_rel = compare(f"{name}/{label}", got, want, dtype)
+    max_abs, max_rel, err_over_tol = compare(f"{name}/{label}", got, want, dtype, tol)
+    del got, want, tol
     args = [s["args"] for s in sets]
     b_ms, b_by = first["bound"]
+    calls = first.get("calls", 32)
     return dict(
         phase="kernel", kernel=name, case=label, dtype=str(dtype)[6:],
-        kernel_ms=device_time_ms(first["kernel"], args),
-        kernel_call_ms=call_time_ms(lambda: first["kernel"](*first["args"]), 50),
-        plain_ms=device_time_ms(first["plain"], args),
-        library_ms=device_time_ms(first["library"], [s["lib_args"] for s in sets]),
+        kernel_ms=device_time_ms(first["kernel"], args, calls=calls),
+        kernel_call_ms=call_time_ms(lambda: first["kernel"](*first["args"]),
+                                    50 if calls == 32 else 3),
+        plain_ms=device_time_ms(first["plain"], args, calls=calls),
+        library_ms=device_time_ms(first["library"], [s["lib_args"] for s in sets],
+                                  calls=calls),
         bound_ms=b_ms, bound_by=b_by, max_abs_err=max_abs, max_rel_err=max_rel,
-        input_sets=n_sets,
+        err_over_tol=err_over_tol, input_sets=n_sets,
     )
 
 
@@ -292,13 +398,47 @@ def make_traffic(vocab: int, n: int, seed: int, new_tokens: int = 16):
 
 
 def reset_counters() -> None:
-    for fn, _, _ in KERNELS.values():
+    for fn, *_ in KERNELS.values():
         fn.launches = 0
 
 
-def serve_full(dev, profile_out) -> dict:
-    cfg = get_config(ARCH)
-    torch.cuda.reset_peak_memory_stats(dev)  # peak_mem_gb: serving only
+def read_counters() -> dict:
+    return {name: fn.launches for name, (fn, *_) in KERNELS.items()}
+
+
+def mha_entry(dev) -> dict:
+    """Flash attention's own path: its entry point `mha` (the kernel
+    bench's shape, bf16, causal) with the counters reset just before.
+    Checked against the plain version, within `rounding_bound`, after
+    the counters are read."""
+    gen = torch.Generator().manual_seed(5)
+    q, k, v = (torch.randn(1, 512, 4, 64, generator=gen).to(dev, torch.bfloat16)
+               for _ in range(3))
+    reset_counters()
+    out = mha(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    launches = read_counters()
+    if launches["flash_attention"] == 0:
+        fail("mha did not launch the flash_attention kernel")
+    bound = rounding_bound(*(t.transpose(1, 2) for t in (q, k, v)), causal=True)
+    max_abs, _, err_over_tol = compare("mha", out, mha(q, k, v, causal=True, backend="ref"),
+                                       torch.bfloat16, bound.transpose(1, 2))
+    line = dict(phase="mha", path=MHA_PATH, shape=list(q.shape), launches=launches,
+                max_abs_err=max_abs, err_over_tol=err_over_tol)
+    print(json.dumps(line), flush=True)
+    return line
+
+
+def serve_full(dev, arch: str, n_layers, expect, forbid, profile_out=None) -> dict:
+    """Serve `arch` at its published widths (depth cut to `n_layers`
+    where given) through ServingLoop; the kernels in `expect` must launch
+    and those in `forbid` must not."""
+    cfg = get_config(arch)
+    if n_layers is not None:
+        print(f"{arch}: depth cut {cfg.n_layers} -> {n_layers} layers, every width as "
+              f"published", flush=True)
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    torch.cuda.reset_peak_memory_stats(dev)  # peak_mem_gb: this phase only
     t0 = time.time()
     params = init_params(0, cfg, device=dev)
     loop = ServingLoop(cfg, params, batch_size=8, n_groups=2, cache_len=72,
@@ -306,6 +446,7 @@ def serve_full(dev, profile_out) -> dict:
     del params  # the engine keeps the stripped params, the tiers the experts
     torch.cuda.synchronize()
     setup_s = time.time() - t0
+    setup_peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
     # warm-up (cuBLAS handles, allocator) on prompts sharing nothing with
     # the measured traffic; then every metric and counter starts at 0
     for r in make_traffic(cfg.vocab_size, 2, seed=99, new_tokens=4):
@@ -319,29 +460,33 @@ def serve_full(dev, profile_out) -> dict:
     for r in reqs:
         loop.submit(r)
     done = loop.run()[n_before:]
-    launches = {name: fn.launches for name, (fn, _, _) in KERNELS.items()}
+    launches = read_counters()
     if len(done) != len(reqs) or any(len(r.generated) != 16 for r in done):
-        fail(f"served {len(done)}/{len(reqs)} requests completely")
+        fail(f"{arch}: served {len(done)}/{len(reqs)} requests completely")
     toks = np.concatenate([np.asarray(r.generated) for r in done])
     if toks.min() < 0 or toks.max() >= cfg.vocab_size:
-        fail("generated token ids outside the vocabulary")
-    for name, n in launches.items():
-        if n == 0:
-            fail(f"kernel {name} was never launched on the serving path")
+        fail(f"{arch}: generated token ids outside the vocabulary")
+    for name in expect:
+        if launches[name] == 0:
+            fail(f"{arch}: kernel {name} was never launched on the serving path")
+    for name in forbid:
+        if launches[name] != 0:
+            fail(f"{arch}: kernel {name} launched {launches[name]} times off its path")
     st, eng = loop.stats, loop.engine
     out = dict(
-        phase="serve", arch=ARCH, dtype=cfg.param_dtype, layers=cfg.n_layers,
+        phase="serve", path=arch, arch=arch, dtype=cfg.param_dtype, layers=cfg.n_layers,
         d_model=cfg.d_model, requests=len(done), generated_tokens=st.generated_tokens,
         wall_s=st.wall_s, tokens_per_s=st.tokens_per_s, ttft_p50_s=st.ttft_p50_s,
         itl_p50_s=st.itl_p50_s, itl_p95_s=st.itl_p95_s, decode_steps=st.decode_steps,
         prefill_chunks=st.prefill_chunks, replans=st.replans, migrations=st.migrations,
         prefix_hit_rate=loop.kv.stats.hit_rate, tier_sizes=list(eng.sizes),
-        setup_s=setup_s, peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
-        launches=launches,
+        setup_s=setup_s, setup_peak_mem_gb=setup_peak_gb,
+        peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 1e9, launches=launches,
     )
     print(json.dumps(out), flush=True)
     if profile_out:
-        profile_serving(loop, cfg, Path(profile_out))
+        p = Path(profile_out)
+        profile_serving(loop, cfg, p.with_name(f"{p.stem}-{arch}{p.suffix}"))
     return out
 
 
@@ -362,15 +507,15 @@ def profile_serving(loop, cfg, out: Path) -> None:
     out.write_text(table)
     dev_us = sum(e.time_range.elapsed_us() for e in prof.events()
                  if e.device_type == torch.autograd.DeviceType.CUDA)
-    print(json.dumps(dict(phase="profile", wall_s=wall, device_busy_s=dev_us / 1e6,
+    print(json.dumps(dict(phase="profile", arch=cfg.name, wall_s=wall, device_busy_s=dev_us / 1e6,
                           device_busy_share=dev_us / 1e6 / wall)), flush=True)
     print(table[:6000], flush=True)
 
 
-def serve_smoke_parity(dev) -> None:
-    """fp32 smoke granite: the kernels on the card against the plain
+def serve_smoke_parity(dev, arch: str) -> None:
+    """fp32 smoke `arch`: the kernels on the card against the plain
     versions on the CPU, same weights and tier state -> same tokens."""
-    cfg = reduce_for_smoke(get_config(ARCH))
+    cfg = reduce_for_smoke(get_config(arch))
     cfg = dataclasses.replace(cfg, param_dtype="float32", compute_dtype="float32")
     params = init_params(0, cfg, device="cpu")
     gen = torch.Generator().manual_seed(1)
@@ -387,8 +532,9 @@ def serve_smoke_parity(dev) -> None:
             loop.submit(r)
         got[d.type] = {r.rid: r.generated for r in loop.run()}
     if got["cuda"] != got["cpu"]:
-        fail(f"fp32 smoke serving: card tokens {got['cuda']} != CPU tokens {got['cpu']}")
-    print(json.dumps(dict(phase="smoke_parity", requests=len(got["cpu"]),
+        fail(f"{arch} fp32 smoke serving: card tokens {got['cuda']} != CPU tokens "
+             f"{got['cpu']}")
+    print(json.dumps(dict(phase="smoke_parity", arch=arch, requests=len(got["cpu"]),
                           identical_tokens=True)), flush=True)
 
 
@@ -397,7 +543,8 @@ def main(argv=None) -> int:
     ap.add_argument("--profile", action="store_true",
                     help="also trace a serving window with torch.profiler")
     ap.add_argument("--profile-out", default="profile_out/serve_profile.txt",
-                    help="where --profile writes its full table")
+                    help="where --profile writes its full tables (one per model: "
+                         "the file name's stem gets -<arch>)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("FAIL: no CUDA device: chip_smoke.py runs on the GPU", flush=True)
@@ -420,15 +567,29 @@ def main(argv=None) -> int:
                 print(f"ptxas[{name}] {line.strip()}", flush=True)
 
     rows = kernel_phases(dev)
-    serve = serve_full(dev, args.profile_out if args.profile else None)
-    serve_smoke_parity(dev)
+    paths = [mha_entry(dev)]
+    paths.append(serve_full(
+        dev, GQA_ARCH, None, expect=("paged_prefill_gqa", "moe_gemm", "expert_ffn_gemv"),
+        forbid=("paged_prefill_mla",), profile_out=args.profile_out if args.profile else None))
+    gc.collect()
+    torch.cuda.empty_cache()  # the granite loop's weights and tiers
+    paths.append(serve_full(
+        dev, MLA_ARCH, MLA_LAYERS, expect=("paged_prefill_mla", "moe_gemm", "expert_ffn_gemv"),
+        forbid=("paged_prefill_gqa",), profile_out=args.profile_out if args.profile else None))
+    gc.collect()
+    torch.cuda.empty_cache()
+    for arch in (GQA_ARCH, MLA_ARCH):
+        serve_smoke_parity(dev, arch)
 
+    by_path = {p["path"]: p["launches"] for p in paths}  # each after its own reset
     kernels = []
-    for name, (fn, src, replaces) in KERNELS.items():
+    for name, (fn, src, replaces, path) in KERNELS.items():
         r = rows[name]
         kernels.append(dict(
             name=name, route="cuda", source=src, replaces=replaces,
-            launches=serve["launches"][name], max_abs_err=r["max_abs_err"], ms=r["kernel_ms"],
+            launches=by_path[path][name],
+            launches_by_path={p: n[name] for p, n in by_path.items()},
+            max_abs_err=r["max_abs_err"], ms=r["kernel_ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=r["library_ms"],
         ))

@@ -21,7 +21,8 @@ from typing import Dict
 _PKG = Path(__file__).resolve().parents[1]
 SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("paged_attention", "moe_gemm", "expert_gemv")
+SOURCES = ("paged_attention", "paged_attention_mla", "moe_gemm", "expert_gemv",
+           "flash_attention")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

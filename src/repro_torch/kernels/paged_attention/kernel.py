@@ -1,11 +1,14 @@
-"""Wrapper of the CUDA paged GQA attention kernel (csrc/paged_attention.cu),
-the port of the Pallas TPU kernel `paged_prefill_gqa`
-(repro/kernels/paged_attention/paged_attention.py:105) and of its
-chunk-of-1 decode wrapper `paged_decode_gqa` (:153).
+"""Wrappers of the CUDA paged attention kernels:
 
-`paged_prefill_gqa(..., backend=)` follows kernels/backend.py: a CUDA
-tensor launches the kernel (or raises), a CPU tensor runs the plain
-version `paged_prefill_gqa_ref`. `paged_prefill_gqa.launches` counts
+- csrc/paged_attention.cu, the port of the Pallas TPU kernel
+  `paged_prefill_gqa` (repro/kernels/paged_attention/paged_attention.py:105)
+  and of its chunk-of-1 decode wrapper `paged_decode_gqa` (:153);
+- csrc/paged_attention_mla.cu, the port of `paged_prefill_mla` (:219)
+  and of its chunk-of-1 decode wrapper `paged_decode_mla` (:269).
+
+Each wrapper follows kernels/backend.py: a CUDA tensor launches the
+kernel (or raises), a CPU tensor runs the plain version of ref.py.
+`paged_prefill_gqa.launches` and `paged_prefill_mla.launches` count
 kernel launches.
 """
 from __future__ import annotations
@@ -18,9 +21,13 @@ import torch
 from repro_torch.kernels import _launch as L
 from repro_torch.kernels.backend import kernel_span, use_kernel
 from repro_torch.kernels.build import check, library
-from repro_torch.kernels.paged_attention.ref import paged_prefill_gqa_ref
+from repro_torch.kernels.paged_attention.ref import (
+    paged_prefill_gqa_ref,
+    paged_prefill_mla_ref,
+)
 
 OP = "paged_prefill_gqa"
+OP_MLA = "paged_prefill_mla"
 
 
 @functools.cache
@@ -89,4 +96,88 @@ def paged_decode_gqa(q, pool_k, pool_v, tables, pos, *, backend: str = "auto"):
     return paged_prefill_gqa(
         q[:, None].contiguous(), pool_k, pool_v, tables, pos, torch.ones_like(pos),
         backend=backend,
+    )[:, 0]
+
+
+# ------------------------------------------------------------------- MLA
+@functools.cache
+def _mla_entry():
+    """(kernel entry, shared-memory size query, widest latent rank)."""
+    lib = library("paged_attention_mla")
+    smem = lib.paged_prefill_mla_smem
+    smem.restype = ctypes.c_size_t
+    smem.argtypes = [ctypes.c_int, ctypes.c_int]
+    max_rank = lib.paged_prefill_mla_max_rank
+    max_rank.restype = ctypes.c_int
+    max_rank.argtypes = []
+    fn = lib.paged_prefill_mla
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [
+        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    return fn, smem, max_rank()
+
+
+def _launch_mla(q_lat, q_rope, pool_ckv, pool_krope, tables, past_len, lengths,
+                scale: float) -> torch.Tensor:
+    b, c, h, r = q_lat.shape
+    rd = q_rope.shape[-1]
+    nblk, bs = pool_ckv.shape[0], pool_ckv.shape[1]
+    L.same_device(OP_MLA, q_lat, q_rope, pool_ckv, pool_krope, tables, past_len, lengths)
+    L.require(q_lat.dtype == torch.float32 and q_rope.dtype == torch.float32, OP_MLA,
+              "q_lat and q_rope must be float32")
+    code = L.dtype_code(pool_ckv, OP_MLA)
+    L.require(pool_krope.dtype == pool_ckv.dtype, OP_MLA, "the pools must share a dtype")
+    L.require(q_rope.shape == (b, c, h, rd), OP_MLA,
+              f"q_rope {tuple(q_rope.shape)} does not match q_lat {tuple(q_lat.shape)}")
+    L.require(pool_ckv.shape == (nblk, bs, r) and pool_krope.shape == (nblk, bs, rd),
+              OP_MLA, f"pools {tuple(pool_ckv.shape)}, {tuple(pool_krope.shape)} do not "
+                      f"match q_lat {tuple(q_lat.shape)} and q_rope {tuple(q_rope.shape)}")
+    L.require(tables.dim() == 2 and tables.shape[0] == b, OP_MLA, "tables must be [B, nb]")
+    for name, t in (("tables", tables), ("past_len", past_len), ("lengths", lengths)):
+        L.require(t.dtype == torch.int32, OP_MLA, f"{name} must be int32")
+    L.require(past_len.shape == (b,) and lengths.shape == (b,), OP_MLA,
+              "past_len and lengths must be [B]")
+    for t in (q_lat, q_rope, pool_ckv, pool_krope, tables, past_len, lengths):
+        L.require(t.is_contiguous(), OP_MLA, "all inputs must be contiguous")
+    fn, smem_of, max_rank = _mla_entry()
+    L.require(r <= max_rank, OP_MLA, f"latent rank {r} above the kernel's {max_rank}")
+    smem = smem_of(r, rd)
+    L.require(smem <= L.MAX_SMEM, OP_MLA,
+              f"latent width {r} + {rd} needs {smem} B of shared memory")
+    out = torch.empty_like(q_lat)
+    err = fn(L.ptr(q_lat), L.ptr(q_rope), L.ptr(pool_ckv), L.ptr(pool_krope),
+             L.ptr(tables), L.ptr(past_len), L.ptr(lengths), L.ptr(out),
+             b, c, h, r, rd, bs, tables.shape[1], scale, code, L.stream(q_lat))
+    check(err, OP_MLA)
+    paged_prefill_mla.launches += 1
+    return out
+
+
+def paged_prefill_mla(q_lat, q_rope, pool_ckv, pool_krope, tables, past_len, lengths, *,
+                      scale: float, backend: str = "auto") -> torch.Tensor:
+    """Absorbed MLA attention of a chunk over latent pools. q_lat [B, C, H,
+    r] and q_rope [B, C, H, rd] fp32; pools [N+1, bs, r] and [N+1, bs, rd]
+    in the param dtype (last block = write trash); tables [B, nb] int32;
+    past_len / lengths [B] int32 as in `paged_prefill_gqa`; `scale` is
+    (qk_nope + qk_rope) ** -0.5 -> o_lat [B, C, H, r] fp32."""
+    if use_kernel(backend, q_lat, op=OP_MLA):
+        with kernel_span(OP_MLA, "cuda"):
+            return _launch_mla(q_lat, q_rope, pool_ckv, pool_krope, tables, past_len,
+                               lengths, scale)
+    with kernel_span(OP_MLA, "ref"):
+        return paged_prefill_mla_ref(q_lat, q_rope, pool_ckv, pool_krope, tables,
+                                     past_len, lengths, scale=scale)
+
+
+paged_prefill_mla.launches = 0
+
+
+def paged_decode_mla(q_lat, q_rope, pool_ckv, pool_krope, tables, pos, *,
+                     scale: float, backend: str = "auto"):
+    """Decode = chunk of 1: q_lat [B, H, r], q_rope [B, H, rd] at `pos`
+    [B] -> o_lat [B, H, r] fp32 (`past_len = pos, lengths = 1`)."""
+    pos = pos.to(torch.int32)
+    return paged_prefill_mla(
+        q_lat[:, None].contiguous(), q_rope[:, None].contiguous(), pool_ckv, pool_krope,
+        tables, pos, torch.ones_like(pos), scale=scale, backend=backend,
     )[:, 0]

@@ -1,20 +1,33 @@
-"""Paged GQA attention for serving (port of repro/models/attention.py:
-`init_gqa` :38, `_paged_write` :364, `paged_scatter` :374,
-`gqa_decode_paged` :390, `gqa_prefill_paged` :495).
+"""Paged GQA and MLA attention for serving (port of
+repro/models/attention.py: `init_gqa` :38, `init_mla` :56, `_paged_write`
+:364, `paged_scatter` :374, `gqa_decode_paged` :390, `mla_decode_paged`
+:438, `gqa_prefill_paged` :495, `mla_prefill_paged` :552).
 
-K/V live in shared block pools [N+1, bs, Kv, hd] whose last block is
-the write trash: pad rows and dead rows write there, never into a
-(possibly shared) live block. The pools are updated IN PLACE (the JAX
-functions return new pools; here the same tensors come back, written),
-which saves a copy of every pool per layer per step. The attention
-itself is the paged-attention kernel family
+K/V (GQA) and the MLA latents live in shared block pools [N+1, bs, ...]
+whose last block is the write trash: pad rows and dead rows write there,
+never into a (possibly shared) live block. The pools are updated IN PLACE
+(the JAX functions return new pools; here the same tensors come back,
+written), which saves a copy of every pool per layer per step. The
+attention itself is the paged-attention kernel family
 (kernels/paged_attention), decode being its chunk-of-1 case.
+
+MLA runs absorbed: W_k^nope is folded into the query (`q_lat`), the
+kernel attends over the latent pools and returns latent outputs, and the
+W_v expansion and output projection stay out here. Those latent
+contractions run in fp32 (the operands are cast first; TF32 stays off),
+as the reference's `preferred_element_type=f32`: a bf16 accumulation
+over the kv_lora_rank-wide latent drifts decode measurably.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.paged_attention import paged_decode_gqa, paged_prefill_gqa
+from repro_torch.kernels.paged_attention import (
+    paged_decode_gqa,
+    paged_decode_mla,
+    paged_prefill_gqa,
+    paged_prefill_mla,
+)
 from repro_torch.models.layers import Params, apply_rope, dense_init, torch_dtype
 
 
@@ -34,6 +47,37 @@ def init_gqa(gen: torch.Generator, cfg, lead=()) -> Params:
         p["bk"] = torch.zeros((*lead, kv, hd), dtype=dt, device=dev)
         p["bv"] = torch.zeros((*lead, kv, hd), dtype=dt, device=dev)
     return p
+
+
+def init_mla(gen: torch.Generator, cfg, lead=()) -> Params:
+    m, d = cfg.mla, cfg.d_model
+    dt = torch_dtype(cfg.param_dtype)
+    h = cfg.n_heads
+    return {
+        # q: direct projection to nope + rope dims per head
+        "wq": dense_init(gen, (d, h, m.qk_nope_head_dim + m.qk_rope_head_dim), dt,
+                         lead=lead),
+        # kv_a: down-projection to the latent + the shared rope key
+        "wkv_a": dense_init(gen, (d, m.kv_lora_rank + m.qk_rope_head_dim), dt, lead=lead),
+        # kv_b: latent -> per-head (k_nope, v)
+        "wkv_b": dense_init(gen, (m.kv_lora_rank, h, m.qk_nope_head_dim + m.v_head_dim),
+                            dt, lead=lead),
+        "wo": dense_init(gen, (h, m.v_head_dim, d), dt, lead=lead),
+    }
+
+
+def gqa_cache_shapes(cfg, n_tokens: int) -> dict:
+    """Token-addressed cache leaves of a GQA layer, in the order the
+    paged functions take them (reference `init_layer_cache` :147-158)."""
+    kv = (n_tokens, cfg.n_kv_heads, cfg.resolved_head_dim)
+    return {"k": kv, "v": kv}
+
+
+def mla_cache_shapes(cfg, n_tokens: int) -> dict:
+    """Token-addressed cache leaves of an MLA layer: the latent and the
+    shared rope key."""
+    m = cfg.mla
+    return {"ckv": (n_tokens, m.kv_lora_rank), "krope": (n_tokens, m.qk_rope_head_dim)}
 
 
 def _qkv(p: Params, x: torch.Tensor, positions: torch.Tensor, theta: float):
@@ -107,3 +151,59 @@ def gqa_prefill_paged(p: Params, cfg, x, pool_k, pool_v, tables, past_len,
                             backend=cfg.paged_attn_backend)
     out = out.reshape(b, c, q.shape[2], q.shape[3]).to(x.dtype)
     return torch.einsum("bshk,hkd->bsd", out, p["wo"]), pool_k, pool_v
+
+
+def _mla_project(p: Params, cfg, x, positions):
+    """Absorbed MLA projections of x [B, S, D] at `positions` [B, S]:
+    (q_lat [B, S, H, r] fp32, q_rope [B, S, H, rd] fp32, ckv_new [B, S, r],
+    krope_new [B, S, rd], wv_b [r, H, v])."""
+    m = cfg.mla
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+    q_nope, q_rope = q.split([m.qk_nope_head_dim, m.qk_rope_head_dim], dim=-1)
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+    kv_a = torch.einsum("bsd,dr->bsr", x, p["wkv_a"])
+    ckv_new, krope_new = kv_a.split([m.kv_lora_rank, m.qk_rope_head_dim], dim=-1)
+    krope_new = apply_rope(krope_new[:, :, None, :], positions, cfg.rope_theta)[:, :, 0, :]
+    wk_b, wv_b = p["wkv_b"].split([m.qk_nope_head_dim, m.v_head_dim], dim=-1)
+    q_lat = torch.einsum("bshk,rhk->bshr", q_nope.float(), wk_b.float())
+    return q_lat.contiguous(), q_rope.float().contiguous(), ckv_new, krope_new, wv_b
+
+
+def _mla_out(p: Params, o_lat, wv_b, dtype):
+    """Latent outputs o_lat [B, S, H, r] fp32 -> [B, S, D]: the W_v
+    expansion in fp32, cast to the activation dtype, then wo."""
+    o = torch.einsum("bshr,rhk->bshk", o_lat, wv_b.float()).to(dtype)
+    return torch.einsum("bshk,hkd->bsd", o, p["wo"])
+
+
+def _mla_scale(cfg) -> float:
+    return (cfg.mla.qk_nope_head_dim + cfg.mla.qk_rope_head_dim) ** -0.5
+
+
+def mla_decode_paged(p: Params, cfg, x, pool_ckv, pool_krope, tables, pos):
+    """Absorbed one-token MLA decode against paged latent pools. x [B, 1,
+    D]; pool_ckv [N+1, bs, r]; pool_krope [N+1, bs, rd]; tables [B, nb]
+    int32; pos [B] int32. The new token's latents are written first, then
+    the kernel attends in latent space. Returns (out [B, 1, D], pool_ckv,
+    pool_krope)."""
+    q_lat, q_rope, ckv_new, krope_new, wv_b = _mla_project(p, cfg, x, pos[:, None])
+    _paged_write(pool_ckv, tables, pos, ckv_new[:, 0])
+    _paged_write(pool_krope, tables, pos, krope_new[:, 0])
+    o_lat = paged_decode_mla(q_lat[:, 0], q_rope[:, 0], pool_ckv, pool_krope, tables, pos,
+                             scale=_mla_scale(cfg), backend=cfg.paged_attn_backend)
+    return _mla_out(p, o_lat[:, None], wv_b, x.dtype), pool_ckv, pool_krope
+
+
+def mla_prefill_paged(p: Params, cfg, x, pool_ckv, pool_krope, tables, past_len,
+                      positions, token_mask):
+    """Absorbed chunked MLA suffix prefill against paged latent pools:
+    `mla_decode_paged` widened to a [rows, chunk] query tile, arguments as
+    in `gqa_prefill_paged`. Returns (out [W, C, D], pool_ckv, pool_krope)."""
+    q_lat, q_rope, ckv_new, krope_new, wv_b = _mla_project(p, cfg, x, positions)
+    paged_scatter(pool_ckv, tables, positions, token_mask, ckv_new)
+    paged_scatter(pool_krope, tables, positions, token_mask, krope_new)
+    lengths = token_mask.sum(-1).to(torch.int32)
+    o_lat = paged_prefill_mla(q_lat, q_rope, pool_ckv, pool_krope, tables, past_len,
+                              lengths, scale=_mla_scale(cfg),
+                              backend=cfg.paged_attn_backend)
+    return _mla_out(p, o_lat, wv_b, x.dtype), pool_ckv, pool_krope

@@ -29,7 +29,9 @@ def dense_init(gen: torch.Generator, shape: Sequence[int], dtype: torch.dtype,
     scale = scale if scale is not None else fan_in ** -0.5
     x = torch.randn((*lead, *shape), generator=gen, device=gen.device,
                     dtype=torch.float32)
-    return (x * scale).to(dtype)
+    # scaled in place: one fp32 copy of the draw, not two (a full-width
+    # cold tier buffer is ~9 GB in fp32)
+    return x.mul_(scale).to(dtype)
 
 
 # ----------------------------------------------------------------- RMSNorm

@@ -10,7 +10,7 @@ groups on views of the stacked tensors. K/V pools are updated in place.
 """
 from __future__ import annotations
 
-from typing import List, Tuple
+from typing import Callable, List, NamedTuple, Tuple
 
 import torch
 
@@ -66,14 +66,33 @@ def stack_plan(cfg: ModelConfig) -> Tuple[List[int], int, List[Sig]]:
     raise ValueError(f"no periodic plan for {cfg.name}: {sigs}")
 
 
+class Mixer(NamedTuple):
+    """What the port knows of one mixer kind: its params, its paged decode
+    and chunk-prefill functions, and its cache leaves (pool keys in the
+    order those functions take them, with their per-token shapes)."""
+
+    init: Callable
+    decode_paged: Callable
+    prefill_paged: Callable
+    cache_shapes: Callable  # (cfg, n_tokens) -> {pool key: shape}
+
+
+MIXERS = {  # the mixers the port serves
+    "attn": Mixer(attn.init_gqa, attn.gqa_decode_paged, attn.gqa_prefill_paged,
+                  attn.gqa_cache_shapes),
+    "mla": Mixer(attn.init_mla, attn.mla_decode_paged, attn.mla_prefill_paged,
+                 attn.mla_cache_shapes),
+}
+
+
 def check_supported(cfg: ModelConfig) -> None:
-    """This slice serves GQA attention with MoE or dense FFNs; MLA,
+    """The port serves GQA and MLA attention with MoE or dense FFNs;
     recurrent mixers and encoder-decoder models are later slices."""
     if cfg.encdec is not None:
         raise NotImplementedError("encoder-decoder models are not ported yet")
     unrolled, _, period = stack_plan(cfg)
     for mixer, _ffn in [layer_signature(cfg, i) for i in unrolled] + list(period):
-        if mixer != "attn":
+        if mixer not in MIXERS:
             raise NotImplementedError(f"{mixer} layers are not ported yet")
 
 
@@ -84,7 +103,7 @@ def init_layer(gen, cfg: ModelConfig, sig: Sig, lead=()) -> Params:
     dev = gen.device
     p: Params = {
         "norm1": init_rmsnorm(cfg.d_model, dt, dev, lead),
-        "mixer": attn.init_gqa(gen, cfg, lead),
+        "mixer": MIXERS[mixer].init(gen, cfg, lead),
     }
     if ffn != "none":
         p["norm2"] = init_rmsnorm(cfg.d_model, dt, dev, lead)
@@ -143,7 +162,8 @@ def apply_layer(
     x: torch.Tensor,
     positions: torch.Tensor,
     *,
-    pools: Params,  # {"k", "v"} block pools of this layer (written in place)
+    pools: Params,  # this layer's block pools, written in place, keyed as
+                    # MIXERS[mixer].cache_shapes
     tables: torch.Tensor,  # [B, nb] int32 block tables
     pos: torch.Tensor | None = None,  # decode: [B] int32 positions
     past_len: torch.Tensor | None = None,  # chunk prefill: [B] int32
@@ -156,12 +176,13 @@ def apply_layer(
     Returns (x, expert_counts [E] int32 or None)."""
     mixer, ffn = sig
     h = rmsnorm(p["norm1"], x, cfg.norm_eps)
+    m = MIXERS[mixer]
+    a, b = (pools[key] for key in m.cache_shapes(cfg, 0))
     if pos is not None:
-        y, _, _ = attn.gqa_decode_paged(p["mixer"], cfg, h, pools["k"], pools["v"],
-                                        tables, pos)
+        y, _, _ = m.decode_paged(p["mixer"], cfg, h, a, b, tables, pos)
     else:
-        y, _, _ = attn.gqa_prefill_paged(p["mixer"], cfg, h, pools["k"], pools["v"],
-                                         tables, past_len, positions, token_mask)
+        y, _, _ = m.prefill_paged(p["mixer"], cfg, h, a, b, tables, past_len, positions,
+                                  token_mask)
     x = x + y
     counts = None
     if ffn != "none":
@@ -217,23 +238,23 @@ def decode_step_paged(
     token_mask: torch.Tensor | None = None,  # [B] live rows
 ):
     """One decode step against the paged KV cache. Returns (logits
-    [B, V], pools (written in place), expert_counts [n_moe_layers, E])."""
+    [B, V], pools (written in place), expert_counts [n_layers, E]): one
+    row per layer in execution order, zeros for a layer without routed
+    experts, as the reference's `decode_step_paged` returns them."""
     x = embed(params["embed"], tokens)
     positions = pos[:, None]
     tmask = None if token_mask is None else token_mask.reshape(-1, 1)
+    e = cfg.moe.n_experts if cfg.moe is not None else 1
+    no_moe = torch.zeros((e,), dtype=torch.int32, device=x.device)
     counts_all = []
     for sig, p, pl, ts in _layers(params, cfg, pools, tiered):
         x, counts = apply_layer(
             cfg, sig, p, x, positions, pools=pl, tables=tables, pos=pos,
             token_mask=tmask, tiered_state=ts, cold_capacity_frac=cold_capacity_frac,
         )
-        if counts is not None:
-            counts_all.append(counts)
+        counts_all.append(no_moe if counts is None else counts)
     logits = _logits(params, cfg, x)[:, 0]
-    e = cfg.moe.n_experts if cfg.moe is not None else 1
-    counts = (torch.stack(counts_all) if counts_all
-              else torch.zeros((0, e), dtype=torch.int32, device=x.device))
-    return logits, pools, counts
+    return logits, pools, torch.stack(counts_all)
 
 
 def prefill_paged(

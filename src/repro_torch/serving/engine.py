@@ -306,7 +306,12 @@ class TriMoEServingEngine:
         return 2.0 * self.shape.weight_bytes / (hw.ici_link_bw * hw.ici_links)
 
     def observe(self, counts) -> None:
-        """Feed realized per-layer expert loads to the EMA predictor."""
+        """Feed realized per-layer expert loads to the EMA predictor.
+        As in the reference (engine.py:724), row li of `counts` (one row
+        per model layer) feeds MoE layer key li: where a dense layer comes
+        first (deepseek's layer 0), each MoE layer's predictor sees the
+        loads of the layer before it. Kept so the port plans as the
+        reference does."""
         counts = np.asarray(counts)
         for li in range(len(self._layer_keys)):
             self.predictor.update(li, counts[li])

@@ -22,9 +22,9 @@ vLLM/SGLang-style paged layout:
     when the pool runs dry, and copy-on-write protects a shared block
     if a writer ever diverges into it;
   * the reference also keeps per-slot recurrent state (mamba/xlstm)
-    and gates prefix reuse off for such archs; this slice serves
-    attention-only models (`models.model.check_supported`), whose whole
-    cache is token-addressable, so prefix reuse is always possible.
+    and gates prefix reuse off for such archs; the port serves GQA and
+    MLA attention models only (`models.model.check_supported`), whose
+    whole cache is token-addressable, so prefix reuse is always possible.
 
 Why it matters here: the TriMoE setting is HBM-budget-driven (paper
 §3.1) — every KV byte the pool does NOT commit relative to the
@@ -41,7 +41,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import torch_dtype
-from repro_torch.models.model import check_supported, stack_plan
+from repro_torch.models.model import MIXERS, check_supported, layer_signature, stack_plan
 from repro_torch.serving.kv_cache import cache_bytes
 from repro_torch.serving.kv_sanitizer import KVSanitizer, SanitizerError, sanitize_default
 
@@ -62,22 +62,22 @@ def _leaves(tree):
 
 def init_paged_cache(cfg: ModelConfig, n_blocks: int, block_size: int,
                      device=None):
-    """The K/V block pools of the paged layout, one per attention layer:
-    [n_blocks + 1, block_size, Kv, hd] (stack leaves: [G, n_blocks + 1,
-    ...]); the last block is the write trash. The reference also returns
-    per-slot state for recurrent mixers, which this slice does not
-    serve (`check_supported`)."""
+    """The block pools of the paged layout, one set per attention layer:
+    [n_blocks + 1, block_size, ...] per leaf of the mixer's `cache_shapes` (stack
+    leaves: [G, n_blocks + 1, ...]); the last block is the write trash.
+    The reference also returns per-slot state for recurrent mixers, which
+    the port does not serve yet (`check_supported`)."""
     check_supported(cfg)
     unrolled, n_groups, period = stack_plan(cfg)
     dt = torch_dtype(cfg.param_dtype)
-    shape = (n_blocks + 1, block_size, cfg.n_kv_heads, cfg.resolved_head_dim)
 
-    def kv(lead=()):
-        return {k: torch.zeros((*lead, *shape), dtype=dt, device=device)
-                for k in ("k", "v")}
+    def pools_of(sig, lead=()):
+        return {k: torch.zeros((*lead, n_blocks + 1, block_size, *shape[1:]), dtype=dt,
+                               device=device)
+                for k, shape in MIXERS[sig[0]].cache_shapes(cfg, block_size).items()}
 
-    pools: Dict = {f"layer{li}": kv() for li in unrolled}
-    pools["stack"] = {f"slot{j}": kv((n_groups,)) for j in range(len(period))}
+    pools: Dict = {f"layer{li}": pools_of(layer_signature(cfg, li)) for li in unrolled}
+    pools["stack"] = {f"slot{j}": pools_of(sig, (n_groups,)) for j, sig in enumerate(period)}
     return pools
 
 

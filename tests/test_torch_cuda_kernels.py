@@ -1,6 +1,9 @@
 """Card-only: each CUDA kernel of the port against its plain PyTorch
 version, at small shapes, in fp32 (tolerance 1e-5 for attention, 1e-4
-for the GEMM and GEMV: the same products summed in another order).
+for the GEMM and GEMV: the same products summed in another order). The
+MLA kernel computes in fp32 from bf16 pools too (tolerance 1e-5 in both
+pool dtypes); the flash kernel rounds P and its output to bf16, held
+to `rounding_bound`, which scales with each output.
 
 Skips where there is no CUDA device. Imports nothing of JAX, so it also
 runs on the machine with the card, which has none:
@@ -13,9 +16,17 @@ import torch
 
 from repro_torch.kernels.expert_gemv import expert_ffn_gemv
 from repro_torch.kernels.expert_gemv.ref import expert_ffn_gemv_ref
+from repro_torch.kernels.flash_attention import attention_ref, flash_attention, rounding_bound
 from repro_torch.kernels.moe_gemm import moe_gemm
 from repro_torch.kernels.moe_gemm.ref import moe_gemm_ref
-from repro_torch.kernels.paged_attention import paged_prefill_gqa, paged_prefill_gqa_ref
+from repro_torch.kernels.paged_attention import (
+    paged_decode_mla,
+    paged_decode_mla_ref,
+    paged_prefill_gqa,
+    paged_prefill_gqa_ref,
+    paged_prefill_mla,
+    paged_prefill_mla_ref,
+)
 
 
 @pytest.fixture
@@ -77,3 +88,58 @@ def test_expert_gemv_kernel_matches_plain(cuda_device):
     w1, w3, w2 = buf[:, 0], buf[:, 1], buf[:, 2].transpose(1, 2)
     torch.testing.assert_close(expert_ffn_gemv(x, w1, w3, w2, backend="cuda"),
                                expert_ffn_gemv_ref(x, w1, w3, w2), atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("pool_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c,h", [(1, 16), (5, 7), (8, 40)])  # 7, 40: ragged row tiles
+def test_paged_mla_kernel_matches_plain(cuda_device, pool_dtype, c, h):
+    dev = cuda_device
+    rng = np.random.default_rng(4)
+    b, r, rd, bs, nb = 4, 64, 16, 4, 5
+    n_blocks = b * nb + 2
+    tables = rng.permutation(n_blocks)[: b * nb].reshape(b, nb)
+    tables[1] = n_blocks  # a dead row: all-trash table
+    tables = _t(tables, dev, torch.int32)
+    past = _t([0, 3, 11, 20 - c], dev, torch.int32)
+    lengths = _t([c, 0, max(1, c // 2), c], dev, torch.int32)  # row 1 all pad
+    ql = _t(rng.normal(size=(b, c, h, r)), dev)
+    qr = _t(rng.normal(size=(b, c, h, rd)), dev)
+    pc = _t(rng.normal(size=(n_blocks + 1, bs, r)), dev, pool_dtype)
+    pr = _t(rng.normal(size=(n_blocks + 1, bs, rd)), dev, pool_dtype)
+    scale = 0.1
+    got = paged_prefill_mla(ql, qr, pc, pr, tables, past, lengths, scale=scale,
+                            backend="cuda")
+    want = paged_prefill_mla_ref(ql, qr, pc, pr, tables, past, lengths, scale=scale)
+    assert got.dtype == torch.float32 and torch.isfinite(got).all()
+    real = torch.arange(c, device=dev)[None, :] < lengths[:, None]
+    torch.testing.assert_close(got[real], want[real], atol=1e-5, rtol=1e-5)
+    if c == 1:
+        dec = paged_decode_mla(ql[:, 0], qr[:, 0], pc, pr, tables, past, scale=scale,
+                               backend="cuda")
+        torch.testing.assert_close(dec, got[:, 0], atol=0, rtol=0)
+        torch.testing.assert_close(
+            dec[[0, 2, 3]],
+            paged_decode_mla_ref(ql[:, 0], qr[:, 0], pc, pr, tables, past,
+                                 scale=scale)[[0, 2, 3]], atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal,sq,sk,dh", [
+    (True, 100, 100, 64),   # ragged: 100 is no multiple of a tile
+    (True, 37, 130, 128),   # fewer queries than keys
+    (False, 70, 45, 32),
+])
+def test_flash_kernel_matches_plain(cuda_device, dtype, causal, sq, sk, dh):
+    dev = cuda_device
+    rng = np.random.default_rng(5)
+    q = _t(rng.normal(size=(3, sq, dh)), dev, dtype)
+    k = _t(rng.normal(size=(3, sk, dh)), dev, dtype)
+    v = _t(rng.normal(size=(3, sk, dh)), dev, dtype)
+    got = flash_attention(q, k, v, causal=causal, backend="cuda")
+    want = attention_ref(q[None], k[None], v[None], causal=causal)[0]
+    assert got.dtype == dtype
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+    else:
+        bound = rounding_bound(q[None], k[None], v[None], causal=causal)[0]
+        assert ((got.float() - want.float()).abs() <= bound).all()

@@ -34,5 +34,10 @@ def test_port_imports_no_jax_and_nothing_of_repro():
     # the walk really covered the slice's modules
     for mod in ("repro_torch.serving.loop", "repro_torch.kernels.moe_gemm.kernel",
                 "repro_torch.kernels.expert_gemv.ops", "repro_torch.launch.serve",
-                "repro_torch.bridge", "repro_torch.obs.trace"):
+                "repro_torch.bridge", "repro_torch.obs.trace",
+                "repro_torch.kernels.flash_attention.kernel",
+                "repro_torch.kernels.flash_attention.ops",
+                "repro_torch.kernels.flash_attention.ref",
+                "repro_torch.kernels.paged_attention.kernel",
+                "repro_torch.models.attention", "repro_torch.serving.kv_cache"):
         assert mod in res["modules"]

@@ -40,6 +40,7 @@ from repro_torch.serving.tiered_moe import (
 )
 
 ARCH = "granite-moe-1b-a400m"
+ARCHS = ["granite-moe-1b-a400m", "deepseek-v2-236b"]
 ATOL = RTOL = 1e-5
 
 
@@ -47,15 +48,26 @@ def _f32(cfg):
     return dataclasses.replace(cfg, param_dtype="float32", compute_dtype="float32")
 
 
+_SMOKE = {}
+
+
+def _smoke(arch):
+    """(JAX config, port config, host (params, tiered)) of an fp32 smoke
+    config, built once per arch."""
+    if arch not in _SMOKE:
+        jcfg = _f32(reduce_for_smoke(get_config(arch)))
+        tcfg = _f32(tcfgs.reduce_for_smoke(tcfgs.get_config(arch)))
+        params = jax_init_params(jax.random.PRNGKey(0), jcfg)
+        sizes = TierSizes(2, 2, 4)
+        tiered = jax_fill_tiers(params, jax_init_tiered(jax.random.PRNGKey(1), jcfg, sizes),
+                                jcfg)
+        _SMOKE[arch] = jcfg, tcfg, jax.tree.map(np.asarray, (params, tiered))
+    return _SMOKE[arch]
+
+
 @pytest.fixture(scope="module")
 def smoke():
-    jcfg = _f32(reduce_for_smoke(get_config(ARCH)))
-    tcfg = _f32(tcfgs.reduce_for_smoke(tcfgs.get_config(ARCH)))
-    params = jax_init_params(jax.random.PRNGKey(0), jcfg)
-    sizes = TierSizes(2, 2, 4)
-    tiered = jax_fill_tiers(params, jax_init_tiered(jax.random.PRNGKey(1), jcfg, sizes), jcfg)
-    host = jax.tree.map(np.asarray, (params, tiered))
-    return jcfg, tcfg, host
+    return _smoke(ARCH)
 
 
 def _close(got, want, atol=ATOL, rtol=RTOL):
@@ -125,11 +137,23 @@ def test_apply_migrations_matches(smoke):
     _close(ty, jy)
 
 
-def test_prefill_then_decode_logits_match(smoke):
+def _pool_leaves(pools, prefix=""):
+    """(path, array) of every pool leaf, block axis moved first."""
+    for k, v in pools.items():
+        if isinstance(v, dict):
+            yield from _pool_leaves(v, f"{prefix}{k}/")
+        else:
+            a = np.asarray(v.float().numpy() if isinstance(v, torch.Tensor) else v)
+            yield prefix + k, np.moveaxis(a, 1, 0) if prefix.startswith("stack") else a
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_prefill_then_decode_logits_match(arch):
     """A chunk prefill then a decode step through the paged pools, on
     bridged smoke weights: logits allclose, argmax identical, pools
-    written identically (pad rows go to the trash block)."""
-    jcfg, tcfg, (params, tiered) = smoke
+    written identically (pad rows go to the trash block). deepseek adds
+    MLA latent pools, a dense first layer and shared experts."""
+    jcfg, tcfg, (params, tiered) = _smoke(arch)
     rng = np.random.default_rng(4)
     bs, nb, n_blocks = 4, 4, 12
     pools, states = jax_init_paged_cache(jcfg, 3, n_blocks, bs)
@@ -149,9 +173,12 @@ def test_prefill_then_decode_logits_match(smoke):
                                cold_capacity_frac=1.0)
     _close(tl, jl, atol=1e-4)
     np.testing.assert_array_equal(tl.argmax(-1).numpy(), np.asarray(jl).argmax(-1))
-    # every block but the trash (pads write garbage there, in any order)
-    _close(tpools["stack"]["slot0"]["k"][:, :n_blocks],
-           np.asarray(jpools["stack"]["slot0"]["k"])[:, :n_blocks], atol=1e-4)
+    # every block of every pool but the trash (pads write there, in any order)
+    want_pools = dict(_pool_leaves(jpools))
+    got_pools = dict(_pool_leaves(tpools))
+    assert sorted(got_pools) == sorted(want_pools)
+    for path, want in want_pools.items():
+        _close(torch.tensor(got_pools[path][:n_blocks]), want[:n_blocks], atol=1e-4)
 
     # one decode step at each row's next position; row 2 is dead
     nxt = np.asarray(jl).argmax(-1).astype(np.int32)[:, None]

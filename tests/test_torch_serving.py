@@ -7,7 +7,8 @@ The flagship gate: at fp32, on the same bridged params AND tier state
 move), a staggered shared-prefix request set served with the defaults
 (paged KV, radix prefix reuse, chunked piggyback prefill) generates
 IDENTICAL tokens for every request, with equal replan and migration
-counts and prefix hit rate. The KV sanitizer is on for both loops
+counts, prefill chunks and prefix hit rate, for a GQA (granite) and an
+MLA (deepseek) model. The KV sanitizer is on for both loops
 (tests/conftest.py sets REPRO_KV_SANITIZE=1).
 """
 import dataclasses
@@ -43,9 +44,12 @@ def _requests(vocab):
              .astype(np.int32), 6) for rid in range(8)]
 
 
-def test_port_serving_loop_tokens_identical_to_jax():
-    jcfg = _f32(reduce_for_smoke(get_config(ARCH)))
-    tcfg = _f32(tcfgs.reduce_for_smoke(tcfgs.get_config(ARCH)))
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "deepseek-v2-236b"])
+def test_port_serving_loop_tokens_identical_to_jax(arch):
+    """granite: GQA attention; deepseek: MLA latent pools, a dense first
+    layer and shared experts."""
+    jcfg = _f32(reduce_for_smoke(get_config(arch)))
+    tcfg = _f32(tcfgs.reduce_for_smoke(tcfgs.get_config(arch)))
     params = jax_init_params(jax.random.PRNGKey(0), jcfg)
     kw = dict(batch_size=4, n_groups=2, cache_len=24, prefill_chunk_tokens=8)
     jl = JaxServingLoop(jcfg, params, **kw)
