@@ -6,7 +6,9 @@
                                    # per model, named PATH's stem-<arch>)
 
 Phases, each fatal on failure:
-  1. build the five CUDA kernels from src/repro_torch/csrc (nvcc, sm_90a);
+  1. build the five CUDA kernels from src/repro_torch/csrc (nvcc, sm_90a)
+     and count the tensor-core instructions (HGMMA) in each library's
+     SASS: the bf16 moe_gemm and flash_attention kernels must have them;
   2. hold each kernel against its plain PyTorch version at its path's
      shapes, in bf16 and fp32, and time kernel / plain / library on the
      device (CUDA-graph replay), plus the kernel's eager call;
@@ -71,6 +73,7 @@ GQA_ARCH = "granite-moe-1b-a400m"
 MLA_ARCH = "deepseek-v2-236b"
 MLA_LAYERS = 3  # deepseek depth cut 60 -> 3: dense layer 0 + 2 MoE layers
 MHA_PATH = "mha"
+TENSOR_CORE_KERNELS = ("moe_gemm", "flash_attention")  # bf16 paths run wgmma
 # name -> (wrapper, source, TPU kernel it replaces, the path it was ported
 # on: the `kernels` line's `launches` is that path's own count)
 KERNELS = {
@@ -204,13 +207,16 @@ def attention_case(dtype, *, b, c, nb, past, dev, gen):
     )
 
 
-def moe_gemm_case(dtype, *, n_slots, rows, k, n, pair, dev, gen):
+def moe_gemm_case(dtype, *, n_slots, rows, d, f, pair, dev, gen, calls=32):
     """Hot tier of a prefill chunk: n_slots groups of `rows` real rows
-    padded to 128; gate|up reads two panels of the [n, 3, D, F] buffer.
-    Library: torch.bmm over the concatenated (or copied) weights."""
+    padded to 128, over a tier buffer [n_slots, 3, d, f]. gate|up
+    (k = d, n = 2f) reads its two panels as one; down (k = f, n = d)
+    reads the stored [d, f] matrix transposed. Library: torch.bmm over
+    the concatenated (or copied) weights."""
     bm = 128
+    k, n = (d, 2 * f) if pair else (f, d)
     c_pad = -(-rows // bm) * bm
-    buf = (torch.randn(n_slots, 3, 1024, 512, generator=gen) * 1024 ** -0.5).to(dev, dtype)
+    buf = (torch.randn(n_slots, 3, d, f, generator=gen) * d ** -0.5).to(dev, dtype)
     x = torch.zeros(n_slots, c_pad, k, dtype=dtype, device=dev)
     x[:, :rows] = torch.randn(n_slots, rows, k, generator=gen).to(dev, dtype)
     x = x.reshape(n_slots * c_pad, k)
@@ -226,6 +232,7 @@ def moe_gemm_case(dtype, *, n_slots, rows, k, n, pair, dev, gen):
         library=torch.bmm,
         held=(buf.numel() + x.numel()) * isz,
         bound=bound_ms(nbytes, 2.0 * x.shape[0] * k * n, dtype),
+        calls=calls,
     )
 
 
@@ -325,9 +332,15 @@ KERNEL_CASES = [  # (kernel, label, case, kwargs); the first per kernel is its J
     ("paged_prefill_gqa", "prefill B=4 C=32 nb=16", attention_case,
      dict(b=4, c=32, nb=16, past=[0, 16, 16, 24])),
     ("moe_gemm", "gate|up hot 8x128x1024x1024", moe_gemm_case,
-     dict(n_slots=8, rows=128, k=1024, n=1024, pair=True)),
+     dict(n_slots=8, rows=128, d=1024, f=512, pair=True)),
     ("moe_gemm", "down hot 8x128x512x1024", moe_gemm_case,
-     dict(n_slots=8, rows=128, k=512, n=1024, pair=False)),
+     dict(n_slots=8, rows=128, d=1024, f=512, pair=False)),
+    # deepseek-v2-236b's hot tier at a prefill chunk (25 slots, d_model
+    # 5120, d_expert 1536): one input set is ~1.2 GB, so 8 calls a graph
+    ("moe_gemm", "deepseek gate|up hot 25x128x5120x3072", moe_gemm_case,
+     dict(n_slots=25, rows=128, d=5120, f=1536, pair=True, calls=8)),
+    ("moe_gemm", "deepseek down hot 25x128x1536x5120", moe_gemm_case,
+     dict(n_slots=25, rows=128, d=5120, f=1536, pair=False, calls=8)),
     ("expert_ffn_gemv", "cold 16 slots T=8", gemv_case, dict(n_slots=16, t=8)),
     ("expert_ffn_gemv", "hot 8 slots T=4", gemv_case, dict(n_slots=8, t=4)),
     ("paged_prefill_mla", "decode B=4 H=128 r=512 nb=18", mla_case,
@@ -565,6 +578,14 @@ def main(argv=None) -> int:
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"ptxas[{name}] {line.strip()}", flush=True)
+    tool = build.cuobjdump()
+    if tool is None:
+        fail("no cuobjdump beside nvcc or in Triton: cannot read the kernels' SASS")
+    hgmma = {name: build.count_hgmma(tool, name) for name in build.SOURCES}
+    print(json.dumps(dict(phase="sass", hgmma=hgmma)), flush=True)
+    for name in TENSOR_CORE_KERNELS:
+        if hgmma[name] == 0:
+            fail(f"{name}: no HGMMA (tensor-core wgmma) instruction in its SASS")
 
     rows = kernel_phases(dev)
     paths = [mha_entry(dev)]

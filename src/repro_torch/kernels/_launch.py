@@ -8,6 +8,8 @@ import torch
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # dynamic shared memory one block may use on an H100 (232,448 bytes)
 MAX_SMEM = 232448
+# bytes: the granule of a TMA tensor map's base address and strides
+TMA_ALIGN = 16
 
 
 def ptr(t: torch.Tensor) -> ctypes.c_void_p:

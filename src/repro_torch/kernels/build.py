@@ -3,29 +3,36 @@ library with a plain C interface, bound with ctypes).
 
 Every `csrc/*.cu` source compiles on first use, one `nvcc` process per
 source, all started together, into `src/repro_torch/_build/` (listed in
-.gitignore). A library is named by a hash of its source and flags, so an
-edited source rebuilds and an unchanged one is reused within a checkout.
-Nothing here runs at import time: the CPU tests import every module of
-the port on a machine with no nvcc.
+.gitignore). A library is named by a hash of its source, every shared
+header `csrc/*.cuh` and the flags, so an edited source or header
+rebuilds and an unchanged one is reused within a checkout.
+`count_hgmma` counts a built library's tensor-core (`wgmma`) instructions
+with `cuobjdump`. Nothing here runs at import time: the CPU tests import
+every module of the port on a machine with no nvcc.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
+import importlib.util
 import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Optional
 
 _PKG = Path(__file__).resolve().parents[1]
 SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("paged_attention", "paged_attention_mla", "moe_gemm", "expert_gemv",
            "flash_attention")
+# the code a C entry returns, plus the CUresult, for a tensor map that
+# cuTensorMapEncodeTiled refused (hopper_mma.cuh's kErrTensorMap)
+ERR_TENSOR_MAP = 10000
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    f"-DERR_TENSOR_MAP={ERR_TENSOR_MAP}",
 )
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -46,10 +53,39 @@ def _nvcc() -> str:
     )
 
 
+def cuobjdump() -> Optional[str]:
+    """The toolkit's cuobjdump (beside nvcc), else Triton's copy, else None."""
+    found = shutil.which("cuobjdump")
+    if found:
+        return found
+    try:
+        cand = Path(_nvcc()).parent / "cuobjdump"
+        if cand.exists():
+            return str(cand)
+    except RuntimeError:
+        pass
+    spec = importlib.util.find_spec("triton")
+    if spec is not None and spec.origin:
+        cand = Path(spec.origin).parent / "backends" / "nvidia" / "bin" / "cuobjdump"
+        if cand.exists():
+            return str(cand)
+    return None
+
+
 def _lib_path(name: str) -> Path:
-    src = (SRC_DIR / f"{name}.cu").read_bytes()
-    h = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{h}.so"
+    h = hashlib.sha256((SRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(SRC_DIR.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
+
+
+def count_hgmma(tool: str, name: str) -> int:
+    """HGMMA (tensor-core wgmma) instructions in the SASS of the built
+    library of `csrc/<name>.cu`, read with the cuobjdump at `tool`."""
+    sass = subprocess.run([tool, "-sass", str(_lib_path(name))], capture_output=True,
+                          text=True, check=True).stdout
+    return sum("HGMMA" in line for line in sass.splitlines())
 
 
 def build_all() -> Dict[str, ctypes.CDLL]:
@@ -90,6 +126,10 @@ def library(name: str) -> ctypes.CDLL:
 
 
 def check(err: int, op: str) -> None:
-    """Raise on a nonzero cudaError_t returned by a kernel's C entry."""
+    """Raise on a nonzero code returned by a kernel's C entry: a
+    cudaError_t, or ERR_TENSOR_MAP + the CUresult of a refused tensor map."""
+    if err >= ERR_TENSOR_MAP:
+        raise RuntimeError(f"{op}: cuTensorMapEncodeTiled failed with CUresult "
+                           f"{err - ERR_TENSOR_MAP}")
     if err != 0:
         raise RuntimeError(f"{op}: CUDA launch failed with cudaError_t {err}")

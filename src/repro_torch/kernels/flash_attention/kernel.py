@@ -5,7 +5,9 @@ the port of the Pallas TPU kernel `flash_attention`
 `flash_attention(..., backend=)` follows kernels/backend.py: a CUDA
 tensor launches the kernel (or raises), a CPU tensor runs the plain
 version `attention_ref`. `flash_attention.launches` counts kernel
-launches.
+launches. The route is chosen by dtype: bf16 runs the tensor-core
+kernel (wgmma fed by TMA) at head widths `BF16_HEAD_DIMS`, fp32 the
+CUDA-core kernel at any head width up to 128.
 """
 from __future__ import annotations
 
@@ -20,6 +22,7 @@ from repro_torch.kernels.build import check, library
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
 OP = "flash_attention"
+BF16_HEAD_DIMS = (32, 64, 128)  # the bf16 kernel's instances
 
 
 @functools.cache
@@ -28,7 +31,7 @@ def _entry():
     lib = library("flash_attention")
     smem = lib.flash_attention_smem
     smem.restype = ctypes.c_size_t
-    smem.argtypes = [ctypes.c_int]
+    smem.argtypes = [ctypes.c_int, ctypes.c_int]
     max_dh = lib.flash_attention_max_head_dim
     max_dh.restype = ctypes.c_int
     max_dh.argtypes = []
@@ -50,8 +53,13 @@ def _launch(q, k, v, causal: bool) -> torch.Tensor:
     for t in (q, k, v):
         L.require(t.is_contiguous(), OP, "all inputs must be contiguous")
     fn, smem_of, max_dh = _entry()
+    if q.dtype == torch.bfloat16:
+        L.require(dh in BF16_HEAD_DIMS, OP,
+                  f"bf16 head width {dh} is none of the kernel's {BF16_HEAD_DIMS}")
+        L.require(all(t.data_ptr() % L.TMA_ALIGN == 0 for t in (q, k, v)), OP,
+                  f"bf16 q, k and v need {L.TMA_ALIGN}-byte aligned base addresses")
     L.require(dh <= max_dh, OP, f"head width {dh} above the kernel's {max_dh}")
-    smem = smem_of(dh)
+    smem = smem_of(dh, code)
     L.require(smem <= L.MAX_SMEM, OP, f"head width {dh} needs {smem} B of shared memory")
     out = torch.empty_like(q)
     err = fn(L.ptr(q), L.ptr(k), L.ptr(v), L.ptr(out), bh, sq, sk, dh, int(causal),

@@ -13,8 +13,9 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = Tru
     """q: [B, Sq, H, hd]; k, v: [B, Sk, H, hd] (GQA expanded by the caller)
     -> [B, Sq, H, hd] in q's dtype. `bq` / `bk` are the TPU kernel's query
     and key tile sizes, kept for call parity with the JAX `mha`: the CUDA
-    kernel tiles 64 query rows by 32 keys whatever they are, masks its
-    own ragged edge, and so needs no length to divide a tile."""
+    kernels tile the work their own way (bf16: 128 query rows by 128
+    keys; fp32: 64 by 32) whatever they are, mask their own ragged edge,
+    and so need no length to divide a tile."""
     if bq < 1 or bk < 1:
         raise ValueError(f"mha: tile sizes must be positive, got bq={bq}, bk={bk}")
     b, sq, h, dh = q.shape

@@ -15,7 +15,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels.moe_gemm.kernel import moe_gemm
+from repro_torch.kernels.moe_gemm.kernel import moe_gemm, pair_addressable
 
 
 def _round_up(x: int, m: int) -> int:
@@ -24,11 +24,13 @@ def _round_up(x: int, m: int) -> int:
 
 def _joinable(a: torch.Tensor, b: torch.Tensor) -> bool:
     """True when `b` is `a` shifted in one storage (a tier buffer's gate
-    and up matrices), so the kernel reads both as one panel in place."""
+    and up matrices) that the kernel can read as one panel in place
+    (smoke-size bf16 experts, F = 32, cannot)."""
     return (
         a.stride() == b.stride()
         and a.untyped_storage().data_ptr() == b.untyped_storage().data_ptr()
         and b.data_ptr() >= a.data_ptr()
+        and pair_addressable(a)
     )
 
 

@@ -3,7 +3,9 @@ version, at small shapes, in fp32 (tolerance 1e-5 for attention, 1e-4
 for the GEMM and GEMV: the same products summed in another order). The
 MLA kernel computes in fp32 from bf16 pools too (tolerance 1e-5 in both
 pool dtypes); the flash kernel rounds P and its output to bf16, held
-to `rounding_bound`, which scales with each output.
+to `rounding_bound`, which scales with each output. The bf16 grouped
+GEMM (tensor cores) is held to `_gemm_bound`: fp32 sums of exact bf16
+products in another order, then one bf16 rounding of the output.
 
 Skips where there is no CUDA device. Imports nothing of JAX, so it also
 runs on the machine with the card, which has none:
@@ -18,7 +20,7 @@ from repro_torch.kernels.expert_gemv import expert_ffn_gemv
 from repro_torch.kernels.expert_gemv.ref import expert_ffn_gemv_ref
 from repro_torch.kernels.flash_attention import attention_ref, flash_attention, rounding_bound
 from repro_torch.kernels.moe_gemm import moe_gemm
-from repro_torch.kernels.moe_gemm.ref import moe_gemm_ref
+from repro_torch.kernels.moe_gemm.ref import join_panels, moe_gemm_ref
 from repro_torch.kernels.paged_attention import (
     paged_decode_mla,
     paged_decode_mla_ref,
@@ -78,6 +80,68 @@ def test_moe_gemm_kernel_matches_plain_on_panel_pair(cuda_device):
                                moe_gemm_ref(x, pair, te), atol=1e-4, rtol=1e-4)
     with pytest.raises(ValueError, match="weight panel"):
         moe_gemm(x[:, :32].contiguous(), pair, te, backend="cuda")  # K 32 != 64
+
+
+def _gemm_bound(x, w, te, bm):
+    """Elementwise bound on |bf16 kernel - moe_gemm_ref|: both sides sum
+    the same exact bf16 products in fp32 in another order, at most K fp32
+    roundings of the sum of |products| apart, then each rounds to bf16,
+    at most one ulp <= eps * |out| apart."""
+    k = x.shape[1]
+    ref = moe_gemm_ref(x, w, te, bm).float()
+    mag = moe_gemm_ref(x.float().abs(), join_panels(w).float().abs(), te, bm)
+    return (torch.finfo(torch.bfloat16).eps * ref.abs()
+            + k * torch.finfo(torch.float32).eps * mag)
+
+
+def _bf16_weight(rng, layout, e, k, n, dev):
+    """A bf16 weight operand [E, K, N] stored as the serving path stores
+    it: row-major [K, N] (MN-major), [N, K] transposed (K-major, the
+    down GEMM's view), or the gate|up pair of a [E, 3, K, F] buffer, F
+    the largest multiple of 64 columns <= N / 2 (N = 2F)."""
+    if layout == "mn_major":
+        return _t(rng.normal(size=(e, k, n)), dev, torch.bfloat16)
+    if layout == "k_major":
+        return _t(rng.normal(size=(e, n, k)), dev, torch.bfloat16).transpose(1, 2)
+    buf = _t(rng.normal(size=(e, 3, k, n // 128 * 64)), dev, torch.bfloat16)
+    return buf[:, 0], buf[:, 1]
+
+
+@pytest.mark.parametrize("layout", ["mn_major", "k_major", "pair"])
+@pytest.mark.parametrize("bm", [64, 128])
+@pytest.mark.parametrize("tiles,k,n", [
+    (6, 200, 136),    # K, N multiples of 8, not of a tile (the pair: N = 128); 64-wide
+    (12, 200, 1408),  # blocks. Here >= 132 blocks at 128 wide; one spans the pair's halves
+])
+def test_moe_gemm_bf16_kernel_matches_plain(cuda_device, layout, bm, tiles, k, n):
+    dev = cuda_device
+    rng = np.random.default_rng(6)
+    te = _t(([2, 0, 0, 1, 2, 2] * 2)[:tiles], dev, torch.int32)  # 3 experts, uneven groups
+    x = _t(rng.normal(size=(tiles * bm, k)), dev, torch.bfloat16)
+    w = _bf16_weight(rng, layout, 3, k, n, dev)
+    got = moe_gemm(x, w, te, bm=bm, backend="cuda")
+    want = moe_gemm_ref(x, w, te, bm)
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    assert ((got.float() - want.float()).abs() <= _gemm_bound(x, w, te, bm)).all()
+
+
+def test_moe_gemm_bf16_refuses_what_tma_cannot_address(cuda_device):
+    dev = cuda_device
+    te = _t([0, 1], dev, torch.int32)
+    x = torch.ones(256, 64, dtype=torch.bfloat16, device=dev)
+    odd = torch.ones(2, 64, 12, dtype=torch.bfloat16, device=dev)  # rows of 24 bytes
+    with pytest.raises(ValueError, match="multiples of 16"):
+        moe_gemm(x, odd, te, backend="cuda")
+    wide = torch.ones(2, 64, 72, dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError, match="aligned"):
+        moe_gemm(x, wide[:, :, 1:65], te, backend="cuda")  # base 2 bytes off
+    buf = torch.ones(2, 3, 64, 48, dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError, match="pair panel"):
+        moe_gemm(x, (buf[:, 0], buf[:, 1]), te, backend="cuda")  # half 48 < 64
+    with pytest.raises(ValueError, match="aligned"):
+        moe_gemm(torch.ones(256, 60, dtype=torch.bfloat16, device=dev),
+                 torch.ones(2, 60, 64, dtype=torch.bfloat16, device=dev), te,
+                 backend="cuda")  # x rows of 120 bytes
 
 
 def test_expert_gemv_kernel_matches_plain(cuda_device):
@@ -143,3 +207,25 @@ def test_flash_kernel_matches_plain(cuda_device, dtype, causal, sq, sk, dh):
     else:
         bound = rounding_bound(q[None], k[None], v[None], causal=causal)[0]
         assert ((got.float() - want.float()).abs() <= bound).all()
+
+
+@pytest.mark.parametrize("dh", [64, 128])
+@pytest.mark.parametrize("causal,sq,sk", [
+    (True, 300, 300),   # three 128-row query tiles, the last ragged
+    (True, 129, 700),   # a second query tile of one row; six key tiles
+    (False, 200, 333),
+])
+def test_flash_bf16_kernel_over_key_tiles(cuda_device, dh, causal, sq, sk):
+    dev = cuda_device
+    rng = np.random.default_rng(8)
+    q = _t(rng.normal(size=(2, sq, dh)), dev, torch.bfloat16)
+    k = _t(rng.normal(size=(2, sk, dh)), dev, torch.bfloat16)
+    v = _t(rng.normal(size=(2, sk, dh)), dev, torch.bfloat16)
+    got = flash_attention(q, k, v, causal=causal, backend="cuda")
+    want = attention_ref(q[None], k[None], v[None], causal=causal)[0]
+    bound = rounding_bound(q[None], k[None], v[None], causal=causal)[0]
+    assert got.dtype == torch.bfloat16 and torch.isfinite(got.float()).all()
+    assert ((got.float() - want.float()).abs() <= bound).all()
+    with pytest.raises(ValueError, match="head width"):
+        flash_attention(q[..., :48].contiguous(), k[..., :48].contiguous(),
+                        v[..., :48].contiguous(), causal=causal, backend="cuda")

@@ -92,10 +92,12 @@ def test_mha_layout_and_tile_arguments():
         mha(q, k, v, backend="cuda")
 
 
-def _online_softmax_bf16(q, k, v, causal, drop_tile=None):
-    """The CUDA kernel's arithmetic on the CPU: 32-key tiles, running max
-    and sum in fp32, p = exp(s - running max) rounded to bf16 before PV,
-    output rounded to bf16. `drop_tile` skips one key tile (a fault)."""
+def _online_softmax_bf16(q, k, v, causal, tile=32, drop_tile=None):
+    """A flash kernel's arithmetic on the CPU: key tiles of `tile` (32 for
+    the CUDA-core kernel, 128 for the tensor-core bf16 kernel), running
+    max and sum in fp32, p = exp(s - running max) rounded to bf16 before
+    PV, output acc / max(l, 1e-30) rounded to bf16. `drop_tile` skips the
+    key tile starting there (a fault)."""
     qf, kf, vf = q.float(), k.float(), v.float()
     bh, sq, dh = q.shape
     sk = k.shape[1]
@@ -103,31 +105,33 @@ def _online_softmax_bf16(q, k, v, causal, drop_tile=None):
     m = torch.full((bh, sq, 1), -1e30)
     l = torch.zeros(bh, sq, 1)
     acc = torch.zeros(bh, sq, dh)
-    for t0 in range(0, sk, 32):
+    for t0 in range(0, sk, tile):
         if t0 == drop_tile:
             continue
-        kpos = torch.arange(t0, min(t0 + 32, sk))[None, :]
-        s = qf @ kf[:, t0:t0 + 32].transpose(1, 2) * dh ** -0.5
+        kpos = torch.arange(t0, min(t0 + tile, sk))[None, :]
+        s = qf @ kf[:, t0:t0 + tile].transpose(1, 2) * dh ** -0.5
         if causal:
             s = torch.where(kpos <= qpos, s, torch.full_like(s, -1e30))
         m_new = torch.maximum(m, s.amax(-1, keepdim=True))
         p, alpha = torch.exp(s - m_new), torch.exp(m - m_new)
         l, m = l * alpha + p.sum(-1, keepdim=True), m_new
-        acc = acc * alpha + p.to(torch.bfloat16).float() @ vf[:, t0:t0 + 32]
-    return (acc / l).to(torch.bfloat16)
+        acc = acc * alpha + p.to(torch.bfloat16).float() @ vf[:, t0:t0 + tile]
+    return (acc / l.clamp_min(1e-30)).to(torch.bfloat16)
 
 
+@pytest.mark.parametrize("tile", [32, 128])
 @pytest.mark.parametrize("causal,sq,sk", [(True, 256, 256), (True, 40, 200), (False, 64, 96)])
-def test_rounding_bound_holds_for_the_kernel_arithmetic(causal, sq, sk):
+def test_rounding_bound_holds_for_the_kernel_arithmetic(causal, sq, sk, tile):
     """`rounding_bound`, which the card holds the bf16 flash kernel to,
-    covers the kernel's own rounding and is tight enough that one skipped
-    key tile breaks it."""
+    covers the kernel's own rounding at either kernel's key-tile width
+    and is tight enough that one skipped key tile (the last one walked)
+    breaks it."""
     rng = np.random.default_rng(7)
     q, k, v = (torch.tensor(rng.normal(size=(2, n, 64)), dtype=torch.bfloat16)
                for n in (sq, sk, sk))
     want = flash_attention(q, k, v, causal=causal)
     bound = rounding_bound(q[None], k[None], v[None], causal=causal)[0]
-    err = (_online_softmax_bf16(q, k, v, causal).float() - want.float()).abs()
+    err = (_online_softmax_bf16(q, k, v, causal, tile).float() - want.float()).abs()
     assert (err <= bound).all()
-    dropped = _online_softmax_bf16(q, k, v, causal, drop_tile=32)
+    dropped = _online_softmax_bf16(q, k, v, causal, tile, drop_tile=(sk - 1) // tile * tile)
     assert ((dropped.float() - want.float()).abs() > bound).any()
