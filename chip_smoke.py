@@ -7,8 +7,9 @@
 
 Phases, each fatal on failure:
   1. build the five CUDA kernels from src/repro_torch/csrc (nvcc, sm_90a)
-     and count the tensor-core instructions (HGMMA) in each library's
-     SASS: the bf16 moe_gemm and flash_attention kernels must have them;
+     and count the tensor-core instructions in each library's SASS: the
+     bf16 moe_gemm, flash_attention and paged GQA kernels must have
+     HGMMA (wgmma), the expert GEMV HMMA (mma.sync);
   2. hold each kernel against its plain PyTorch version at its path's
      shapes, in bf16 and fp32, and time kernel / plain / library on the
      device (CUDA-graph replay), plus the kernel's eager call;
@@ -46,7 +47,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch.configs import get_config, reduce_for_smoke  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
-from repro_torch.kernels.expert_gemv import expert_ffn_gemv  # noqa: E402
+from repro_torch.kernels.expert_gemv import expert_ffn_gemv, gemv_rounding_bound  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention,
     mha,
@@ -54,10 +55,12 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
 )
 from repro_torch.kernels.moe_gemm import moe_gemm  # noqa: E402
 from repro_torch.kernels.paged_attention import (  # noqa: E402
+    gqa_rounding_bound,
     linearize_blocks,
     paged_prefill_gqa,
     paged_prefill_mla,
 )
+from repro_torch.kernels.paged_attention.kernel import _launch as gqa_launch  # noqa: E402
 from repro_torch.models.model import init_params  # noqa: E402
 from repro_torch.serving.batching import Request  # noqa: E402
 from repro_torch.serving.engine import (  # noqa: E402
@@ -73,7 +76,9 @@ GQA_ARCH = "granite-moe-1b-a400m"
 MLA_ARCH = "deepseek-v2-236b"
 MLA_LAYERS = 3  # deepseek depth cut 60 -> 3: dense layer 0 + 2 MoE layers
 MHA_PATH = "mha"
-TENSOR_CORE_KERNELS = ("moe_gemm", "flash_attention")  # bf16 paths run wgmma
+# source -> the tensor-core instruction its bf16 path must compile to
+TENSOR_CORE_KERNELS = {"moe_gemm": "HGMMA", "flash_attention": "HGMMA",
+                       "paged_attention": "HGMMA", "expert_gemv": "HMMA"}
 # name -> (wrapper, source, TPU kernel it replaces, the path it was ported
 # on: the `kernels` line's `launches` is that path's own count)
 KERNELS = {
@@ -91,9 +96,8 @@ KERNELS = {
 TOL = {  # (atol, rtol) of kernel vs plain version, by dtype
     # fp32: same products, other summation order (k up to 1024 terms)
     torch.float32: (1e-4, 1e-4),
-    # bf16: the output is rounded to bf16 (8 mantissa bits), and the
-    # intermediate h / P roundings can flip by one bf16 ulp (flash
-    # attention holds its bf16 cases to `rounding_bound` instead)
+    # bf16 GEMM: the output is rounded to bf16 (8 mantissa bits); the
+    # other bf16 kernels are held per element to their rounding bounds
     torch.bfloat16: (3e-2, 3e-2),
 }
 
@@ -176,9 +180,11 @@ MAX_SETS = 32  # input sets cycled through by the timed graph
 def attention_case(dtype, *, b, c, nb, past, dev, gen):
     """Random pools and tables at the serving shapes: Kv=8, G=2, hd=64,
     bs=4, each row's blocks a random permutation of the pool. Library:
-    SDPA over the linearized, head-expanded K/V with the position mask."""
+    SDPA over the linearized, head-expanded K/V with the position mask.
+    bf16 is held to `gqa_rounding_bound`; a table of enough key tiles to
+    split over is also timed with one split (`unsplit`)."""
     kv, g, hd, bs = 8, 2, 64, 4
-    n_blocks = 8 * 18  # batch 8 x ceil(72 / 4) blocks per slot
+    n_blocks = max(8 * 18, b * nb)  # batch 8 x ceil(72 / 4) blocks per slot
     perm = torch.randperm(n_blocks, generator=gen, device="cpu")[: b * nb]
     tables = perm.reshape(b, nb).to(torch.int32).to(dev)
     q = torch.randn(b, c, kv, g, hd, generator=gen).to(dev, dtype)
@@ -197,6 +203,7 @@ def attention_case(dtype, *, b, c, nb, past, dev, gen):
     walked = sum(min(nb, (p + c - 1) // 4 + 1) * 4 for p in past)
     nbytes = 2 * q.numel() * isz + 2 * walked * kv * hd * isz + tables.numel() * 4
     visible = sum(sum(p + i + 1 for i in range(c)) for p in past)
+    bf16 = dtype == torch.bfloat16
     return dict(
         args=args, lib_args=(qh, keys, vals, mask),
         kernel=lambda *a: paged_prefill_gqa(*a, backend="cuda"),
@@ -204,6 +211,8 @@ def attention_case(dtype, *, b, c, nb, past, dev, gen):
         library=lambda qh, k, v, m: F.scaled_dot_product_attention(qh, k, v, attn_mask=m),
         held=sum(t.numel() * t.element_size() for t in args),
         bound=bound_ms(nbytes, 4.0 * visible * kv * g * hd, dtype),
+        tol=(lambda: gqa_rounding_bound(*args[:5])) if bf16 else None,
+        variants={"unsplit": lambda *a: gqa_launch(*a, splits=1)} if bf16 and nb >= 256 else {},
     )
 
 
@@ -236,13 +245,19 @@ def moe_gemm_case(dtype, *, n_slots, rows, d, f, pair, dev, gen, calls=32):
     )
 
 
-def gemv_case(dtype, *, n_slots, t, dev, gen):
+def gemv_case(dtype, *, n_slots, t, dev, gen, d=1024, f=512, live=None, calls=32):
     """One tier of a decode step: n_slots experts, t tokens each, read as
-    views of the [n, 3, D, F] tier buffer (down matrix transposed).
-    Library: bmm of the concatenated gate|up, SiLU * up, bmm down."""
-    d, f = 1024, 512
+    views of the [n, 3, D, F] tier buffer (down matrix transposed). With
+    `live`, only the first `live` slots have tokens and the others' rows
+    are zero, as dispatch leaves a slot no token was routed to; the bound
+    then counts only the live slots' weight bytes, which is all the work
+    the function needs (an all-zero slot's output is exactly zero).
+    Library: bmm of the concatenated gate|up, SiLU * up, bmm down. bf16
+    is held to `gemv_rounding_bound`."""
     buf = (torch.randn(n_slots, 3, d, f, generator=gen) * d ** -0.5).to(dev, dtype)
     x = torch.randn(n_slots, t, d, generator=gen).to(dev, dtype)
+    n_live = n_slots if live is None else live
+    x[n_live:] = 0
     w1, w3, w2 = buf[:, 0], buf[:, 1], buf[:, 2].transpose(1, 2)
 
     def library(x, w13, w2c):
@@ -250,14 +265,16 @@ def gemv_case(dtype, *, n_slots, t, dev, gen):
         return torch.bmm(F.silu(gu[..., :f]) * gu[..., f:], w2c)
 
     isz = x.element_size()
-    nbytes = (3 * n_slots * d * f + 2 * x.numel()) * isz
+    nbytes = (3 * n_live * d * f + 2 * n_live * t * d) * isz
     return dict(
         args=(x, w1, w3, w2), lib_args=(x, torch.cat([w1, w3], -1), w2.contiguous()),
+        tol=(lambda: gemv_rounding_bound(x, w1, w3, w2)) if dtype == torch.bfloat16 else None,
         kernel=lambda *a: expert_ffn_gemv(*a, backend="cuda"),
         plain=lambda *a: expert_ffn_gemv(*a, backend="ref"),
         library=library,
         held=(buf.numel() + x.numel()) * isz,
-        bound=bound_ms(nbytes, 6.0 * n_slots * t * d * f, dtype),
+        bound=bound_ms(nbytes, 6.0 * n_live * t * d * f, dtype),
+        calls=calls,
     )
 
 
@@ -331,6 +348,13 @@ KERNEL_CASES = [  # (kernel, label, case, kwargs); the first per kernel is its J
      dict(b=4, c=1, nb=16, past=[40, 51, 60, 63])),
     ("paged_prefill_gqa", "prefill B=4 C=32 nb=16", attention_case,
      dict(b=4, c=32, nb=16, past=[0, 16, 16, 24])),
+    # decode over a long cache (4096 keys, 64 key tiles): the key splits
+    # (and their combine) against one split; then the same table width
+    # with short rows, where most splits find no key tile to walk
+    ("paged_prefill_gqa", "decode B=4 nb=1024 long rows", attention_case,
+     dict(b=4, c=1, nb=1024, past=[3900, 4000, 4050, 4095])),
+    ("paged_prefill_gqa", "decode B=4 nb=1024 short rows", attention_case,
+     dict(b=4, c=1, nb=1024, past=[40, 51, 60, 63])),
     ("moe_gemm", "gate|up hot 8x128x1024x1024", moe_gemm_case,
      dict(n_slots=8, rows=128, d=1024, f=512, pair=True)),
     ("moe_gemm", "down hot 8x128x512x1024", moe_gemm_case,
@@ -343,6 +367,15 @@ KERNEL_CASES = [  # (kernel, label, case, kwargs); the first per kernel is its J
      dict(n_slots=25, rows=128, d=5120, f=1536, pair=False, calls=8)),
     ("expert_ffn_gemv", "cold 16 slots T=8", gemv_case, dict(n_slots=16, t=8)),
     ("expert_ffn_gemv", "hot 8 slots T=4", gemv_case, dict(n_slots=8, t=4)),
+    # deepseek-v2-236b's decode tiers (d_model 5120, d_expert 1536): the
+    # hot tier with every slot live (the dense rate), and the warm tier
+    # with 8 of 48 slots live (the bound counts those 8); 8 calls a graph
+    ("expert_ffn_gemv", "deepseek hot 25 slots T=4", gemv_case,
+     dict(n_slots=25, t=4, d=5120, f=1536, calls=8)),
+    ("expert_ffn_gemv", "deepseek warm 48 slots T=4, 8 live", gemv_case,
+     dict(n_slots=48, t=4, d=5120, f=1536, live=8, calls=8)),
+    # a decode group of 40 rows at granite's widths: two token groups
+    ("expert_ffn_gemv", "cold 16 slots T=40", gemv_case, dict(n_slots=16, t=40)),
     ("paged_prefill_mla", "decode B=4 H=128 r=512 nb=18", mla_case,
      dict(b=4, c=1, past=[40, 51, 60, 71])),
     ("paged_prefill_mla", "prefill B=4 C=32 H=128 r=512 nb=18", mla_case,
@@ -368,10 +401,15 @@ def run_case(name, label, make, dtype, kw, dev, gen) -> dict:
     tol = tol() if callable(tol) else tol
     torch.cuda.synchronize()
     max_abs, max_rel, err_over_tol = compare(f"{name}/{label}", got, want, dtype, tol)
+    variants = first.get("variants", {})
+    for vname, fn in variants.items():  # held to the same tolerance
+        compare(f"{name}/{label}/{vname}", fn(*first["args"]), want, dtype, tol)
     del got, want, tol
     args = [s["args"] for s in sets]
     b_ms, b_by = first["bound"]
     calls = first.get("calls", 32)
+    extra = {f"{vname}_ms": device_time_ms(fn, args, calls=calls)
+             for vname, fn in variants.items()}
     return dict(
         phase="kernel", kernel=name, case=label, dtype=str(dtype)[6:],
         kernel_ms=device_time_ms(first["kernel"], args, calls=calls),
@@ -381,7 +419,7 @@ def run_case(name, label, make, dtype, kw, dev, gen) -> dict:
         library_ms=device_time_ms(first["library"], [s["lib_args"] for s in sets],
                                   calls=calls),
         bound_ms=b_ms, bound_by=b_by, max_abs_err=max_abs, max_rel_err=max_rel,
-        err_over_tol=err_over_tol, input_sets=n_sets,
+        err_over_tol=err_over_tol, input_sets=n_sets, **extra,
     )
 
 
@@ -581,11 +619,11 @@ def main(argv=None) -> int:
     tool = build.cuobjdump()
     if tool is None:
         fail("no cuobjdump beside nvcc or in Triton: cannot read the kernels' SASS")
-    hgmma = {name: build.count_hgmma(tool, name) for name in build.SOURCES}
-    print(json.dumps(dict(phase="sass", hgmma=hgmma)), flush=True)
-    for name in TENSOR_CORE_KERNELS:
-        if hgmma[name] == 0:
-            fail(f"{name}: no HGMMA (tensor-core wgmma) instruction in its SASS")
+    mma = {name: build.count_mma(tool, name) for name in build.SOURCES}
+    print(json.dumps(dict(phase="sass", mma=mma)), flush=True)
+    for name, op in TENSOR_CORE_KERNELS.items():
+        if mma[name][op] == 0:
+            fail(f"{name}: no {op} (tensor-core) instruction in its SASS")
 
     rows = kernel_phases(dev)
     paths = [mha_entry(dev)]

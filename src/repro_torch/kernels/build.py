@@ -6,9 +6,9 @@ source, all started together, into `src/repro_torch/_build/` (listed in
 .gitignore). A library is named by a hash of its source, every shared
 header `csrc/*.cuh` and the flags, so an edited source or header
 rebuilds and an unchanged one is reused within a checkout.
-`count_hgmma` counts a built library's tensor-core (`wgmma`) instructions
-with `cuobjdump`. Nothing here runs at import time: the CPU tests import
-every module of the port on a machine with no nvcc.
+`count_mma` counts a built library's tensor-core instructions (wgmma
+and mma.sync) with `cuobjdump`. Nothing here runs at import time: the
+CPU tests import every module of the port on a machine with no nvcc.
 """
 from __future__ import annotations
 
@@ -80,12 +80,13 @@ def _lib_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
-def count_hgmma(tool: str, name: str) -> int:
-    """HGMMA (tensor-core wgmma) instructions in the SASS of the built
-    library of `csrc/<name>.cu`, read with the cuobjdump at `tool`."""
+def count_mma(tool: str, name: str) -> Dict[str, int]:
+    """Tensor-core instructions in the SASS of the built library of
+    `csrc/<name>.cu`, read with the cuobjdump at `tool`: HGMMA (warpgroup
+    wgmma) and HMMA (warp mma.sync)."""
     sass = subprocess.run([tool, "-sass", str(_lib_path(name))], capture_output=True,
-                          text=True, check=True).stdout
-    return sum("HGMMA" in line for line in sass.splitlines())
+                          text=True, check=True).stdout.splitlines()
+    return {op: sum(op in line for line in sass) for op in ("HGMMA", "HMMA")}
 
 
 def build_all() -> Dict[str, ctypes.CDLL]:

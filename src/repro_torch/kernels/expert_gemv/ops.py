@@ -2,6 +2,7 @@
 repro/kernels/expert_gemv/ops.py:23-54, `cold_expert_ffn`)."""
 from __future__ import annotations
 
+import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.expert_gemv.kernel import expert_ffn_gemv, panel_width
@@ -11,12 +12,13 @@ def cold_expert_ffn(x, w1, w3, w2, *, backend: str = "auto"):
     """x [E, C, D] per-expert token buffers (C small); w1/w3 [E, D, F];
     w2 [E, F, D] -> [E, C, D].
 
-    F is zero-padded up to a multiple of the kernel's F panel when it
-    does not divide (exact: silu(0) * 0 = 0 through the zero-padded down
-    rows), so any expert width works."""
+    In fp32, F is zero-padded up to a multiple of the kernel's F panel
+    when it does not divide (exact: silu(0) * 0 = 0 through the
+    zero-padded down rows), so any expert width works. The bf16 kernel
+    reads ragged panels in place (TMA zero-fills them)."""
     f = w1.shape[-1]
     bf = panel_width(f)
-    if f % bf:
+    if x.dtype == torch.float32 and f % bf:
         f_pad = (f + bf - 1) // bf * bf
         w1 = F.pad(w1, (0, f_pad - f))
         w3 = F.pad(w3, (0, f_pad - f))

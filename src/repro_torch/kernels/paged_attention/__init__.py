@@ -6,6 +6,7 @@ from repro_torch.kernels.paged_attention.kernel import (
 )
 from repro_torch.kernels.paged_attention.ops import active_block_width, n_width_buckets
 from repro_torch.kernels.paged_attention.ref import (
+    gqa_rounding_bound,
     linearize_blocks,
     paged_decode_gqa_ref,
     paged_decode_mla_ref,
@@ -15,6 +16,7 @@ from repro_torch.kernels.paged_attention.ref import (
 
 __all__ = [
     "active_block_width",
+    "gqa_rounding_bound",
     "linearize_blocks",
     "n_width_buckets",
     "paged_decode_gqa",

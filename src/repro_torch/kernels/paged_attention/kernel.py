@@ -2,7 +2,9 @@
 
 - csrc/paged_attention.cu, the port of the Pallas TPU kernel
   `paged_prefill_gqa` (repro/kernels/paged_attention/paged_attention.py:105)
-  and of its chunk-of-1 decode wrapper `paged_decode_gqa` (:153);
+  and of its chunk-of-1 decode wrapper `paged_decode_gqa` (:153): bf16
+  on wgmma over gathered 64-key tiles, split over the keys (and a combine
+  launch) when the table is long; fp32 on the CUDA-core kernel;
 - csrc/paged_attention_mla.cu, the port of `paged_prefill_mla` (:219)
   and of its chunk-of-1 decode wrapper `paged_decode_mla` (:269).
 
@@ -28,25 +30,46 @@ from repro_torch.kernels.paged_attention.ref import (
 
 OP = "paged_prefill_gqa"
 OP_MLA = "paged_prefill_mla"
+BF16_HEAD_DIMS = (64, 128)  # the bf16 GQA kernel's instances
+BF16_QUERY_ROWS = 64  # query rows of one bf16 block: one wgmma M tile
+# (row, head, query tile, key split) blocks a SM the key splits aim for:
+# a block's gather waits on memory, so several a SM hide its latency
+# (decode over 4096 keys: 1 a SM 0.0448 ms, PERF.md, PR 14)
+GQA_BLOCKS_PER_SM = 4
 
 
 @functools.cache
 def _entry():
-    """(kernel entry, shared-memory size query) with their C signatures."""
+    """(kernel entry, fp32 shared-memory size query, bf16 keys per tile)."""
     lib = library("paged_attention")
     smem = lib.paged_prefill_gqa_smem
     smem.restype = ctypes.c_size_t
     smem.argtypes = [ctypes.c_int, ctypes.c_int]
+    key_tile = lib.paged_prefill_gqa_key_tile
+    key_tile.restype = ctypes.c_int
+    key_tile.argtypes = []
     fn = lib.paged_prefill_gqa
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [
         ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-    return fn, smem
+    return fn, smem, key_tile()
 
 
-def _launch(q, pool_k, pool_v, tables, past_len, lengths) -> torch.Tensor:
+def gqa_splits(pairs: int, key_tiles: int, n_sm: int) -> int:
+    """Key splits of the bf16 kernel's grid: enough (row, head, query
+    tile) blocks for GQA_BLOCKS_PER_SM a SM, with room for at least two
+    key tiles a split in the table (a split of one tile costs the
+    combine more than it saves). The kernel divides the tiles each row
+    walks."""
+    return max(1, min(key_tiles // 2, -(-GQA_BLOCKS_PER_SM * n_sm // pairs)))
+
+
+def _launch(q, pool_k, pool_v, tables, past_len, lengths, splits=None) -> torch.Tensor:
+    """`splits`: the bf16 grid's key splits, by default `gqa_splits`
+    (chip_smoke.py times 1 beside it)."""
     b, c, kv, g, hd = q.shape
     nblk, bs = pool_k.shape[0], pool_k.shape[1]
+    nb = tables.shape[1]
     L.same_device(OP, q, pool_k, pool_v, tables, past_len, lengths)
     code = L.dtype_code(q, OP)
     L.require(pool_k.dtype == q.dtype and pool_v.dtype == q.dtype, OP,
@@ -60,14 +83,30 @@ def _launch(q, pool_k, pool_v, tables, past_len, lengths) -> torch.Tensor:
               "past_len and lengths must be [B]")
     for t in (q, pool_k, pool_v, tables, past_len, lengths):
         L.require(t.is_contiguous(), OP, "all inputs must be contiguous")
-    fn, smem_of = _entry()
-    smem = smem_of(c * g, hd)
-    L.require(smem <= L.MAX_SMEM, OP,
-              f"{c}x{g} query rows of width {hd} need {smem} B of shared memory")
+    fn, smem_of, key_tile = _entry()
+    part_o, part_ml = None, None
+    if code == 0:
+        splits = 1
+        smem = smem_of(c * g, hd)
+        L.require(smem <= L.MAX_SMEM, OP,
+                  f"{c}x{g} query rows of width {hd} need {smem} B of shared memory")
+    else:
+        L.require(hd in BF16_HEAD_DIMS, OP,
+                  f"bf16 head width {hd} not in {BF16_HEAD_DIMS}")
+        if splits is None:
+            n_sm = torch.cuda.get_device_properties(q.device).multi_processor_count
+            pairs = b * kv * -(-(c * g) // BF16_QUERY_ROWS)
+            splits = gqa_splits(pairs, -(-(nb * bs) // key_tile), n_sm)
+        if splits > 1:
+            part_o = torch.empty((splits, b, kv, c * g, hd), dtype=torch.float32,
+                                 device=q.device)
+            part_ml = torch.empty((splits, b, kv, c * g, 2), dtype=torch.float32,
+                                  device=q.device)
     out = torch.empty_like(q)
     err = fn(L.ptr(q), L.ptr(pool_k), L.ptr(pool_v), L.ptr(tables), L.ptr(past_len),
-             L.ptr(lengths), L.ptr(out), b, c, kv, g, hd, bs, tables.shape[1],
-             hd ** -0.5, code, L.stream(q))
+             L.ptr(lengths), L.ptr(out),
+             *(L.ptr(t) if t is not None else None for t in (part_o, part_ml)),
+             b, c, kv, g, hd, bs, nb, splits, hd ** -0.5, code, L.stream(q))
     check(err, OP)
     paged_prefill_gqa.launches += 1
     return out

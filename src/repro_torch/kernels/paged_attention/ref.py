@@ -44,6 +44,19 @@ def paged_prefill_gqa_ref(q, pool_k, pool_v, tables, past_len, lengths=None):
     return torch.einsum("bckgs,bskd->bckgd", p, vals.float()).to(q.dtype)
 
 
+def gqa_rounding_bound(q, pool_k, pool_v, tables, past_len):
+    """Elementwise bound on |kernel - paged_prefill_gqa_ref| when the
+    pools are in a 16-bit dtype, as flash attention's `rounding_bound`:
+    each side rounds every p to v's dtype (the kernel p = exp(s - the
+    running max of its key tiles), this version the normalized
+    softmax), at most eps/2 off relative, so the PV sums differ by at
+    most eps * sum(p |v|); and each rounds its output, at most one ulp
+    <= eps * |o| apart."""
+    eps = torch.finfo(pool_v.dtype).eps
+    o = paged_prefill_gqa_ref(q, pool_k, pool_v, tables, past_len).float().abs()
+    return eps * (o + paged_prefill_gqa_ref(q, pool_k, pool_v.abs(), tables, past_len).float())
+
+
 def paged_decode_gqa_ref(q, pool_k, pool_v, tables, pos):
     """q: [B, Kv, G, hd]; pos [B] -> [B, Kv, G, hd] (chunk-of-1)."""
     return paged_prefill_gqa_ref(q[:, None], pool_k, pool_v, tables, pos)[:, 0]

@@ -1,7 +1,10 @@
 """Card-only: each CUDA kernel of the port against its plain PyTorch
 version, at small shapes, in fp32 (tolerance 1e-5 for attention, 1e-4
 for the GEMM and GEMV: the same products summed in another order). The
-MLA kernel computes in fp32 from bf16 pools too (tolerance 1e-5 in both
+bf16 expert GEMV and paged GQA attention (tensor cores) are held per
+element, as chip_smoke.py holds them, to their `gemv_rounding_bound` and
+`gqa_rounding_bound`: the output, and h or P before it, round to bf16.
+The MLA kernel computes in fp32 from bf16 pools too (tolerance 1e-5 in both
 pool dtypes); the flash kernel rounds P and its output to bf16, held
 to `rounding_bound`, which scales with each output. The bf16 grouped
 GEMM (tensor cores) is held to `_gemm_bound`: fp32 sums of exact bf16
@@ -16,12 +19,18 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels.expert_gemv import expert_ffn_gemv
+from repro_torch.kernels.expert_gemv import (
+    cold_expert_ffn,
+    expert_ffn_gemv,
+    gemv_rounding_bound,
+)
 from repro_torch.kernels.expert_gemv.ref import expert_ffn_gemv_ref
 from repro_torch.kernels.flash_attention import attention_ref, flash_attention, rounding_bound
 from repro_torch.kernels.moe_gemm import moe_gemm
 from repro_torch.kernels.moe_gemm.ref import join_panels, moe_gemm_ref
 from repro_torch.kernels.paged_attention import (
+    gqa_rounding_bound,
+    paged_decode_gqa,
     paged_decode_mla,
     paged_decode_mla_ref,
     paged_prefill_gqa,
@@ -29,6 +38,7 @@ from repro_torch.kernels.paged_attention import (
     paged_prefill_mla,
     paged_prefill_mla_ref,
 )
+from repro_torch.kernels.paged_attention.kernel import _launch as gqa_launch
 
 
 @pytest.fixture
@@ -152,6 +162,105 @@ def test_expert_gemv_kernel_matches_plain(cuda_device):
     w1, w3, w2 = buf[:, 0], buf[:, 1], buf[:, 2].transpose(1, 2)
     torch.testing.assert_close(expert_ffn_gemv(x, w1, w3, w2, backend="cuda"),
                                expert_ffn_gemv_ref(x, w1, w3, w2), atol=1e-4, rtol=1e-4)
+
+
+def _tier_case(rng, dev, n_slots, t, d, f, live, zero_rows=()):
+    """bf16 token buffers [n_slots, t, d] (slots not in `live` all zero,
+    rows `zero_rows` of the live slots zero) and the gate, up and
+    transposed down views of a [n_slots, 3, d, f] tier buffer."""
+    buf = _t(rng.normal(size=(n_slots, 3, d, f)) * d ** -0.5, dev, torch.bfloat16)
+    x = np.zeros((n_slots, t, d))
+    x[list(live)] = rng.normal(size=(len(live), t, d))
+    for r in zero_rows:
+        x[list(live), r] = 0.0
+    return _t(x, dev, torch.bfloat16), buf[:, 0], buf[:, 1], buf[:, 2].transpose(1, 2)
+
+
+@pytest.mark.parametrize("n_slots,t,d,f,live,zero_rows", [
+    (6, 1, 256, 128, (0, 3), ()),
+    (5, 4, 1024, 512, (1, 2, 4), (3,)),       # granite widths
+    (9, 6, 384, 200, (0, 8), (0, 5)),         # F off the panel: the ops pad it
+    (3, 11, 512, 256, (0, 1, 2), (2, 10)),    # two n tiles, every slot live
+    (4, 16, 5120, 256, (1, 3), (15,)),        # 16 tokens at deepseek's d_model
+    (2, 32, 128, 64, (0,), (7,)),             # one full group of 32 tokens
+    (3, 33, 256, 128, (0, 2), (32,)),         # a second group of one token, zero in
+    (2, 49, 1024, 512, (1,), (0, 40)),        # granite widths, two groups
+])
+def test_expert_gemv_bf16_skips_empty_slots(cuda_device, n_slots, t, d, f, live, zero_rows):
+    dev = cuda_device
+    rng = np.random.default_rng(20 + t)
+    x, w1, w3, w2 = _tier_case(rng, dev, n_slots, t, d, f, live, zero_rows)
+    got = cold_expert_ffn(x, w1, w3, w2, backend="cuda")
+    want = cold_expert_ffn(x, w1, w3, w2, backend="ref")
+    assert got.dtype == torch.bfloat16 and got.shape == x.shape
+    empty = [e for e in range(n_slots) if e not in live]
+    assert (got[empty] == 0).all()  # skipped slots: exactly zero
+    for r in zero_rows:
+        assert (got[list(live), r] == 0).all()  # zero rows of live slots too
+    bound = gemv_rounding_bound(x, w1, w3, w2)
+    assert ((got.float() - want.float()).abs() <= bound).all()
+    for e in live:  # a slot's output does not depend on the other slots
+        alone = torch.zeros_like(x)
+        alone[e] = x[e]
+        assert torch.equal(cold_expert_ffn(alone, w1, w3, w2, backend="cuda")[e], got[e])
+
+
+def test_expert_gemv_bf16_refuses_what_it_cannot_address(cuda_device):
+    dev = cuda_device
+    x = torch.ones(2, 4, 64, dtype=torch.bfloat16, device=dev)
+    w = torch.ones(2, 64, 32, dtype=torch.bfloat16, device=dev)
+    w2 = torch.ones(2, 32, 64, dtype=torch.bfloat16, device=dev)  # F not contiguous
+    with pytest.raises(ValueError, match="unit stride"):
+        expert_ffn_gemv(x, w, w, w2, backend="cuda")
+    w_odd = torch.ones(2, 64, 36, dtype=torch.bfloat16, device=dev)  # F off the granule
+    with pytest.raises(ValueError, match="multiples of 8"):
+        cold_expert_ffn(x, w_odd, w_odd, w_odd.transpose(1, 2), backend="cuda")
+
+
+def _gqa_case(rng, dev, dtype, b, c, g, hd, nb, kv=2, bs=4):
+    """Rows: 0 a chunk at past 0; 1 all pad (len 0); 2 dead (len 0, an
+    all-trash table); the rest random past / len within the table."""
+    n_blocks = b * nb + 2
+    tables = rng.permutation(n_blocks)[: b * nb].reshape(b, nb)
+    tables[2] = n_blocks  # the trash block
+    past = rng.integers(0, nb * bs - c + 1, size=b)
+    lengths = rng.integers(1, c + 1, size=b)
+    past[0], lengths[1], lengths[2] = 0, 0, 0
+    q = _t(rng.normal(size=(b, c, kv, g, hd)), dev, dtype)
+    pk, pv = (_t(rng.normal(size=(n_blocks + 1, bs, kv, hd)), dev, dtype) for _ in range(2))
+    return (q, pk, pv, _t(tables, dev, torch.int32), _t(past, dev, torch.int32),
+            _t(lengths, dev, torch.int32))
+
+
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("c,g,nb", [
+    (1, 1, 16), (1, 2, 64), (1, 4, 40),    # decode; 64 blocks: two key splits
+    (1, 2, 256),                           # 16 key tiles: 8 splits, short rows' empty
+    (8, 2, 16), (8, 4, 8), (8, 2, 64),     # a prefill chunk over two key splits
+    (32, 1, 16), (32, 2, 24), (32, 4, 16),  # 32 x 4 = 128 rows: two query tiles
+])
+def test_paged_gqa_bf16_kernel_matches_plain(cuda_device, hd, c, g, nb):
+    dev = cuda_device
+    rng = np.random.default_rng(30 + c + g + nb)
+    args = _gqa_case(rng, dev, torch.bfloat16, b=5, c=c, g=g, hd=hd, nb=nb)
+    got = paged_prefill_gqa(*args, backend="cuda")
+    want = paged_prefill_gqa_ref(*args)
+    lengths = args[-1]
+    assert got.dtype == torch.bfloat16 and torch.isfinite(got.float()).all()
+    real = torch.arange(c, device=dev)[None, :] < lengths[:, None]
+    bound = gqa_rounding_bound(*args[:5])
+    assert ((got[real].float() - want[real].float()).abs() <= bound[real]).all()
+    if nb >= 64:  # split over the keys by default; one split holds the bound too
+        one = gqa_launch(*args, splits=1)
+        assert ((one[real].float() - want[real].float()).abs() <= bound[real]).all()
+    if hd == 64 and nb == 16:
+        with pytest.raises(ValueError, match="head width"):
+            paged_prefill_gqa(*(t[..., :32].contiguous() for t in args[:3]), *args[3:],
+                              backend="cuda")
+    if c == 1:  # decode = the chunk of 1 (rows of length 0 walk less there)
+        dec = paged_decode_gqa(args[0][:, 0], *args[1:4], args[4], backend="cuda")
+        assert torch.isfinite(dec.float()).all()
+        assert torch.equal(dec[lengths > 0], got[:, 0][lengths > 0])
 
 
 @pytest.mark.parametrize("pool_dtype", [torch.float32, torch.bfloat16])

@@ -12,6 +12,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from repro.kernels.expert_gemv import cold_expert_ffn as jax_cold_expert_ffn
 from repro.kernels.moe_gemm import grouped_expert_ffn as jax_grouped_expert_ffn
@@ -20,13 +21,18 @@ from repro.kernels.paged_attention import paged_decode_gqa as jax_paged_decode_g
 from repro.kernels.paged_attention import paged_prefill_gqa as jax_paged_prefill_gqa
 from repro_torch.kernels import backend
 from repro_torch.kernels.backend import use_kernel
-from repro_torch.kernels.expert_gemv import cold_expert_ffn
+from repro_torch.kernels.expert_gemv import cold_expert_ffn, gemv_rounding_bound
+from repro_torch.kernels.expert_gemv.kernel import mma_addressable, mma_plan
 from repro_torch.kernels.moe_gemm import grouped_expert_ffn, moe_gemm
 from repro_torch.kernels.moe_gemm.ref import moe_gemm_ref
 from repro_torch.kernels.paged_attention import (
+    gqa_rounding_bound,
+    linearize_blocks,
     paged_decode_gqa,
     paged_prefill_gqa,
 )
+from repro_torch.kernels.paged_attention.kernel import gqa_splits
+from repro_torch.serving.tiered_moe import _dispatch_tier
 
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
@@ -155,6 +161,187 @@ def test_cold_expert_ffn_matches_pallas(dt, f):
     want = jax_cold_expert_ffn(jx, j1, j3, j2, bf=64, backend="pallas")
     got = cold_expert_ffn(tx, t1, t3, t2)
     np.testing.assert_allclose(_np(got), _np(want), atol=TOL[dt], rtol=TOL[dt])
+
+
+# The bf16 GEMV skips every tier slot whose token rows are all zero.
+# That is exact on the serving path because (1) dispatch leaves every
+# unassigned row of a tier buffer exactly zero and (2) the expert FFN maps
+# a zero row to an exactly zero row, in the JAX kernel and in the port.
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+def test_dispatch_leaves_unassigned_rows_zero(dt):
+    rng = np.random.default_rng(13)
+    t, k, n_slots, cap, d = 6, 3, 5, 4, 16
+    flat = torch.tensor(rng.normal(size=(t, d)), dtype=torch.float32).to(TDT[dt])
+    st = torch.arange(t).repeat_interleave(k)
+    slot = torch.tensor(rng.integers(0, n_slots, t * k))
+    in_tier = torch.tensor(rng.random(t * k) < 0.6)
+    buf, dst, ok = _dispatch_tier(flat, st, slot, in_tier, n_slots, cap)
+    rows = buf.reshape(n_slots * cap, d)
+    assigned = torch.zeros(n_slots * cap, dtype=torch.bool)
+    assigned[dst[ok]] = True
+    assert bool((rows[~assigned] == 0).all())
+    assert torch.equal(rows[dst[ok]], flat[st[ok]])
+    assert not bool(assigned.all())  # the case has empty rows to check
+
+
+def _ffn_case(seed, e, t, d, f):
+    """Token buffers with one all-zero slot and zero rows in the others."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(e, t, d))
+    x[1] = 0.0
+    x[0, 1:] = 0.0
+    x[2, 0] = 0.0
+    w1 = rng.normal(size=(e, d, f)) * d ** -0.5
+    w3 = rng.normal(size=(e, d, f)) * d ** -0.5
+    w2 = rng.normal(size=(e, f, d)) * f ** -0.5
+    return x, w1, w3, w2, (x == 0).all(-1)
+
+
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+def test_zero_token_rows_give_zero_rows_in_pallas_and_port(dt):
+    x, w1, w3, w2, zero = _ffn_case(14, 4, 3, 32, 64)
+    (jx, tx), (j1, t1), (j3, t3), (j2, t2) = (_both(a, dt) for a in (x, w1, w3, w2))
+    want = _np(jax_cold_expert_ffn(jx, j1, j3, j2, bf=64, backend="pallas"))
+    got = _np(cold_expert_ffn(tx, t1, t3, t2))
+    for out in (want, got):
+        assert (out[zero] == 0).all()
+        assert (np.abs(out[~zero]).sum(-1) > 0).all()
+
+
+@pytest.mark.parametrize("d,f,want", [
+    (5120, 1536, (4, 1)),  # deepseek: D = 80 stages over 4 CTAs, F = 24 stages
+    (1024, 512, (1, 1)),   # granite: 16 and 8 stages, no split
+    (8192, 2048, (8, 2)),
+    (64, 32, (1, 1)),
+])
+def test_gemv_mma_plan_keeps_16_stages_a_cta(d, f, want):
+    plan = mma_plan(d, f)
+    assert plan == want
+    for depth, cs in zip((d, f), plan):
+        stages = -(-depth // 64)
+        assert cs == 1 or stages >= 16 * cs  # each CTA keeps 16 stages
+        assert cs == 8 or stages < 16 * 2 * cs  # and a larger cluster would not
+
+
+def test_gemv_mma_addressable():
+    """The bf16 passes read tier-buffer views in place (F contiguous),
+    F off the 64-wide panel included; a row-major [E, F, D] down matrix,
+    or D or F off the 16-byte granule, is refused."""
+    buf = torch.randn(3, 3, 64, 40, dtype=torch.bfloat16)
+    x = torch.randn(3, 2, 64, dtype=torch.bfloat16)
+    views = (buf[:, 0], buf[:, 1], buf[:, 2].transpose(1, 2))
+    assert mma_addressable(x, *views)
+    assert not mma_addressable(x, views[0], views[1], views[2].contiguous())
+    assert not mma_addressable(x[..., :60].contiguous(), views[0][:, :60],
+                               views[1][:, :60], views[2][..., :60])
+    assert not mma_addressable(x, views[0][..., :36], views[1][..., :36],
+                               views[2][:, :36])
+
+
+def _gemv_bf16(x, w1, w3, w2, round_h=True, chunk=64):
+    """The bf16 GEMV kernel's arithmetic on the CPU: g, u and y summed in
+    fp32 a 64-deep chunk at a time (the kernel's stages), h =
+    silu(g) * u rounded to bf16 before W2 (`round_h=False` leaves it in
+    fp32: a fault), y rounded to bf16."""
+    def chunked(a, b):
+        return sum(torch.bmm(a[..., k:k + chunk], b[:, k:k + chunk])
+                   for k in range(0, a.shape[-1], chunk))
+    xf = x.float()
+    g, u = chunked(xf, w1.float()), chunked(xf, w3.float())
+    h = g / (1 + torch.exp(-g)) * u
+    h = h.to(torch.bfloat16).float() if round_h else h
+    return chunked(h, w2.float()).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("e,t,d,f", [(3, 4, 256, 128), (2, 9, 512, 320), (4, 1, 128, 512)])
+def test_gemv_rounding_bound_holds_for_the_kernel_arithmetic(e, t, d, f):
+    """`gemv_rounding_bound`, which the card holds the bf16 GEMV to, covers
+    the kernel's own summation order and is tight enough that leaving h
+    unrounded breaks it, once h's rounding errors line up with W2's
+    signs (token 0's, here)."""
+    rng = np.random.default_rng(15 + t)
+    x = torch.tensor(rng.normal(size=(e, t, d)), dtype=torch.bfloat16)
+    w1, w3 = (torch.tensor(rng.normal(size=(e, d, f)) * d ** -0.5, dtype=torch.bfloat16)
+              for _ in range(2))
+    w2 = torch.tensor(rng.normal(size=(e, f, d)) * f ** -0.5, dtype=torch.bfloat16)
+    want = cold_expert_ffn(x, w1, w3, w2).float()
+    bound = gemv_rounding_bound(x, w1, w3, w2)
+    assert ((_gemv_bf16(x, w1, w3, w2).float() - want).abs() <= bound).all()
+    xf = x.float()
+    hf = F.silu(torch.bmm(xf, w1.float())) * torch.bmm(xf, w3.float())
+    lined_up = torch.sign(hf - hf.to(torch.bfloat16).float())[:, 0, :, None] * w2.abs()
+    bound = gemv_rounding_bound(x, w1, w3, lined_up)
+    want = cold_expert_ffn(x, w1, w3, lined_up).float()
+    assert ((_gemv_bf16(x, w1, w3, lined_up).float() - want).abs() <= bound).all()
+    unrounded = _gemv_bf16(x, w1, w3, lined_up, round_h=False).float()
+    assert ((unrounded - want).abs() > bound)[:, 0].any()
+
+
+def _paged_gqa_bf16(q, pool_k, pool_v, tables, past_len, lengths, tile=64, drop_last=False):
+    """The bf16 paged GQA kernel's arithmetic on the CPU: each row's
+    walked keys (the TPU skip rule) in tiles of `tile`, running max and
+    sum in fp32, p = exp(s - running max) rounded to bf16 before PV,
+    output acc / max(l, 1e-30) rounded to bf16. `drop_last` skips each
+    row's last walked tile (a fault)."""
+    b, c, kv, g, hd = q.shape
+    bs, nb = pool_k.shape[1], tables.shape[1]
+    keys = linearize_blocks(pool_k, tables).float().permute(0, 2, 3, 1)  # [B, Kv, hd, S]
+    vals = linearize_blocks(pool_v, tables).float().transpose(1, 2)  # [B, Kv, S, hd]
+    qf = q.float().permute(0, 2, 1, 3, 4).reshape(b, kv, c * g, hd)
+    last = past_len + lengths - 1
+    walked = torch.minimum(torch.full_like(last, nb), last.clamp_min(0) // bs + 1) * bs
+    qpos = (past_len[:, None] + torch.arange(c)[None, :]).repeat_interleave(g, 1)
+    m = torch.full((b, kv, c * g, 1), -1e30)
+    den = torch.zeros(b, kv, c * g, 1)
+    acc = torch.zeros(b, kv, c * g, hd)
+    for t0 in range(0, nb * bs, tile):
+        kpos = torch.arange(t0, min(t0 + tile, nb * bs))
+        s = qf @ keys[..., kpos] * hd ** -0.5
+        visible = (kpos[None, None, :] <= qpos[:, :, None])[:, None]  # [B, 1, C*G, keys]
+        s = torch.where(visible, s, torch.full_like(s, -1e30))
+        skip = kpos[None, :] >= walked[:, None]
+        if drop_last:
+            skip |= (walked[:, None] - 1) // tile == t0 // tile
+        s = torch.where(skip[:, None, None, :], torch.full_like(s, -float("inf")), s)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        p, alpha = torch.exp(s - m_new), torch.exp(m - m_new)
+        den, m = den * alpha + p.sum(-1, keepdim=True), m_new
+        acc = acc * alpha + p.to(torch.bfloat16).float() @ vals[:, :, kpos]
+    o = (acc / den.clamp_min(1e-30)).to(torch.bfloat16)
+    return o.reshape(b, kv, c, g, hd).permute(0, 2, 1, 3, 4)
+
+
+@pytest.mark.parametrize("c,g,nb", [(1, 2, 64), (8, 4, 40), (32, 2, 24)])
+def test_gqa_rounding_bound_holds_for_the_kernel_arithmetic(c, g, nb):
+    """`gqa_rounding_bound`, which the card holds the bf16 paged GQA
+    kernel to, covers the kernel's rounding over 64-key tiles, and a
+    skipped key tile (each row's last one walked) breaks it. It cannot
+    tell a kernel that leaves P unrounded from one that rounds it: the
+    plain version rounds the normalized softmax, so both differ from it
+    by up to the same eps per key."""
+    q, pk, pv, tables, past, lengths = _attention_case(16 + c, b=4, c=c, kv=2, g=g, hd=64,
+                                                       bs=4, nb=nb)
+    q, pk, pv = (torch.tensor(a, dtype=torch.bfloat16) for a in (q, pk, pv))
+    tables, past, lengths = (torch.tensor(a) for a in (tables, past, lengths))
+    args = (q, pk, pv, tables, past, lengths)
+    want = paged_prefill_gqa(*args).float()
+    bound = gqa_rounding_bound(q, pk, pv, tables, past)
+    real = (torch.arange(c)[None, :] < lengths[:, None])[..., None, None, None].expand_as(want)
+    err = (_paged_gqa_bf16(*args).float() - want).abs()
+    assert (err <= bound)[real].all()
+    dropped = (_paged_gqa_bf16(*args, drop_last=True).float() - want).abs()
+    assert (dropped > bound)[real].any()
+
+
+@pytest.mark.parametrize("pairs,key_tiles,want", [
+    (32, 1, 1),     # one key tile: nothing to split
+    (32, 2, 1),     # two tiles: the combine costs more than a split saves
+    (32, 64, 17),   # decode over a long cache: 32 pairs x 17 splits >= 4 x 132 SMs
+    (1024, 64, 1),  # enough blocks already
+    (2, 8, 4),      # capped at two tiles a split
+])
+def test_gqa_splits(pairs, key_tiles, want):
+    assert gqa_splits(pairs, key_tiles, n_sm=132) == want
 
 
 # ------------------------------------------------------ backend rule
