@@ -8,8 +8,8 @@
 Phases, each fatal on failure:
   1. build the five CUDA kernels from src/repro_torch/csrc (nvcc, sm_90a)
      and count the tensor-core instructions in each library's SASS: the
-     bf16 moe_gemm, flash_attention and paged GQA kernels must have
-     HGMMA (wgmma), the expert GEMV HMMA (mma.sync);
+     bf16 moe_gemm, flash_attention, paged GQA and paged MLA kernels
+     must have HGMMA (wgmma), the expert GEMV HMMA (mma.sync);
   2. hold each kernel against its plain PyTorch version at its path's
      shapes, in bf16 and fp32, and time kernel / plain / library on the
      device (CUDA-graph replay), plus the kernel's eager call;
@@ -61,6 +61,7 @@ from repro_torch.kernels.paged_attention import (  # noqa: E402
     paged_prefill_mla,
 )
 from repro_torch.kernels.paged_attention.kernel import _launch as gqa_launch  # noqa: E402
+from repro_torch.kernels.paged_attention.kernel import _launch_mla as mla_launch  # noqa: E402
 from repro_torch.models.model import init_params  # noqa: E402
 from repro_torch.serving.batching import Request  # noqa: E402
 from repro_torch.serving.engine import (  # noqa: E402
@@ -78,7 +79,8 @@ MLA_LAYERS = 3  # deepseek depth cut 60 -> 3: dense layer 0 + 2 MoE layers
 MHA_PATH = "mha"
 # source -> the tensor-core instruction its bf16 path must compile to
 TENSOR_CORE_KERNELS = {"moe_gemm": "HGMMA", "flash_attention": "HGMMA",
-                       "paged_attention": "HGMMA", "expert_gemv": "HMMA"}
+                       "paged_attention": "HGMMA", "paged_attention_mla": "HGMMA",
+                       "expert_gemv": "HMMA"}
 # name -> (wrapper, source, TPU kernel it replaces, the path it was ported
 # on: the `kernels` line's `launches` is that path's own count)
 KERNELS = {
@@ -278,14 +280,19 @@ def gemv_case(dtype, *, n_slots, t, dev, gen, d=1024, f=512, live=None, calls=32
     )
 
 
-def mla_case(dtype, *, b, c, past, dev, gen):
+def mla_case(dtype, *, b, c, past, dev, gen, nb=18):
     """Absorbed MLA at deepseek-v2's widths (H=128, r=512, rd=64, scale
-    192^-0.5) over 4-token blocks, 18 per row (cache_len 72): fp32
-    queries, latent pools in `dtype`. The math is fp32 on both sides in
-    either pool dtype, so both are held to the fp32 tolerance. Library:
-    SDPA over [q_lat | q_rope] against [ckv | krope] broadcast to the
-    heads, values ckv, with the position mask."""
-    h, r, rd, bs, nb = 128, 512, 64, 4, 18
+    192^-0.5) over 4-token blocks, `nb` per row (18: cache_len 72, as
+    served): fp32 queries, latent pools in `dtype`. The math is fp32 on
+    both sides in either pool dtype, so both are held to the fp32
+    tolerance (bf16 pools: q in three bf16 terms, all of its 24 bits, P
+    in two, 16 bits; each product with a latent exact in fp32). Library: SDPA over [q_lat | q_rope] against
+    [ckv | krope] broadcast to the heads, values ckv, with the position
+    mask. Bound: bytes, or the fp32-exact operations (bf16: twice the
+    fp32 count, the least split the tensor cores need, at 989 TFLOP/s;
+    fp32: at 67). A table of enough key tiles to split over is also
+    timed with one split (`unsplit`)."""
+    h, r, rd, bs = 128, 512, 64, 4
     scale = (128 + 64) ** -0.5
     n_blocks = 8 * nb
     perm = torch.randperm(n_blocks, generator=gen, device="cpu")[: b * nb]
@@ -310,6 +317,8 @@ def mla_case(dtype, *, b, c, past, dev, gen):
     nbytes = ((2 * q_lat.numel() + q_rope.numel()) * 4
               + walked * (r + rd) * pool_ckv.element_size() + tables.numel() * 4)
     visible = sum(sum(p + i + 1 for i in range(c)) for p in past)
+    flops = 2.0 * visible * h * (2 * r + rd)
+    bf16 = dtype == torch.bfloat16
     return dict(
         args=args, lib_args=(qh, kh, vh, mask),
         kernel=lambda *a: paged_prefill_mla(*a, scale=scale, backend="cuda"),
@@ -317,8 +326,10 @@ def mla_case(dtype, *, b, c, past, dev, gen):
         library=lambda q, k, v, m: F.scaled_dot_product_attention(q, k, v, attn_mask=m,
                                                                   scale=scale),
         held=sum(t.numel() * t.element_size() for t in args),
-        bound=bound_ms(nbytes, 2.0 * visible * h * (2 * r + rd), torch.float32),
+        bound=bound_ms(nbytes, 2 * flops, dtype) if bf16 else bound_ms(nbytes, flops, dtype),
         tol=TOL[torch.float32],
+        variants={"unsplit": lambda *a: mla_launch(*a, scale, splits=1)}
+        if bf16 and nb >= 256 else {},
     )
 
 
@@ -380,6 +391,10 @@ KERNEL_CASES = [  # (kernel, label, case, kwargs); the first per kernel is its J
      dict(b=4, c=1, past=[40, 51, 60, 71])),
     ("paged_prefill_mla", "prefill B=4 C=32 H=128 r=512 nb=18", mla_case,
      dict(b=4, c=32, past=[0, 16, 24, 40])),
+    # decode over a long cache (4096 keys, 64 key tiles): the key splits
+    # (and their combine) against one split
+    ("paged_prefill_mla", "decode B=4 H=128 r=512 nb=1024", mla_case,
+     dict(b=4, c=1, past=[3900, 4000, 4050, 4095], nb=1024)),
     ("flash_attention", "mha B=1 S=512 H=4 dh=64 causal", flash_case,
      dict(b=1, s=512, h=4, dh=64)),
     ("flash_attention", "llama3.2-3b H=24 dh=128 S=8192 causal", flash_case,

@@ -1,5 +1,6 @@
 // Hopper (sm_90a) building blocks of the port's bf16 tensor-core kernels
-// (moe_gemm.cu, flash_attention.cu): shared-memory matrix descriptors,
+// (moe_gemm.cu, flash_attention.cu, paged_attention.cu,
+// paged_attention_mla.cu): shared-memory matrix descriptors,
 // warpgroup MMA (`wgmma.mma_async`, bf16 in, fp32 accumulators), the
 // `mbarrier`s that order a ring of shared-memory stages, TMA tile loads
 // (`cp.async.bulk.tensor`) and, on the host, the encoding of a tiled
@@ -274,6 +275,36 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
       "r"(c3)
       : "memory");
+}
+
+// 16 bytes from global to shared memory by cp.async (L2 only); `valid`
+// false writes 16 zero bytes and reads nothing of `src`.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+// cp.async and st.shared write through the generic proxy; wgmma reads
+// through the async proxy: make this thread's writes visible to it.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Byte offset of (row, 16-byte piece p of the row's SW-wide chunk c) in a
+// tile of 64-row chunks laid out as TMA's SWIZZLE_<SW>B would write it:
+// chunk c is 64 rows of SW bytes, 16-byte pieces XOR-ed with bits 7.. of
+// the offset (the 8- or 16-row swizzle atom of 1024 bytes).
+template <int SW>
+__device__ __forceinline__ uint32_t swz(int row, int c, int p) {
+  const uint32_t o = c * 64 * SW + row * SW + p * 16;
+  return o ^ (((o >> 7) & (SW / 16 - 1)) << 4);
 }
 
 // Two floats as one bf16x2 word, `lo` in the low half (the lower column).

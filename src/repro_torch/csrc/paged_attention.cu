@@ -34,21 +34,19 @@
 // in registers as the A operand of O += P V (m64n{hd}k16, V MN-major).
 // Keys past the last one any row of the tile can see are not walked
 // (exact: they would be masked); keys past the row's walk take no part
-// in max or sum. Long key ranges split across blocks (flash-decoding):
-// the wrapper sizes the grid's splits from the table width (the lengths
-// live on the device), and each block divides the key tiles its row
-// actually walks: split s takes tiles [s*per, (s+1)*per), per = the
-// row's tiles over the splits but at least 2, so a short row leaves the
-// later splits empty. Each split writes its (m, l, o) in fp32; a combine
-// kernel merges them in split order, so the result does not change from
-// run to run. A decode step of B*Kv = 32 pairs over a long cache so
-// still fills the SMs; one split writes the output directly.
+// in max or sum. Long key ranges split across blocks (flash-decoding,
+// key_splits.cuh): the wrapper sizes the grid's splits from the table
+// width (the lengths live on the device), each block divides the key
+// tiles its row actually walks, and an ordered fp32 combine merges the
+// splits. A decode step of B*Kv = 32 pairs over a long cache so still
+// fills the SMs; one split writes the output directly.
 //
 // fp32 keeps the CUDA-core kernel (TF32 would break the fp32 token
 // identity with the CPU): grid (row, kv head); key tiles of 32 staged in
 // fp32 shared memory (K padded to hd+1 columns); one warp scores one
 // query row at a time, lane j key j; per-row (m, l, acc) in shared memory.
 #include "hopper_mma.cuh"
+#include "key_splits.cuh"
 
 namespace {
 
@@ -185,7 +183,6 @@ int launch_f32(const void* q, const void* pk, const void* pv, const void* tables
 constexpr int kRows = 64;   // query rows per block: one warpgroup's wgmma M
 constexpr int kKeys = 64;   // keys per tile
 constexpr int kMmaThreads = 128;
-constexpr int kMinSplitTiles = 2;  // key tiles a split walks at least
 constexpr float kLog2e = 1.4426950408889634f;
 
 template <int HD>
@@ -195,34 +192,6 @@ struct GqaCfg {
   static constexpr int tile = 64 * HD * 2;                 // [64, HD] = HD*2/SW chunks
   static constexpr int smem = tile * 5 + 1024;             // Q + 2 x (K, V)
 };
-
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
-               "r"(valid ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-// cp.async writes through the generic proxy; wgmma reads through the
-// async proxy: make this thread's landed copies visible to it.
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-// Byte offset of (row, 16-byte piece p of the row's SW-wide chunk c) in a
-// [64, HD] tile laid out as TMA's SWIZZLE_<SW>B would write it: chunk c
-// is 64 rows of SW bytes, 16-byte pieces XOR-ed with bits 7.. of the
-// offset (the 8- or 16-row swizzle atom of 1024 bytes).
-template <int SW>
-__device__ __forceinline__ uint32_t swz(int row, int c, int p) {
-  const uint32_t o = c * 64 * SW + row * SW + p * 16;
-  return o ^ (((o >> 7) & (SW / 16 - 1)) << 4);
-}
 
 // Gather one [64, HD] tile of rows into the swizzled layout at `dst`.
 // Row j reads `src_of(j)` (an element pointer, or nullptr: zero-fill;
@@ -236,7 +205,8 @@ __device__ __forceinline__ void gather_tile(uint32_t dst, SrcOf src_of,
     const int j = i / kPieces, piece = i % kPieces;
     const int c = piece / (C::SW / 16), p = piece % (C::SW / 16);
     const __nv_bfloat16* src = src_of(j);
-    cp_async16(dst + swz<C::SW>(j, c, p), src ? src + piece * 8 : any, src != nullptr);
+    hopper::cp_async16(dst + hopper::swz<C::SW>(j, c, p), src ? src + piece * 8 : any,
+                       src != nullptr);
   }
 }
 
@@ -266,9 +236,8 @@ __global__ void __launch_bounds__(kMmaThreads, 1) paged_gqa_bf16_kernel(
   const int c_max = min(C - 1, (min(R, row0 + kRows) - 1) / G);
   const int n_keys = min(walk_blocks * bs, past + c_max + 1);
   const int n_tiles = (n_keys + kKeys - 1) / kKeys;
-  const int per = max(kMinSplitTiles, (n_tiles + splits - 1) / splits);
-  const int t_begin = split * per;
-  const int t_end = min(n_tiles, t_begin + per);
+  const int2 span = key_splits::tiles(n_tiles, split, splits);
+  const int t_begin = span.x, t_end = span.y;
 
   const int* row_table = tables + (size_t)b * nb;
   auto key_src = [&](const __nv_bfloat16* pool, int t) -> const __nv_bfloat16* {
@@ -297,7 +266,7 @@ __global__ void __launch_bounds__(kMmaThreads, 1) paged_gqa_bf16_kernel(
       return q + (((size_t)b * C + r / G) * Kv + h) * G * HD + (size_t)(r % G) * HD;
     }, q, tid);
     load_kv(t_begin, 0);
-    cp_async_commit();
+    hopper::cp_async_commit();
   }
   int qpos[2];
 #pragma unroll
@@ -307,12 +276,12 @@ __global__ void __launch_bounds__(kMmaThreads, 1) paged_gqa_bf16_kernel(
     const int buf = (t - t_begin) & 1;
     if (t + 1 < t_end) {
       load_kv(t + 1, buf ^ 1);
-      cp_async_commit();
-      cp_async_wait<1>();
+      hopper::cp_async_commit();
+      hopper::cp_async_wait<1>();
     } else {
-      cp_async_wait<0>();
+      hopper::cp_async_wait<0>();
     }
-    fence_proxy_async();
+    hopper::fence_proxy_async();
     __syncthreads();
     const uint8_t* kt = k_s + buf * Cfg::tile;
     const uint8_t* vt = v_s + buf * Cfg::tile;
@@ -425,35 +394,17 @@ __global__ void __launch_bounds__(kMmaThreads, 1) paged_gqa_bf16_kernel(
   }
 }
 
-// Merge the splits of each (b, h, r) in split order: M = max m_s,
-// o = sum_s e^(m_s - M) o_s / max(sum_s e^(m_s - M) l_s, 1e-30).
-__global__ void combine_splits_kernel(const float* __restrict__ part_o,
-                                      const float* __restrict__ part_ml,
-                                      __nv_bfloat16* __restrict__ out, int splits, int B,
-                                      int C, int Kv, int G, int hd) {
-  const int R = C * G;
-  const size_t n_rows = (size_t)B * Kv * R;
-  const size_t row = blockIdx.x;  // (b, h, r)
-  if (row >= n_rows) return;
-  const int r = row % R, h = (row / R) % Kv, b = row / ((size_t)R * Kv);
-  float mmax = -INFINITY;
-  for (int s = 0; s < splits; ++s) mmax = fmaxf(mmax, part_ml[2 * (s * n_rows + row)]);
-  float lsum = 0.f;
-  for (int s = 0; s < splits; ++s) {
-    const size_t i = s * n_rows + row;
-    lsum += exp2f((part_ml[2 * i] - mmax) * kLog2e) * part_ml[2 * i + 1];
+// Where the combine writes row (b, h, r): out [B, C, Kv, G, hd].
+struct GqaOutRow {
+  __nv_bfloat16* out;
+  int C, Kv, G, hd;
+  __device__ __nv_bfloat16* operator()(size_t row) const {
+    const int R = C * G;
+    const int r = row % R, h = (row / R) % Kv;
+    const size_t b = row / ((size_t)R * Kv);
+    return out + ((b * C + r / G) * Kv + h) * G * hd + (size_t)(r % G) * hd;
   }
-  const float inv = 1.f / fmaxf(lsum, 1e-30f);
-  __nv_bfloat16* orow = out + (((size_t)b * C + r / G) * Kv + h) * G * hd + (size_t)(r % G) * hd;
-  for (int d = threadIdx.x; d < hd; d += blockDim.x) {
-    float acc = 0.f;
-    for (int s = 0; s < splits; ++s) {
-      const size_t i = s * n_rows + row;
-      acc += exp2f((part_ml[2 * i] - mmax) * kLog2e) * part_o[i * hd + d];
-    }
-    orow[d] = __float2bfloat16(acc * inv);
-  }
-}
+};
 
 template <int HD>
 int launch_bf16(const void* q, const void* pk, const void* pv, const void* tables,
@@ -475,9 +426,9 @@ int launch_bf16(const void* q, const void* pk, const void* pv, const void* table
       n_rt, scale);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess || splits == 1) return (int)e;
-  combine_splits_kernel<<<B * Kv * C * G, HD < 128 ? HD : 128, 0, stream>>>(
-      po, static_cast<const float*>(part_ml), static_cast<__nv_bfloat16*>(out), splits, B, C,
-      Kv, G, HD);
+  key_splits::combine_kernel<<<B * Kv * C * G, HD < 128 ? HD : 128, 0, stream>>>(
+      po, static_cast<const float*>(part_ml), splits, B * Kv * C * G, HD,
+      GqaOutRow{static_cast<__nv_bfloat16*>(out), C, Kv, G, HD});
   return (int)cudaGetLastError();
 }
 

@@ -6,7 +6,11 @@
   on wgmma over gathered 64-key tiles, split over the keys (and a combine
   launch) when the table is long; fp32 on the CUDA-core kernel;
 - csrc/paged_attention_mla.cu, the port of `paged_prefill_mla` (:219)
-  and of its chunk-of-1 decode wrapper `paged_decode_mla` (:269).
+  and of its chunk-of-1 decode wrapper `paged_decode_mla` (:269): bf16
+  pools on wgmma with split-bf16 operands (q in three terms, P in two), each
+  product with a latent exact in fp32, a cluster of two
+  CTAs per 64 query rows, split over the keys (and a combine launch) when
+  the table is long; fp32 pools on the CUDA-core kernel.
 
 Each wrapper follows kernels/backend.py: a CUDA tensor launches the
 kernel (or raises), a CPU tensor runs the plain version of ref.py.
@@ -31,11 +35,14 @@ from repro_torch.kernels.paged_attention.ref import (
 OP = "paged_prefill_gqa"
 OP_MLA = "paged_prefill_mla"
 BF16_HEAD_DIMS = (64, 128)  # the bf16 GQA kernel's instances
-BF16_QUERY_ROWS = 64  # query rows of one bf16 block: one wgmma M tile
-# (row, head, query tile, key split) blocks a SM the key splits aim for:
-# a block's gather waits on memory, so several a SM hide its latency
-# (decode over 4096 keys: 1 a SM 0.0448 ms, PERF.md, PR 14)
+BF16_QUERY_ROWS = 64  # query rows of one bf16 block (MLA: cluster): one wgmma M tile
+# blocks a SM the key splits aim for. GQA (row, head, query tile, key
+# split) blocks: a block's gather waits on memory, so several a SM hide
+# its latency (decode over 4096 keys: 1 a SM 0.0448 ms, PERF.md, PR 14).
+# MLA clusters of two CTAs: a CTA takes most of an SM's shared memory, so
+# one wave of CTAs is all that runs at once.
 GQA_BLOCKS_PER_SM = 4
+MLA_CLUSTERS_PER_SM = 0.5
 
 
 @functools.cache
@@ -55,17 +62,18 @@ def _entry():
     return fn, smem, key_tile()
 
 
-def gqa_splits(pairs: int, key_tiles: int, n_sm: int) -> int:
-    """Key splits of the bf16 kernel's grid: enough (row, head, query
-    tile) blocks for GQA_BLOCKS_PER_SM a SM, with room for at least two
-    key tiles a split in the table (a split of one tile costs the
-    combine more than it saves). The kernel divides the tiles each row
-    walks."""
-    return max(1, min(key_tiles // 2, -(-GQA_BLOCKS_PER_SM * n_sm // pairs)))
+def key_splits(blocks: int, key_tiles: int, n_sm: int, per_sm: float) -> int:
+    """Key splits of a bf16 paged attention grid of `blocks` blocks a
+    split (GQA: (row, head, query tile); MLA: (row, query tile)
+    clusters): as many as keep the grid within `per_sm` blocks a SM, with
+    room for at least two key tiles a split in the table (a split of one
+    tile costs the combine more than it saves). The kernel divides the
+    tiles each row walks (csrc/key_splits.cuh)."""
+    return max(1, min(key_tiles // 2, int(per_sm * n_sm) // blocks))
 
 
 def _launch(q, pool_k, pool_v, tables, past_len, lengths, splits=None) -> torch.Tensor:
-    """`splits`: the bf16 grid's key splits, by default `gqa_splits`
+    """`splits`: the bf16 grid's key splits, by default `key_splits`
     (chip_smoke.py times 1 beside it)."""
     b, c, kv, g, hd = q.shape
     nblk, bs = pool_k.shape[0], pool_k.shape[1]
@@ -96,7 +104,7 @@ def _launch(q, pool_k, pool_v, tables, past_len, lengths, splits=None) -> torch.
         if splits is None:
             n_sm = torch.cuda.get_device_properties(q.device).multi_processor_count
             pairs = b * kv * -(-(c * g) // BF16_QUERY_ROWS)
-            splits = gqa_splits(pairs, -(-(nb * bs) // key_tile), n_sm)
+            splits = key_splits(pairs, -(-(nb * bs) // key_tile), n_sm, GQA_BLOCKS_PER_SM)
         if splits > 1:
             part_o = torch.empty((splits, b, kv, c * g, hd), dtype=torch.float32,
                                  device=q.device)
@@ -139,9 +147,15 @@ def paged_decode_gqa(q, pool_k, pool_v, tables, pos, *, backend: str = "auto"):
 
 
 # ------------------------------------------------------------------- MLA
+# the bf16 MLA kernel's widths: latent rank and rope width multiples of 8
+# (16-byte pieces), the rope width at most one 64-column chunk
+MLA_BF16_MAX_ROPE = 64
+
+
 @functools.cache
 def _mla_entry():
-    """(kernel entry, shared-memory size query, widest latent rank)."""
+    """(kernel entry, fp32 shared-memory size query, widest latent rank,
+    bf16 keys per tile)."""
     lib = library("paged_attention_mla")
     smem = lib.paged_prefill_mla_smem
     smem.restype = ctypes.c_size_t
@@ -149,18 +163,24 @@ def _mla_entry():
     max_rank = lib.paged_prefill_mla_max_rank
     max_rank.restype = ctypes.c_int
     max_rank.argtypes = []
+    key_tile = lib.paged_prefill_mla_key_tile
+    key_tile.restype = ctypes.c_int
+    key_tile.argtypes = []
     fn = lib.paged_prefill_mla
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + [
         ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-    return fn, smem, max_rank()
+    return fn, smem, max_rank(), key_tile()
 
 
 def _launch_mla(q_lat, q_rope, pool_ckv, pool_krope, tables, past_len, lengths,
-                scale: float) -> torch.Tensor:
+                scale: float, splits=None) -> torch.Tensor:
+    """`splits`: the bf16 grid's key splits, by default `key_splits`
+    (chip_smoke.py times 1 beside it)."""
     b, c, h, r = q_lat.shape
     rd = q_rope.shape[-1]
     nblk, bs = pool_ckv.shape[0], pool_ckv.shape[1]
+    nb = tables.shape[1]
     L.same_device(OP_MLA, q_lat, q_rope, pool_ckv, pool_krope, tables, past_len, lengths)
     L.require(q_lat.dtype == torch.float32 and q_rope.dtype == torch.float32, OP_MLA,
               "q_lat and q_rope must be float32")
@@ -178,15 +198,35 @@ def _launch_mla(q_lat, q_rope, pool_ckv, pool_krope, tables, past_len, lengths,
               "past_len and lengths must be [B]")
     for t in (q_lat, q_rope, pool_ckv, pool_krope, tables, past_len, lengths):
         L.require(t.is_contiguous(), OP_MLA, "all inputs must be contiguous")
-    fn, smem_of, max_rank = _mla_entry()
+    fn, smem_of, max_rank, key_tile = _mla_entry()
     L.require(r <= max_rank, OP_MLA, f"latent rank {r} above the kernel's {max_rank}")
-    smem = smem_of(r, rd)
-    L.require(smem <= L.MAX_SMEM, OP_MLA,
-              f"latent width {r} + {rd} needs {smem} B of shared memory")
+    part_o, part_ml = None, None
+    if code == 0:
+        splits = 1
+        smem = smem_of(r, rd)
+        L.require(smem <= L.MAX_SMEM, OP_MLA,
+                  f"latent width {r} + {rd} needs {smem} B of shared memory")
+    else:
+        L.require(r % 8 == 0 and rd % 8 == 0 and rd <= MLA_BF16_MAX_ROPE, OP_MLA,
+                  f"bf16 latent rank {r} and rope width {rd} must be multiples of 8, "
+                  f"the rope width at most {MLA_BF16_MAX_ROPE}")
+        L.require(all(t.data_ptr() % 16 == 0 for t in (q_lat, q_rope, pool_ckv, pool_krope)),
+                  OP_MLA, "q and the pools must be 16-byte aligned")
+        if splits is None:
+            n_sm = torch.cuda.get_device_properties(q_lat.device).multi_processor_count
+            clusters = b * -(-(c * h) // BF16_QUERY_ROWS)
+            splits = key_splits(clusters, -(-(nb * bs) // key_tile), n_sm,
+                                MLA_CLUSTERS_PER_SM)
+        if splits > 1:
+            part_o = torch.empty((splits, b, c * h, r), dtype=torch.float32,
+                                 device=q_lat.device)
+            part_ml = torch.empty((splits, b, c * h, 2), dtype=torch.float32,
+                                  device=q_lat.device)
     out = torch.empty_like(q_lat)
     err = fn(L.ptr(q_lat), L.ptr(q_rope), L.ptr(pool_ckv), L.ptr(pool_krope),
              L.ptr(tables), L.ptr(past_len), L.ptr(lengths), L.ptr(out),
-             b, c, h, r, rd, bs, tables.shape[1], scale, code, L.stream(q_lat))
+             *(L.ptr(t) if t is not None else None for t in (part_o, part_ml)),
+             b, c, h, r, rd, bs, nb, splits, scale, code, L.stream(q_lat))
     check(err, OP_MLA)
     paged_prefill_mla.launches += 1
     return out

@@ -86,3 +86,49 @@ def paged_decode_mla_ref(q_lat, q_rope, pool_ckv, pool_krope, tables, pos, *,
     """Chunk-of-1: q_lat [B, H, r], q_rope [B, H, rd] -> o_lat [B, H, r]."""
     return paged_prefill_mla_ref(q_lat[:, None], q_rope[:, None], pool_ckv, pool_krope,
                                  tables, pos, scale=scale)[:, 0]
+
+
+def split_bf16(x: torch.Tensor, terms: int) -> list:
+    """x as `terms` bf16 tensors, hi = bf16(x), then bf16 of each
+    remainder, as the bf16 MLA kernel splits q (3 terms) and P (2): the
+    terms sum to x to 8 * terms significant bits (3 terms: every fp32)."""
+    out, rest = [], x.float()
+    for _ in range(terms):
+        out.append(rest.to(torch.bfloat16))
+        rest = rest - out[-1].float()
+    return out
+
+
+def paged_prefill_mla_split(q_lat, q_rope, pool_ckv, pool_krope, tables, past_len,
+                            lengths=None, *, scale: float, q_terms: int = 3,
+                            p_terms: int = 2, key_tile: int = 64):
+    """The bf16-pool kernel's arithmetic, for the tests: scores from q
+    split into `q_terms` bf16 terms (each product with a bf16 latent exact
+    in fp32, summed in fp32), an online softmax over key tiles of
+    `key_tile`, and P split into `p_terms` bf16 terms before the product
+    with the latents. Same signature and result layout as
+    `paged_prefill_mla_ref`."""
+    del lengths
+    ckv = linearize_blocks(pool_ckv, tables).float()  # [B, S, r]
+    keys = torch.cat([ckv, linearize_blocks(pool_krope, tables).float()], -1)
+    q_parts = [t.float() for t in split_bf16(torch.cat([q_lat, q_rope], -1), q_terms)]
+    b, c, h, r = q_lat.shape
+    qpos = past_len.to(torch.int64)[:, None] + torch.arange(c, device=q_lat.device)[None, :]
+    m = torch.full((b, c, h), NEG_INF, device=q_lat.device)
+    den = torch.zeros((b, c, h), device=q_lat.device)
+    o = torch.zeros((b, c, h, r), device=q_lat.device)
+    for t0 in range(0, keys.shape[1], key_tile):
+        kt = keys[:, t0:t0 + key_tile]
+        s = sum(torch.einsum("bchd,btd->bcht", qp, kt) for qp in q_parts) * scale
+        kpos = torch.arange(t0, t0 + kt.shape[1], device=q_lat.device)
+        valid = kpos[None, None, :] <= qpos[:, :, None]
+        s = torch.where(valid[:, :, None, :], s, torch.full_like(s, NEG_INF))
+        m_new = torch.maximum(m, s.amax(-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new[..., None])
+        den = den * alpha + p.sum(-1)
+        o = o * alpha[..., None] + sum(
+            torch.einsum("bcht,btr->bchr", pp.float(), ckv[:, t0:t0 + key_tile])
+            for pp in split_bf16(p, p_terms))
+        m = m_new
+    return o / den.clamp_min(1e-30)[..., None]

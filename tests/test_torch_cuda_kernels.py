@@ -5,7 +5,11 @@ bf16 expert GEMV and paged GQA attention (tensor cores) are held per
 element, as chip_smoke.py holds them, to their `gemv_rounding_bound` and
 `gqa_rounding_bound`: the output, and h or P before it, round to bf16.
 The MLA kernel computes in fp32 from bf16 pools too (tolerance 1e-5 in both
-pool dtypes); the flash kernel rounds P and its output to bf16, held
+pool dtypes): its bf16 path runs on the tensor cores with q as three bf16
+terms (all 24 bits of fp32) and P as two (16 bits, the one bf16 rounding
+the output sees), each product of a term with a bf16 latent exact in fp32
+and summed in fp32 (one bf16 rounding of q and P would miss 1e-5 by a
+factor of hundreds, tests/test_torch_mla_split.py); the flash kernel rounds P and its output to bf16, held
 to `rounding_bound`, which scales with each output. The bf16 grouped
 GEMM (tensor cores) is held to `_gemm_bound`: fp32 sums of exact bf16
 products in another order, then one bf16 rounding of the output.
@@ -39,6 +43,7 @@ from repro_torch.kernels.paged_attention import (
     paged_prefill_mla_ref,
 )
 from repro_torch.kernels.paged_attention.kernel import _launch as gqa_launch
+from repro_torch.kernels.paged_attention.kernel import _launch_mla as mla_launch
 
 
 @pytest.fixture
@@ -294,6 +299,59 @@ def test_paged_mla_kernel_matches_plain(cuda_device, pool_dtype, c, h):
             dec[[0, 2, 3]],
             paged_decode_mla_ref(ql[:, 0], qr[:, 0], pc, pr, tables, past,
                                  scale=scale)[[0, 2, 3]], atol=1e-5, rtol=1e-5)
+
+
+def _mla_deepseek_case(rng, dev, c, nb, past, lengths):
+    """deepseek-v2's widths (H=128, r=512, rd=64) over 4-token blocks in
+    bf16, row 1 dead (an all-trash table, length 0)."""
+    b, h, r, rd, bs = len(past), 128, 512, 64, 4
+    n_blocks = b * nb + 2
+    tables = rng.permutation(n_blocks)[: b * nb].reshape(b, nb)
+    tables[1] = n_blocks
+    return (_t(rng.normal(size=(b, c, h, r)), dev), _t(rng.normal(size=(b, c, h, rd)), dev),
+            _t(rng.normal(size=(n_blocks + 1, bs, r)), dev, torch.bfloat16),
+            _t(rng.normal(size=(n_blocks + 1, bs, rd)), dev, torch.bfloat16),
+            _t(tables, dev, torch.int32), _t(past, dev, torch.int32),
+            _t(lengths, dev, torch.int32))
+
+
+@pytest.mark.parametrize("c,nb,past,lengths", [
+    (1, 18, [40, 0, 60, 71], [1, 0, 1, 1]),      # decode, as served (cache_len 72)
+    (32, 18, [0, 8, 16, 40], [32, 0, 20, 32]),   # a 32-token chunk; row 2 ragged
+    (1, 1024, [3900, 0, 4095, 17], [1, 0, 1, 1]),  # decode over a 4096-key table
+])
+def test_paged_mla_bf16_kernel_at_deepseek_widths(cuda_device, c, nb, past, lengths):
+    dev = cuda_device
+    rng = np.random.default_rng(40 + c + nb)
+    args = _mla_deepseek_case(rng, dev, c, nb, past, lengths)
+    scale = (128 + 64) ** -0.5
+    got = paged_prefill_mla(*args, scale=scale, backend="cuda")
+    want = paged_prefill_mla_ref(*args, scale=scale)
+    assert got.dtype == torch.float32 and torch.isfinite(got).all()
+    real = torch.arange(c, device=dev)[None, :] < args[-1][:, None]
+    torch.testing.assert_close(got[real], want[real], atol=1e-5, rtol=1e-5)
+    if nb >= 1024:  # split over the keys by default; one split holds 1e-5 too
+        one = mla_launch(*args, scale, splits=1)
+        torch.testing.assert_close(one[real], want[real], atol=1e-5, rtol=1e-5)
+    if c == 1:  # decode = the chunk of 1, bitwise
+        dec = paged_decode_mla(args[0][:, 0], args[1][:, 0], *args[2:5], args[5],
+                               scale=scale, backend="cuda")
+        assert torch.isfinite(dec).all()
+        assert torch.equal(dec, got[:, 0])
+
+
+def test_paged_mla_bf16_refuses_what_it_cannot_address(cuda_device):
+    dev = cuda_device
+    b, h, bs = 1, 4, 4
+    tables = torch.zeros(b, 2, dtype=torch.int32, device=dev)
+    past = torch.zeros(b, dtype=torch.int32, device=dev)
+    for r, rd in ((60, 8), (64, 12), (64, 72)):  # off the 8-column piece; rope > 64
+        args = (torch.zeros(b, 1, h, r, device=dev), torch.zeros(b, 1, h, rd, device=dev),
+                torch.zeros(3, bs, r, dtype=torch.bfloat16, device=dev),
+                torch.zeros(3, bs, rd, dtype=torch.bfloat16, device=dev), tables, past,
+                torch.ones_like(past))
+        with pytest.raises(ValueError, match="multiples of 8"):
+            paged_prefill_mla(*args, scale=0.1, backend="cuda")
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

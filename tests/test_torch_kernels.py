@@ -31,7 +31,7 @@ from repro_torch.kernels.paged_attention import (
     paged_decode_gqa,
     paged_prefill_gqa,
 )
-from repro_torch.kernels.paged_attention.kernel import gqa_splits
+from repro_torch.kernels.paged_attention.kernel import GQA_BLOCKS_PER_SM, key_splits
 from repro_torch.serving.tiered_moe import _dispatch_tier
 
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
@@ -336,12 +336,12 @@ def test_gqa_rounding_bound_holds_for_the_kernel_arithmetic(c, g, nb):
 @pytest.mark.parametrize("pairs,key_tiles,want", [
     (32, 1, 1),     # one key tile: nothing to split
     (32, 2, 1),     # two tiles: the combine costs more than a split saves
-    (32, 64, 17),   # decode over a long cache: 32 pairs x 17 splits >= 4 x 132 SMs
+    (32, 64, 16),   # decode over a long cache: 32 pairs x 16 splits <= 4 x 132 SMs
     (1024, 64, 1),  # enough blocks already
     (2, 8, 4),      # capped at two tiles a split
 ])
 def test_gqa_splits(pairs, key_tiles, want):
-    assert gqa_splits(pairs, key_tiles, n_sm=132) == want
+    assert key_splits(pairs, key_tiles, 132, GQA_BLOCKS_PER_SM) == want
 
 
 # ------------------------------------------------------ backend rule
