@@ -20,12 +20,17 @@ Phases, each fatal on failure:
      with its depth cut to 3 layers (bf16, seeded random weights),
      through ServingLoop with the kernel launch counters reset just
      before each, and check every request completed and every kernel of
-     the path ran (and the other attention kernel did not);
+     the path ran (and the kernels off the path did not). Each model is
+     served in the default mode (paged KV, chunked prefill) and with
+     whole-suffix admission prefill, each over the contiguous
+     `kv_layout="slots"` cache and over paged KV with
+     `chunked_prefill=False` (those modes must run no prefill chunk);
   5. serve each smoke-size model at fp32 on the card (kernels) and on the
-     CPU (plain versions) from the same weights: tokens must agree.
-Prints one JSON line per phase, the `kernels` JSON line, the card's name
-and power limit, and last the `ok` JSON line. Imports nothing of JAX:
-the machine with the card has none.
+     CPU (plain versions) from the same weights, in each of those modes:
+     tokens must agree.
+Prints one JSON line per phase (each with its seconds), the `kernels`
+JSON line, the card's name and power limit, and last the `ok` JSON line.
+Imports nothing of JAX: the machine with the card has none.
 """
 from __future__ import annotations
 
@@ -102,6 +107,9 @@ TOL = {  # (atol, rtol) of kernel vs plain version, by dtype
     # other bf16 kernels are held per element to their rounding bounds
     torch.bfloat16: (3e-2, 3e-2),
 }
+# fp32 expert GEMV: the same products as the plain version summed in
+# another order, over at most a few thousand terms, as the card tests hold it
+GEMV_F32_TOL = (1e-5, 1e-5)
 
 
 def fail(msg: str) -> None:
@@ -255,7 +263,7 @@ def gemv_case(dtype, *, n_slots, t, dev, gen, d=1024, f=512, live=None, calls=32
     then counts only the live slots' weight bytes, which is all the work
     the function needs (an all-zero slot's output is exactly zero).
     Library: bmm of the concatenated gate|up, SiLU * up, bmm down. bf16
-    is held to `gemv_rounding_bound`."""
+    is held to `gemv_rounding_bound`, fp32 to GEMV_F32_TOL."""
     buf = (torch.randn(n_slots, 3, d, f, generator=gen) * d ** -0.5).to(dev, dtype)
     x = torch.randn(n_slots, t, d, generator=gen).to(dev, dtype)
     n_live = n_slots if live is None else live
@@ -270,7 +278,8 @@ def gemv_case(dtype, *, n_slots, t, dev, gen, d=1024, f=512, live=None, calls=32
     nbytes = (3 * n_live * d * f + 2 * n_live * t * d) * isz
     return dict(
         args=(x, w1, w3, w2), lib_args=(x, torch.cat([w1, w3], -1), w2.contiguous()),
-        tol=(lambda: gemv_rounding_bound(x, w1, w3, w2)) if dtype == torch.bfloat16 else None,
+        tol=(lambda: gemv_rounding_bound(x, w1, w3, w2)) if dtype == torch.bfloat16
+        else GEMV_F32_TOL,
         kernel=lambda *a: expert_ffn_gemv(*a, backend="cuda"),
         plain=lambda *a: expert_ffn_gemv(*a, backend="ref"),
         library=library,
@@ -359,6 +368,12 @@ KERNEL_CASES = [  # (kernel, label, case, kwargs); the first per kernel is its J
      dict(b=4, c=1, nb=16, past=[40, 51, 60, 63])),
     ("paged_prefill_gqa", "prefill B=4 C=32 nb=16", attention_case,
      dict(b=4, c=32, nb=16, past=[0, 16, 16, 24])),
+    # whole-suffix admission (chunked_prefill=False): a 64-token bucket of
+    # the table powers_of_two(72) over the served 18-block tables, rows
+    # with and without a 16-token cached prefix; 128 query rows (G=2), two
+    # row tiles
+    ("paged_prefill_gqa", "prefill B=4 C=64 nb=18", attention_case,
+     dict(b=4, c=64, nb=18, past=[0, 16, 0, 16])),
     # decode over a long cache (4096 keys, 64 key tiles): the key splits
     # (and their combine) against one split; then the same table width
     # with short rows, where most splits find no key tile to walk
@@ -387,10 +402,17 @@ KERNEL_CASES = [  # (kernel, label, case, kwargs); the first per kernel is its J
      dict(n_slots=48, t=4, d=5120, f=1536, live=8, calls=8)),
     # a decode group of 40 rows at granite's widths: two token groups
     ("expert_ffn_gemv", "cold 16 slots T=40", gemv_case, dict(n_slots=16, t=40)),
+    # 16 tokens a slot at deepseek's widths: the fp32 kernel stages 10 at
+    # a time there (two token groups)
+    ("expert_ffn_gemv", "deepseek hot 25 slots T=16", gemv_case,
+     dict(n_slots=25, t=16, d=5120, f=1536, calls=8)),
     ("paged_prefill_mla", "decode B=4 H=128 r=512 nb=18", mla_case,
      dict(b=4, c=1, past=[40, 51, 60, 71])),
     ("paged_prefill_mla", "prefill B=4 C=32 H=128 r=512 nb=18", mla_case,
      dict(b=4, c=32, past=[0, 16, 24, 40])),
+    # whole-suffix admission (chunked_prefill=False): a 64-token bucket
+    ("paged_prefill_mla", "prefill B=4 C=64 H=128 r=512 nb=18", mla_case,
+     dict(b=4, c=64, past=[0, 16, 0, 16])),
     # decode over a long cache (4096 keys, 64 key tiles): the key splits
     # (and their combine) against one split
     ("paged_prefill_mla", "decode B=4 H=128 r=512 nb=1024", mla_case,
@@ -407,6 +429,7 @@ def run_case(name, label, make, dtype, kw, dev, gen) -> dict:
     time kernel, plain version and library call on the device (CUDA-graph
     replay over enough input sets to exceed L2), and the kernel's eager
     call with its host cost."""
+    t0 = time.time()
     first = make(dtype, dev=dev, gen=gen, **kw)
     n_sets = max(1, min(MAX_SETS, math.ceil(2 * L2_BYTES / first["held"])))
     sets = [first] + [make(dtype, dev=dev, gen=gen, **kw) for _ in range(n_sets - 1)]
@@ -434,7 +457,7 @@ def run_case(name, label, make, dtype, kw, dev, gen) -> dict:
         library_ms=device_time_ms(first["library"], [s["lib_args"] for s in sets],
                                   calls=calls),
         bound_ms=b_ms, bound_by=b_by, max_abs_err=max_abs, max_rel_err=max_rel,
-        err_over_tol=err_over_tol, input_sets=n_sets, **extra,
+        err_over_tol=err_over_tol, input_sets=n_sets, **extra, seconds=time.time() - t0,
     )
 
 
@@ -477,6 +500,7 @@ def mha_entry(dev) -> dict:
     bench's shape, bf16, causal) with the counters reset just before.
     Checked against the plain version, within `rounding_bound`, after
     the counters are read."""
+    t0 = time.time()
     gen = torch.Generator().manual_seed(5)
     q, k, v = (torch.randn(1, 512, 4, 64, generator=gen).to(dev, torch.bfloat16)
                for _ in range(3))
@@ -490,15 +514,37 @@ def mha_entry(dev) -> dict:
     max_abs, _, err_over_tol = compare("mha", out, mha(q, k, v, causal=True, backend="ref"),
                                        torch.bfloat16, bound.transpose(1, 2))
     line = dict(phase="mha", path=MHA_PATH, shape=list(q.shape), launches=launches,
-                max_abs_err=max_abs, err_over_tol=err_over_tol)
+                max_abs_err=max_abs, err_over_tol=err_over_tol, seconds=time.time() - t0)
     print(json.dumps(line), flush=True)
     return line
 
 
-def serve_full(dev, arch: str, n_layers, expect, forbid, profile_out=None) -> dict:
+# serving modes beside the default (paged KV, chunked prefill): loop kwargs
+MODES = {"slots": dict(kv_layout="slots"), "nochunk": dict(chunked_prefill=False)}
+# (arch, depth cut, mode, kernels that must launch, kernels that must not)
+SERVES = [
+    (GQA_ARCH, None, None, ("paged_prefill_gqa", "moe_gemm", "expert_ffn_gemv"),
+     ("paged_prefill_mla",)),
+    (MLA_ARCH, MLA_LAYERS, None, ("paged_prefill_mla", "moe_gemm", "expert_ffn_gemv"),
+     ("paged_prefill_gqa",)),
+    (GQA_ARCH, None, "slots", ("moe_gemm", "expert_ffn_gemv"),
+     ("paged_prefill_gqa", "paged_prefill_mla")),
+    (GQA_ARCH, None, "nochunk", ("paged_prefill_gqa", "moe_gemm", "expert_ffn_gemv"),
+     ("paged_prefill_mla",)),
+    (MLA_ARCH, MLA_LAYERS, "nochunk", ("paged_prefill_mla", "moe_gemm", "expert_ffn_gemv"),
+     ("paged_prefill_gqa",)),
+    (MLA_ARCH, MLA_LAYERS, "slots", ("moe_gemm", "expert_ffn_gemv"),
+     ("paged_prefill_mla", "paged_prefill_gqa")),
+]
+
+
+def serve_full(dev, arch: str, n_layers, mode, expect, forbid, profile_out=None) -> dict:
     """Serve `arch` at its published widths (depth cut to `n_layers`
-    where given) through ServingLoop; the kernels in `expect` must launch
-    and those in `forbid` must not."""
+    where given) through ServingLoop in `mode` (None: the defaults; else
+    a key of MODES, whose admissions must run no prefill chunk); the
+    kernels in `expect` must launch and those in `forbid` must not."""
+    t_phase = time.time()
+    path = arch if mode is None else f"{arch}/{mode}"
     cfg = get_config(arch)
     if n_layers is not None:
         print(f"{arch}: depth cut {cfg.n_layers} -> {n_layers} layers, every width as "
@@ -508,7 +554,8 @@ def serve_full(dev, arch: str, n_layers, expect, forbid, profile_out=None) -> di
     t0 = time.time()
     params = init_params(0, cfg, device=dev)
     loop = ServingLoop(cfg, params, batch_size=8, n_groups=2, cache_len=72,
-                       block_size=4, prefill_chunk_tokens=32, device=dev)
+                       block_size=4, prefill_chunk_tokens=32, device=dev,
+                       **MODES.get(mode, {}))
     del params  # the engine keeps the stripped params, the tiers the experts
     torch.cuda.synchronize()
     setup_s = time.time() - t0
@@ -519,7 +566,8 @@ def serve_full(dev, arch: str, n_layers, expect, forbid, profile_out=None) -> di
         loop.submit(r)
     loop.run()
     loop.obs.registry.reset()
-    loop.kv.stats = PagedStats()
+    if loop.paged:
+        loop.kv.stats = PagedStats()
     reqs = make_traffic(cfg.vocab_size, 12, seed=1)
     n_before = len(loop.completions)
     reset_counters()
@@ -534,33 +582,40 @@ def serve_full(dev, arch: str, n_layers, expect, forbid, profile_out=None) -> di
         fail(f"{arch}: generated token ids outside the vocabulary")
     for name in expect:
         if launches[name] == 0:
-            fail(f"{arch}: kernel {name} was never launched on the serving path")
+            fail(f"{path}: kernel {name} was never launched on the serving path")
     for name in forbid:
         if launches[name] != 0:
-            fail(f"{arch}: kernel {name} launched {launches[name]} times off its path")
+            fail(f"{path}: kernel {name} launched {launches[name]} times off its path")
     st, eng = loop.stats, loop.engine
+    if mode is not None and st.prefill_chunks != 0:
+        fail(f"{path}: {st.prefill_chunks} prefill chunks in a whole-suffix admission mode")
     out = dict(
-        phase="serve", path=arch, arch=arch, dtype=cfg.param_dtype, layers=cfg.n_layers,
+        phase="serve", path=path, arch=arch, mode=mode or "default", dtype=cfg.param_dtype,
+        layers=cfg.n_layers,
         d_model=cfg.d_model, requests=len(done), generated_tokens=st.generated_tokens,
         wall_s=st.wall_s, tokens_per_s=st.tokens_per_s, ttft_p50_s=st.ttft_p50_s,
         itl_p50_s=st.itl_p50_s, itl_p95_s=st.itl_p95_s, decode_steps=st.decode_steps,
         prefill_chunks=st.prefill_chunks, replans=st.replans, migrations=st.migrations,
-        prefix_hit_rate=loop.kv.stats.hit_rate, tier_sizes=list(eng.sizes),
-        setup_s=setup_s, setup_peak_mem_gb=setup_peak_gb,
+        prefill_rows=eng.stats.prefills,
+        prefix_hit_rate=loop.kv.stats.hit_rate if loop.paged else None,
+        tier_sizes=list(eng.sizes), setup_s=setup_s, setup_peak_mem_gb=setup_peak_gb,
         peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 1e9, launches=launches,
+        seconds=time.time() - t_phase,
     )
     print(json.dumps(out), flush=True)
     if profile_out:
         p = Path(profile_out)
-        profile_serving(loop, cfg, p.with_name(f"{p.stem}-{arch}{p.suffix}"))
+        name = path.replace("/", "-")
+        profile_serving(loop, cfg, path, p.with_name(f"{p.stem}-{name}{p.suffix}"))
     return out
 
 
-def profile_serving(loop, cfg, out: Path) -> None:
+def profile_serving(loop, cfg, path: str, out: Path) -> None:
     """torch.profiler window over a second wave of traffic: device time
     by kernel name (the full table is written to `out`)."""
     from torch.profiler import ProfilerActivity, profile
 
+    t_phase = time.time()
     reqs = make_traffic(cfg.vocab_size, 8, seed=2)
     for r in reqs:
         loop.submit(r)
@@ -573,14 +628,18 @@ def profile_serving(loop, cfg, out: Path) -> None:
     out.write_text(table)
     dev_us = sum(e.time_range.elapsed_us() for e in prof.events()
                  if e.device_type == torch.autograd.DeviceType.CUDA)
-    print(json.dumps(dict(phase="profile", arch=cfg.name, wall_s=wall, device_busy_s=dev_us / 1e6,
-                          device_busy_share=dev_us / 1e6 / wall)), flush=True)
+    print(json.dumps(dict(phase="profile", path=path, wall_s=wall, device_busy_s=dev_us / 1e6,
+                          device_busy_share=dev_us / 1e6 / wall,
+                          seconds=time.time() - t_phase)),
+          flush=True)
     print(table[:6000], flush=True)
 
 
-def serve_smoke_parity(dev, arch: str) -> None:
-    """fp32 smoke `arch`: the kernels on the card against the plain
-    versions on the CPU, same weights and tier state -> same tokens."""
+def serve_smoke_parity(dev, arch: str, mode=None) -> None:
+    """fp32 smoke `arch` served in `mode` (None: the defaults; else a key
+    of MODES): the kernels on the card against the plain versions on the
+    CPU, same weights and tier state -> same tokens."""
+    t0 = time.time()
     cfg = reduce_for_smoke(get_config(arch))
     cfg = dataclasses.replace(cfg, param_dtype="float32", compute_dtype="float32")
     params = init_params(0, cfg, device="cpu")
@@ -593,15 +652,17 @@ def serve_smoke_parity(dev, arch: str) -> None:
     got = {}
     for d in (dev, torch.device("cpu")):
         loop = ServingLoop(cfg, to(params, d), to(tiered, d), batch_size=4, n_groups=2,
-                           cache_len=64, prefill_chunk_tokens=8, device=d)
+                           cache_len=64, prefill_chunk_tokens=8, device=d,
+                           **MODES.get(mode, {}))
         for r in make_traffic(cfg.vocab_size, 6, seed=3, new_tokens=8):
             loop.submit(r)
         got[d.type] = {r.rid: r.generated for r in loop.run()}
     if got["cuda"] != got["cpu"]:
-        fail(f"{arch} fp32 smoke serving: card tokens {got['cuda']} != CPU tokens "
-             f"{got['cpu']}")
-    print(json.dumps(dict(phase="smoke_parity", arch=arch, requests=len(got["cpu"]),
-                          identical_tokens=True)), flush=True)
+        fail(f"{arch} ({mode or 'default'}) fp32 smoke serving: card tokens {got['cuda']} "
+             f"!= CPU tokens {got['cpu']}")
+    print(json.dumps(dict(phase="smoke_parity", arch=arch, mode=mode or "default",
+                          requests=len(got["cpu"]), identical_tokens=True,
+                          seconds=time.time() - t0)), flush=True)
 
 
 def main(argv=None) -> int:
@@ -631,29 +692,26 @@ def main(argv=None) -> int:
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"ptxas[{name}] {line.strip()}", flush=True)
+    t0 = time.time()
     tool = build.cuobjdump()
     if tool is None:
         fail("no cuobjdump beside nvcc or in Triton: cannot read the kernels' SASS")
     mma = {name: build.count_mma(tool, name) for name in build.SOURCES}
-    print(json.dumps(dict(phase="sass", mma=mma)), flush=True)
+    print(json.dumps(dict(phase="sass", mma=mma, seconds=time.time() - t0)), flush=True)
     for name, op in TENSOR_CORE_KERNELS.items():
         if mma[name][op] == 0:
             fail(f"{name}: no {op} (tensor-core) instruction in its SASS")
 
     rows = kernel_phases(dev)
     paths = [mha_entry(dev)]
-    paths.append(serve_full(
-        dev, GQA_ARCH, None, expect=("paged_prefill_gqa", "moe_gemm", "expert_ffn_gemv"),
-        forbid=("paged_prefill_mla",), profile_out=args.profile_out if args.profile else None))
-    gc.collect()
-    torch.cuda.empty_cache()  # the granite loop's weights and tiers
-    paths.append(serve_full(
-        dev, MLA_ARCH, MLA_LAYERS, expect=("paged_prefill_mla", "moe_gemm", "expert_ffn_gemv"),
-        forbid=("paged_prefill_gqa",), profile_out=args.profile_out if args.profile else None))
-    gc.collect()
-    torch.cuda.empty_cache()
-    for arch in (GQA_ARCH, MLA_ARCH):
-        serve_smoke_parity(dev, arch)
+    for arch, n_layers, mode, expect, forbid in SERVES:
+        paths.append(serve_full(dev, arch, n_layers, mode, expect, forbid,
+                                profile_out=args.profile_out if args.profile else None))
+        gc.collect()
+        torch.cuda.empty_cache()  # the loop's weights and tiers, before the next one
+    for mode in (None, *MODES):
+        for arch in (GQA_ARCH, MLA_ARCH):
+            serve_smoke_parity(dev, arch, mode)
 
     by_path = {p["path"]: p["launches"] for p in paths}  # each after its own reset
     kernels = []

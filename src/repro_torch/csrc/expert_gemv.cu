@@ -57,7 +57,11 @@
 // tokens at a time (tokens staged as fp32 in shared memory); phase 2:
 // each thread owns output columns d and sums h W2 over the panel into
 // fp32 partials [splits, E, T, D], which a second kernel adds in split
-// order. Weights are addressed through any strides.
+// order. Weights are addressed through any strides. A slot's tokens are
+// staged a group at a time: as many as fit shared memory (the wrapper
+// sizes the group: 10 tokens at D = 5120), one launch per group, each
+// reading the weights again. A token's arithmetic does not depend on
+// its group, so any grouping gives the same bits.
 #include <cooperative_groups.h>
 
 #include "hopper_mma.cuh"
@@ -81,14 +85,16 @@ struct WStrides {  // element strides of one weight operand: [e, row, col]
 __global__ void __launch_bounds__(kThreads) gemv_panel_kernel(
     const float* __restrict__ x, const float* __restrict__ w1, const float* __restrict__ w3,
     const float* __restrict__ w2, float* __restrict__ part, int E, int T_, int D, int F,
-    int bf, WStrides s1, WStrides s3, WStrides s2) {
+    int bf, int ld, WStrides s1, WStrides s3, WStrides s2) {
+  // x and part point at the group's first token; a slot's rows start ld
+  // rows apart (ld >= T_: the group of T_ tokens is part of a longer slot)
   extern __shared__ float smem[];
   float* x_s = smem;                              // [T, D]
   float* red_s = x_s + (size_t)T_ * D;            // [2, kDGroups, kTT, kMaxBF]
   float* h_s = red_s + 2 * kDGroups * kTT * kMaxBF;  // [T, kMaxBF]
   const int e = blockIdx.x, split = blockIdx.y, tid = threadIdx.x;
   const int f0 = split * bf;
-  const float* xe = x + (size_t)e * T_ * D;
+  const float* xe = x + (size_t)e * ld * D;
   for (int i = tid; i < T_ * D; i += kThreads) x_s[i] = xe[i];
   __syncthreads();
 
@@ -133,7 +139,7 @@ __global__ void __launch_bounds__(kThreads) gemv_panel_kernel(
 
   // phase 2: partial y[t, d] over this F panel
   const float* w2e = w2 + e * s2.e;
-  float* pe = part + ((size_t)split * E + e) * T_ * D;
+  float* pe = part + ((size_t)split * E + e) * ld * D;
   for (int d = tid; d < D; d += kThreads) {
     float y[kTT];
     for (int t0 = 0; t0 < T_; t0 += kTT) {
@@ -166,20 +172,27 @@ size_t f32_smem_bytes(int T_, int D) {
 }
 
 int launch_f32(const void* x, const void* w1, const void* w3, const void* w2, void* part,
-               void* y, int E, int T_, int D, int F, int bf, WStrides s1, WStrides s3,
-               WStrides s2, cudaStream_t stream) {
-  const size_t smem = f32_smem_bytes(T_, D);
-  cudaError_t err = cudaFuncSetAttribute(
-      gemv_panel_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+               void* y, int E, int T_, int D, int F, int bf, int group, WStrides s1,
+               WStrides s3, WStrides s2, cudaStream_t stream) {
+  if (E == 0 || T_ == 0) return 0;
+  if (group < 1) return (int)cudaErrorInvalidValue;
+  const int g_max = group < T_ ? group : T_;
+  cudaError_t err = cudaFuncSetAttribute(gemv_panel_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)f32_smem_bytes(g_max, D));
   if (err != cudaSuccess) return (int)err;
   const int splits = F / bf;
   dim3 grid(E, splits);
-  gemv_panel_kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const float*>(x), static_cast<const float*>(w1),
-      static_cast<const float*>(w3), static_cast<const float*>(w2),
-      static_cast<float*>(part), E, T_, D, F, bf, s1, s3, s2);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+  const float* xf = static_cast<const float*>(x);
+  float* pf = static_cast<float*>(part);
+  for (int t0 = 0; t0 < T_; t0 += group) {  // groups of tokens that fit shared memory
+    const int tg = T_ - t0 < group ? T_ - t0 : group;
+    gemv_panel_kernel<<<grid, kThreads, f32_smem_bytes(tg, D), stream>>>(
+        xf + (size_t)t0 * D, static_cast<const float*>(w1), static_cast<const float*>(w3),
+        static_cast<const float*>(w2), pf + (size_t)t0 * D, E, tg, D, F, bf, T_, s1, s3, s2);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
   const size_t n = (size_t)E * T_ * D;
   const int blocks = (int)((n + 255) / 256 < 1024 ? (n + 255) / 256 : 1024);
   reduce_splits_kernel<<<blocks, 256, 0, stream>>>(static_cast<const float*>(part),
@@ -576,14 +589,16 @@ size_t expert_ffn_gemv_smem(int tokens, int d_model) { return f32_smem_bytes(tok
 // fp32. x [E, T, D] and y [E, T, D] contiguous; part is fp32 scratch of
 // (F / bf) * E * T * D elements. Weight element (e, row, col) of W1/W3
 // ([D, F]) and W2 ([F, D]) sits at base + e*s_e + row*s_r + col*s_c.
-// bf <= 64 must divide F. Returns cudaGetLastError().
+// bf <= 64 must divide F. A slot's tokens run `group` at a time
+// (expert_ffn_gemv_smem(group, D) must fit a block). Returns
+// cudaGetLastError().
 int expert_ffn_gemv_f32(const void* x, const void* w1, const void* w3, const void* w2,
-                        void* part, void* y, int E, int T_, int D, int F, int bf,
+                        void* part, void* y, int E, int T_, int D, int F, int bf, int group,
                         long long s1e, long long s1r, long long s1c, long long s3e,
                         long long s3r, long long s3c, long long s2e, long long s2r,
                         long long s2c, void* stream) {
   const WStrides a{s1e, s1r, s1c}, b{s3e, s3r, s3c}, c{s2e, s2r, s2c};
-  return launch_f32(x, w1, w3, w2, part, y, E, T_, D, F, bf, a, b, c,
+  return launch_f32(x, w1, w3, w2, part, y, E, T_, D, F, bf, group, a, b, c,
                     static_cast<cudaStream_t>(stream));
 }
 

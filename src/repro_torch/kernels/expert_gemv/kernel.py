@@ -7,7 +7,7 @@ bf16 runs the tensor-core design: a live-row prepass, then a gate|up and
 a down pass on mma.sync fed by TMA that skip the slots whose token rows
 are all zero (three launches per group of 32 tokens, one call;
 `mma_plan` sizes their thread-block clusters). fp32 runs the CUDA-core
-kernel.
+kernel, one launch per group of `f32_group` tokens plus the reduction.
 
 `expert_ffn_gemv(..., backend=)` follows kernels/backend.py: a CUDA
 tensor launches the kernel (or raises), a CPU tensor runs
@@ -47,7 +47,7 @@ def _entry():
     ll, vp, i = ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int
     f32 = lib.expert_ffn_gemv_f32
     f32.restype = i
-    f32.argtypes = [vp] * 6 + [i] * 5 + [ll] * 9 + [vp]
+    f32.argtypes = [vp] * 6 + [i] * 6 + [ll] * 9 + [vp]
     bf16 = lib.expert_ffn_gemv_bf16
     bf16.restype = i
     bf16.argtypes = [vp] * 7 + [i] * 6 + [ll] * 6 + [vp]
@@ -58,6 +58,17 @@ def panel_width(f: int) -> int:
     """F-panel width of one fp32 block: the widest of at most MAX_BF that
     the ops layer pads F to a multiple of."""
     return min(MAX_BF, f)
+
+
+def f32_group(d: int) -> int:
+    """Tokens of a slot the fp32 kernel stages at once: as many as fit a
+    block's shared memory at width d (10 at d_model 5120). A longer slot
+    runs group by group in the same call."""
+    smem_of = _entry()[2]
+    fixed = smem_of(0, d)
+    g = (L.MAX_SMEM - fixed) // (smem_of(1, d) - fixed)
+    L.require(g >= 1, OP, f"one fp32 token of width {d} does not fit shared memory")
+    return g
 
 
 def mma_plan(d: int, f: int) -> tuple:
@@ -103,14 +114,12 @@ def _launch_f32(x, w1, w3, w2) -> torch.Tensor:
     f = w1.shape[2]
     bf = panel_width(f)
     L.require(f % bf == 0, OP, f"F={f} must be a multiple of the panel width {bf}")
-    fn, _, smem_of = _entry()
-    smem = smem_of(t, d)
-    L.require(smem <= L.MAX_SMEM, OP, f"{t} fp32 tokens of width {d} need {smem} B of "
-              f"shared memory")
+    fn = _entry()[0]
     y = torch.empty_like(x)
     part = torch.empty((f // bf, e, t, d), dtype=torch.float32, device=x.device)
     err = fn(L.ptr(x), L.ptr(w1), L.ptr(w3), L.ptr(w2), L.ptr(part), L.ptr(y),
-             e, t, d, f, bf, *w1.stride(), *w3.stride(), *w2.stride(), L.stream(x))
+             e, t, d, f, bf, f32_group(d), *w1.stride(), *w3.stride(), *w2.stride(),
+             L.stream(x))
     check(err, OP)
     return y
 

@@ -60,6 +60,9 @@ def main(argv=None):
     ap.add_argument("--prompt-len", type=int, default=12)
     ap.add_argument("--stagger", type=int, default=3)
     ap.add_argument("--new-tokens", type=int, default=16)
+    ap.add_argument("--no-buckets", action="store_true",
+                    help="exact-length prefill instead of the default "
+                         "length-bucketed masked prefill")
     ap.add_argument("--max-admit-wait", type=int, default=4,
                     help="admit a partial same-bucket cohort after this many "
                          "admission rounds (starvation cap)")
@@ -77,6 +80,7 @@ def main(argv=None):
     cache_len = args.prompt_len + args.stagger + args.new_tokens
     loop = build_loop(cfg, batch=args.batch, groups=args.groups,
                       cache_len=cache_len, seed=args.seed,
+                      bucket_table=None if args.no_buckets else "auto",
                       max_admit_wait=args.max_admit_wait, device=args.device)
     for r in make_requests(cfg, args.requests, args.prompt_len,
                            args.new_tokens, stagger=args.stagger, seed=args.seed):
@@ -89,6 +93,9 @@ def main(argv=None):
           f"prefills={eng.stats.prefills} "
           f"predictor_acc={eng.predictor.stats.accuracy:.2f} "
           f"prefix_hit_rate={loop.kv.stats.hit_rate:.3f}")
+    buckets = (list(loop.bucket_table.widths)
+               if loop.bucket_table is not None else "off")
+    print(f"[serve] buckets={buckets}")
     for r in done[: min(4, len(done))]:
         print(f"[serve]   rid={r.rid} prompt_len={r.prompt_len} "
               f"tokens={r.generated[:8]}{'...' if len(r.generated) > 8 else ''}")

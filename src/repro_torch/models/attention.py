@@ -1,7 +1,18 @@
-"""Paged GQA and MLA attention for serving (port of
-repro/models/attention.py: `init_gqa` :38, `init_mla` :56, `_paged_write`
-:364, `paged_scatter` :374, `gqa_decode_paged` :390, `mla_decode_paged`
-:438, `gqa_prefill_paged` :495, `mla_prefill_paged` :552).
+"""GQA and MLA attention for serving (port of repro/models/attention.py:
+`init_gqa` :38, `init_mla` :56, `_grouped_attention` :75, `gqa_forward`
+:180, `gqa_decode` :211, `mla_forward` :242, `mla_decode` :292,
+`_paged_write` :364, `paged_scatter` :374, `gqa_decode_paged` :390,
+`mla_decode_paged` :438, `gqa_prefill_paged` :495, `mla_prefill_paged`
+:552).
+
+Two cache layouts. The contiguous one ("slots") holds a ring buffer of
+static length S per row: `gqa_forward` / `mla_forward` run whole
+sequences (prefill) and return the tokens' cache entries, `gqa_decode` /
+`mla_decode` write one token per row at `pos % S` (in place) and attend
+over the row's valid slots. These are plain PyTorch, as the reference's
+are plain jnp (they reach no Pallas kernel); `_grouped_attention` is the
+reference's query-chunked exact softmax. The sequence-parallel branch of
+the reference waits for the distributed slice.
 
 K/V (GQA) and the MLA latents live in shared block pools [N+1, bs, ...]
 whose last block is the write trash: pad rows and dead rows write there,
@@ -29,6 +40,8 @@ from repro_torch.kernels.paged_attention import (
     paged_prefill_mla,
 )
 from repro_torch.models.layers import Params, apply_rope, dense_init, torch_dtype
+
+NEG_INF = -1e30
 
 
 def init_gqa(gen: torch.Generator, cfg, lead=()) -> Params:
@@ -89,6 +102,116 @@ def _qkv(p: Params, x: torch.Tensor, positions: torch.Tensor, theta: float):
     return apply_rope(q, positions, theta), apply_rope(k, positions, theta), v
 
 
+# ------------------------------------------------- grouped core attention
+def _grouped_attention(q, k, v, *, causal: bool = False, valid=None,
+                       q_chunk: int = 1024):
+    """q [B, Sq, H, hd]; k / v [B, Sk, Kv, hd_{k,v}] -> [B, Sq, H, hd_v].
+
+    Exact softmax per query row, over query chunks of `q_chunk` rows so the
+    score tensor never exceeds one chunk. Causal: query i sits at absolute
+    position i + (Sk - Sq). `valid`: optional [Sk] or [B, Sk] bool of usable
+    keys (pad keys of a masked prefill, a decode ring's filled slots).
+    Scores are taken in the inputs' dtype and then scaled in fp32; the
+    softmax is fp32 and cast to v's dtype for the value product, as in
+    the reference."""
+    b, sq, h, hdk = q.shape
+    sk, kvh = k.shape[1], k.shape[2]
+    qg = q.reshape(b, sq, kvh, h // kvh, hdk)
+    scale = hdk ** -0.5
+    kpos = torch.arange(sk, device=q.device)
+    vmask = None
+    if valid is not None:
+        vmask = valid[None, None, :] if valid.ndim == 1 else valid[:, None, :]
+    outs = []
+    for start in range(0, sq, q_chunk):
+        qc = qg[:, start:start + q_chunk]
+        s = torch.einsum("bckgd,bskd->bckgs", qc, k).float() * scale
+        mask = None
+        if causal:
+            qpos = start + torch.arange(qc.shape[1], device=q.device) + (sk - sq)
+            mask = (kpos[None, :] <= qpos[:, None])[None]  # [1, C, Sk]
+        if vmask is not None:
+            mask = vmask if mask is None else (mask & vmask)
+        if mask is not None:
+            s = torch.where(mask[:, :, None, None, :], s, torch.full_like(s, NEG_INF))
+        p = torch.softmax(s, dim=-1)
+        outs.append(torch.einsum("bckgs,bskd->bckgd", p.to(v.dtype), v))
+    out = outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
+    return out.reshape(b, sq, h, -1)
+
+
+# ---------------------------------------------- contiguous (slots) layout
+def gqa_forward(p: Params, cfg, x, positions, token_mask=None):
+    """Full-sequence causal GQA (prefill). x [B, S, D]; positions [B or 1,
+    S]; token_mask [B, S] real tokens (pad keys masked; outputs at pad
+    queries are unspecified). Returns (out [B, S, D], (k, v)) with the
+    tokens' k / v [B, S, Kv, hd] for the cache."""
+    q, k, v = _qkv(p, x, positions, cfg.rope_theta)
+    out = _grouped_attention(q, k, v, causal=True, valid=token_mask)
+    return torch.einsum("bshk,hkd->bsd", out, p["wo"]), (k, v)
+
+
+def _ring_write(cache, pos, val):
+    """val [B, ...] lands at cache[b, pos[b] % S], in place."""
+    rows = torch.arange(cache.shape[0], device=cache.device)
+    cache[rows, (pos % cache.shape[1]).long()] = val
+    return cache
+
+
+def gqa_decode(p: Params, cfg, x, cache_k, cache_v, pos):
+    """One-token GQA decode against ring buffers. x [B, 1, D]; cache_k /
+    cache_v [B, S, Kv, hd]; pos [B] int32 absolute positions. The new
+    token's K/V overwrites slot pos % S (in place), then attention runs
+    over the slots filled so far (arange(S) <= pos). Returns (out [B, 1,
+    D], cache_k, cache_v)."""
+    q, k, v = _qkv(p, x, pos[:, None], cfg.rope_theta)
+    _ring_write(cache_k, pos, k[:, 0])
+    _ring_write(cache_v, pos, v[:, 0])
+    valid = torch.arange(cache_k.shape[1], device=x.device)[None, :] <= pos[:, None]
+    out = _grouped_attention(q, cache_k, cache_v, valid=valid)
+    return torch.einsum("bshk,hkd->bsd", out, p["wo"]), cache_k, cache_v
+
+
+def mla_forward(p: Params, cfg, x, positions, token_mask=None):
+    """Full-sequence causal MLA (prefill), expanded: the latent becomes
+    per-head K/V (`kvb` [B, S, H, nope + v]) and attention is GQA with one
+    query per KV head. Returns (out [B, S, D], (ckv [B, S, r], krope
+    [B, S, rd])), the tokens' cache entries."""
+    m = cfg.mla
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+    q_nope, q_rope = q.split([m.qk_nope_head_dim, m.qk_rope_head_dim], dim=-1)
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+    kv_a = torch.einsum("bsd,dr->bsr", x, p["wkv_a"])
+    ckv, krope = kv_a.split([m.kv_lora_rank, m.qk_rope_head_dim], dim=-1)
+    krope = apply_rope(krope[:, :, None, :], positions, cfg.rope_theta)  # [B, S, 1, rd]
+    kvb = torch.einsum("bsr,rhk->bshk", ckv, p["wkv_b"])
+    k_nope, v = kvb.split([m.qk_nope_head_dim, m.v_head_dim], dim=-1)
+    k = torch.cat([k_nope, krope.expand(*k_nope.shape[:3], m.qk_rope_head_dim)], dim=-1)
+    qf = torch.cat([q_nope, q_rope], dim=-1)
+    out = _grouped_attention(qf, k, v, causal=True, valid=token_mask)
+    return torch.einsum("bshk,hkd->bsd", out, p["wo"]), (ckv, krope[:, :, 0, :])
+
+
+def mla_decode(p: Params, cfg, x, cache_ckv, cache_krope, pos):
+    """Absorbed one-token MLA decode against latent ring buffers. x [B, 1,
+    D]; cache_ckv [B, S, r]; cache_krope [B, S, rd]; pos [B] int32. The
+    new token's latents overwrite slot pos % S (in place); scores and
+    values are taken against the latents directly, every latent
+    contraction in fp32 as the reference's `preferred_element_type=f32`.
+    Returns (out [B, 1, D], cache_ckv, cache_krope)."""
+    q_lat, q_rope, ckv_new, krope_new, wv_b = _mla_project(p, cfg, x, pos[:, None])
+    _ring_write(cache_ckv, pos, ckv_new[:, 0])
+    _ring_write(cache_krope, pos, krope_new[:, 0])
+    ckv, krope = cache_ckv.float(), cache_krope.float()
+    s = (torch.einsum("bshr,btr->bhst", q_lat, ckv)
+         + torch.einsum("bshk,btk->bhst", q_rope, krope)) * _mla_scale(cfg)
+    valid = torch.arange(ckv.shape[1], device=x.device)[None, :] <= pos[:, None]
+    s = torch.where(valid[:, None, None, :], s, torch.full_like(s, NEG_INF))
+    o_lat = torch.einsum("bhst,btr->bshr", torch.softmax(s, dim=-1), ckv)
+    return _mla_out(p, o_lat, wv_b, x.dtype), cache_ckv, cache_krope
+
+
+# ------------------------------------------------------- paged layout
 def _paged_write(pool, tables, pos, val):
     """Scatter one new token per row into its block, in place: val [B, ...]
     lands at pool[tables[b, pos[b] // bs], pos[b] % bs]. Dead rows carry

@@ -1,7 +1,9 @@
 """Model assembly for serving (port of the serving part of
 repro/models/model.py: `layer_signature` :41, `stack_plan` :58,
-`init_params` :107, the attention and MoE branches of `apply_layer`
-:195, `_logits` :400, `decode_step_paged` :640, `prefill_paged` :730).
+`init_params` :107, `init_layer_cache` :147, `init_cache` :172, the
+attention and MoE branches of `apply_layer` :195, `_logits` :400,
+`prefill` :462, `decode_step` :565, `decode_step_paged` :640,
+`prefill_paged` :730).
 
 Params keep the JAX tree layout: periodic layers are stacked under
 params["stack"]["slot<j>"] with the scan-group dim first. Where JAX
@@ -67,21 +69,25 @@ def stack_plan(cfg: ModelConfig) -> Tuple[List[int], int, List[Sig]]:
 
 
 class Mixer(NamedTuple):
-    """What the port knows of one mixer kind: its params, its paged decode
-    and chunk-prefill functions, and its cache leaves (pool keys in the
-    order those functions take them, with their per-token shapes)."""
+    """What the port knows of one mixer kind: its params; its functions
+    over the contiguous layout (whole-sequence `forward`, ring-buffer
+    `decode`) and over the paged one (`decode_paged`, chunk
+    `prefill_paged`); and its cache leaves (keys in the order those
+    functions take them, with their per-token shapes)."""
 
     init: Callable
+    forward: Callable
+    decode: Callable
     decode_paged: Callable
     prefill_paged: Callable
-    cache_shapes: Callable  # (cfg, n_tokens) -> {pool key: shape}
+    cache_shapes: Callable  # (cfg, n_tokens) -> {cache key: shape}
 
 
 MIXERS = {  # the mixers the port serves
-    "attn": Mixer(attn.init_gqa, attn.gqa_decode_paged, attn.gqa_prefill_paged,
-                  attn.gqa_cache_shapes),
-    "mla": Mixer(attn.init_mla, attn.mla_decode_paged, attn.mla_prefill_paged,
-                 attn.mla_cache_shapes),
+    "attn": Mixer(attn.init_gqa, attn.gqa_forward, attn.gqa_decode, attn.gqa_decode_paged,
+                  attn.gqa_prefill_paged, attn.gqa_cache_shapes),
+    "mla": Mixer(attn.init_mla, attn.mla_forward, attn.mla_decode, attn.mla_decode_paged,
+                 attn.mla_prefill_paged, attn.mla_cache_shapes),
 }
 
 
@@ -147,6 +153,29 @@ def init_params(seed: int, cfg: ModelConfig, device=None) -> Params:
     return params
 
 
+# ------------------------------------------------------------ cache init
+def init_layer_cache(cfg: ModelConfig, sig: Sig, batch: int, seq: int, device=None,
+                     lead=()) -> Params:
+    """Zeroed ring buffers of one attention layer: [*lead, batch, seq, ...]
+    per leaf of the mixer's `cache_shapes`."""
+    dt = torch_dtype(cfg.param_dtype)
+    return {k: torch.zeros((*lead, batch, *shape), dtype=dt, device=device)
+            for k, shape in MIXERS[sig[0]].cache_shapes(cfg, seq).items()}
+
+
+def init_cache(cfg: ModelConfig, batch: int, seq: int, device=None) -> Params:
+    """The contiguous decode cache: "layer<i>" leaves [batch, seq, ...],
+    "stack" leaves [n_groups, batch, seq, ...]."""
+    check_supported(cfg)
+    unrolled_idx, n_groups, period = stack_plan(cfg)
+    cache: Params = {f"layer{li}": init_layer_cache(cfg, layer_signature(cfg, li), batch,
+                                                    seq, device)
+                     for li in unrolled_idx}
+    cache["stack"] = {f"slot{j}": init_layer_cache(cfg, sig, batch, seq, device, (n_groups,))
+                      for j, sig in enumerate(period)}
+    return cache
+
+
 def index_tree(tree, g: int):
     """Views of scan group `g` of a stacked subtree."""
     if isinstance(tree, dict):
@@ -162,27 +191,42 @@ def apply_layer(
     x: torch.Tensor,
     positions: torch.Tensor,
     *,
-    pools: Params,  # this layer's block pools, written in place, keyed as
-                    # MIXERS[mixer].cache_shapes
-    tables: torch.Tensor,  # [B, nb] int32 block tables
+    cache: Params,  # this layer's cache leaves, written in place, keyed as
+                    # MIXERS[mixer].cache_shapes: block pools when `tables`
+                    # is given, else ring buffers [B, S, ...]
+    tables: torch.Tensor | None = None,  # [B, nb] int32 block tables
     pos: torch.Tensor | None = None,  # decode: [B] int32 positions
     past_len: torch.Tensor | None = None,  # chunk prefill: [B] int32
     token_mask: torch.Tensor | None = None,  # [B, S] valid tokens
     tiered_state: Params | None = None,
     cold_capacity_frac: float = 0.25,
 ):
-    """One paged serving layer. Decode when `pos` is given (x [B, 1, D]),
-    chunk prefill otherwise (x [B, S, D], `past_len`, `token_mask`).
-    Returns (x, expert_counts [E] int32 or None)."""
+    """One serving layer. Decode when `pos` is given (x [B, 1, D]),
+    full-sequence otherwise (x [B, S, D], `token_mask`): over the paged
+    pools (a chunk after `past_len` cached tokens) when `tables` is
+    given, else over the contiguous layout, where the tokens' entries land
+    at the head of the rows' ring buffers with pad entries zeroed (the
+    reference's `prefill.merge`). Returns (x, expert_counts [E] int32 or
+    None)."""
     mixer, ffn = sig
     h = rmsnorm(p["norm1"], x, cfg.norm_eps)
     m = MIXERS[mixer]
-    a, b = (pools[key] for key in m.cache_shapes(cfg, 0))
-    if pos is not None:
+    keys = list(m.cache_shapes(cfg, 0))
+    a, b = (cache[key] for key in keys)
+    if pos is not None and tables is not None:
         y, _, _ = m.decode_paged(p["mixer"], cfg, h, a, b, tables, pos)
-    else:
+    elif pos is not None:
+        y, _, _ = m.decode(p["mixer"], cfg, h, a, b, pos)
+    elif tables is not None:
         y, _, _ = m.prefill_paged(p["mixer"], cfg, h, a, b, tables, past_len, positions,
                                   token_mask)
+    else:
+        y, new = m.forward(p["mixer"], cfg, h, positions, token_mask)
+        s = x.shape[1]
+        for key, val in zip(keys, new):
+            if token_mask is not None:  # pad entries zeroed
+                val = val * token_mask[(...,) + (None,) * (val.ndim - 2)].to(val.dtype)
+            cache[key][:, :s] = val
     x = x + y
     counts = None
     if ffn != "none":
@@ -209,21 +253,98 @@ def _logits(params: Params, cfg: ModelConfig, x: torch.Tensor):
     return lm_head(params["head"], x)
 
 
-def _layers(params: Params, cfg: ModelConfig, pools: Params, tiered: Params | None):
-    """(sig, layer params, layer pools, tier state) for every layer in
-    execution order; stacked leaves come as views of their group."""
+def _layers(params: Params, cfg: ModelConfig, cache: Params, tiered: Params | None):
+    """(sig, layer params, layer cache, tier state) for every layer in
+    execution order; stacked leaves come as views of their group. `cache`
+    is the paged pools or the contiguous cache (same tree layout)."""
     unrolled_idx, n_groups, period = stack_plan(cfg)
     for li in unrolled_idx:
         name = f"layer{li}"
         ts = tiered.get(name) if tiered else None
-        yield layer_signature(cfg, li), params[name], pools[name], ts
+        yield layer_signature(cfg, li), params[name], cache[name], ts
     ts_stack = tiered.get("stack") if tiered else None
     for g in range(n_groups):
         for j, sig in enumerate(period):
             slot = f"slot{j}"
             ts = index_tree(ts_stack[slot], g) if ts_stack and slot in ts_stack else None
             yield (sig, index_tree(params["stack"][slot], g),
-                   index_tree(pools["stack"][slot], g), ts)
+                   index_tree(cache["stack"][slot], g), ts)
+
+
+def _last_real(x: torch.Tensor, token_mask: torch.Tensor | None) -> torch.Tensor:
+    """Each row's hidden state at its last real token ([B, 1, D]); an
+    all-pad row yields position 0."""
+    if token_mask is None:
+        return x[:, -1:]
+    last = torch.clamp(token_mask.sum(-1) - 1, min=0)
+    return x[torch.arange(x.shape[0], device=x.device), last][:, None]
+
+
+def _decode(params, cfg, tokens, cache, tables, pos, tiered, cold_capacity_frac,
+            token_mask):
+    """One decode step over either layout: (logits [B, V], counts [L, E])."""
+    x = embed(params["embed"], tokens)
+    positions = pos[:, None]
+    tmask = None if token_mask is None else token_mask.reshape(-1, 1)
+    e = cfg.moe.n_experts if cfg.moe is not None else 1
+    no_moe = torch.zeros((e,), dtype=torch.int32, device=x.device)
+    counts_all = []
+    for sig, p, c, ts in _layers(params, cfg, cache, tiered):
+        x, counts = apply_layer(
+            cfg, sig, p, x, positions, cache=c, tables=tables, pos=pos,
+            token_mask=tmask, tiered_state=ts, cold_capacity_frac=cold_capacity_frac,
+        )
+        counts_all.append(no_moe if counts is None else counts)
+    return _logits(params, cfg, x)[:, 0], torch.stack(counts_all)
+
+
+def prefill(
+    params: Params,
+    cfg: ModelConfig,
+    tokens: torch.Tensor,  # [B, S] int
+    cache_len: int | None = None,
+    tiered: Params | None = None,
+    cold_capacity_frac: float = 0.25,
+    token_mask: torch.Tensor | None = None,  # [B, S] bool real tokens
+):
+    """Full-sequence prefill building a fresh contiguous cache of
+    `cache_len` (default S) slots per row. Without `token_mask` every row
+    is S real tokens (the exact-length path). With it, rows are right-
+    padded to a shared bucket width: pad keys are masked out of attention,
+    pad cache entries are zeroed, and the logits are each row's last real
+    token's (an all-pad row yields row position 0: callers drop such
+    rows). MoE layers run through the tiered runtime when `tiered` is
+    given. Returns (logits [B, V], cache)."""
+    b, s = tokens.shape
+    cache = init_cache(cfg, b, cache_len or s, device=tokens.device)
+    x = embed(params["embed"], tokens)
+    positions = torch.arange(s, dtype=torch.int32, device=x.device)[None, :]
+    for sig, p, c, ts in _layers(params, cfg, cache, tiered):
+        x, _ = apply_layer(
+            cfg, sig, p, x, positions, cache=c, token_mask=token_mask, tiered_state=ts,
+            cold_capacity_frac=cold_capacity_frac,
+        )
+    return _logits(params, cfg, _last_real(x, token_mask))[:, 0], cache
+
+
+def decode_step(
+    params: Params,
+    cfg: ModelConfig,
+    tokens: torch.Tensor,  # [B, 1] int
+    cache: Params,
+    pos: torch.Tensor,  # [B] int32 (or a scalar: every row at one position)
+    tiered: Params | None = None,
+    cold_capacity_frac: float = 0.25,
+    token_mask: torch.Tensor | None = None,  # [B] live rows
+):
+    """One decode step against the contiguous cache (ring buffers written
+    in place at pos % S). Returns (logits [B, V], cache, expert_counts
+    [n_layers, E]): one row per layer, zeros for a layer without routed
+    experts, as the reference's `decode_step` returns them."""
+    pos = torch.as_tensor(pos, dtype=torch.int32, device=tokens.device).expand(tokens.shape[0])
+    logits, counts = _decode(params, cfg, tokens, cache, None, pos, tiered,
+                             cold_capacity_frac, token_mask)
+    return logits, cache, counts
 
 
 def decode_step_paged(
@@ -241,20 +362,9 @@ def decode_step_paged(
     [B, V], pools (written in place), expert_counts [n_layers, E]): one
     row per layer in execution order, zeros for a layer without routed
     experts, as the reference's `decode_step_paged` returns them."""
-    x = embed(params["embed"], tokens)
-    positions = pos[:, None]
-    tmask = None if token_mask is None else token_mask.reshape(-1, 1)
-    e = cfg.moe.n_experts if cfg.moe is not None else 1
-    no_moe = torch.zeros((e,), dtype=torch.int32, device=x.device)
-    counts_all = []
-    for sig, p, pl, ts in _layers(params, cfg, pools, tiered):
-        x, counts = apply_layer(
-            cfg, sig, p, x, positions, pools=pl, tables=tables, pos=pos,
-            token_mask=tmask, tiered_state=ts, cold_capacity_frac=cold_capacity_frac,
-        )
-        counts_all.append(no_moe if counts is None else counts)
-    logits = _logits(params, cfg, x)[:, 0]
-    return logits, pools, torch.stack(counts_all)
+    logits, counts = _decode(params, cfg, tokens, pools, tables, pos, tiered,
+                             cold_capacity_frac, token_mask)
+    return logits, pools, counts
 
 
 def prefill_paged(
@@ -271,15 +381,13 @@ def prefill_paged(
     """Suffix-only masked prefill of one chunk against the paged cache
     (decode is the chunk-of-1 case of the same kernels). Returns
     (last_real_token_logits [W, V], pools written in place)."""
-    b, s = tokens.shape
+    s = tokens.shape[1]
     x = embed(params["embed"], tokens)
     positions = past_len[:, None] + torch.arange(s, dtype=torch.int32, device=x.device)[None, :]
     for sig, p, pl, ts in _layers(params, cfg, pools, tiered):
         x, _ = apply_layer(
-            cfg, sig, p, x, positions, pools=pl, tables=tables, past_len=past_len,
+            cfg, sig, p, x, positions, cache=pl, tables=tables, past_len=past_len,
             token_mask=token_mask, tiered_state=ts, cold_capacity_frac=cold_capacity_frac,
         )
-    last = torch.clamp(token_mask.sum(-1) - 1, min=0)
-    x_last = x[torch.arange(b, device=x.device), last][:, None]
-    return _logits(params, cfg, x_last)[:, 0], pools
+    return _logits(params, cfg, _last_real(x, token_mask))[:, 0], pools
 

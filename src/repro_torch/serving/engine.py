@@ -1,11 +1,16 @@
-"""TriMoE serving engine, paged path (port of repro/serving/engine.py:
+"""TriMoE serving engine (port of repro/serving/engine.py:
 `init_tiered_for_model` :73, `fill_tiers_from_params` :93,
-`strip_expert_weights` :130, `step_slots_paged` :470,
+`strip_expert_weights` :130, the constructor :176, `cache` :341, `step`
+:368, `step_slots` :378, `prefill_slots` :401, `step_slots_paged` :470,
 `prefill_slots_paged` :512, the table-width sets :312-316, and the
-planner `observe` / `plan_migrations` / `apply_planned` :724-904).
+planner `observe` / `plan_migrations` / `apply_planned` / `replan`
+:724-904).
 
-Per decode step: `decode_step_paged` runs attention + the three-tier MoE
-and returns per-expert token counts; the host feeds them to the EMA
+Two KV layouts: the paged block pools (`PagedKVCache`: `step_slots_paged`,
+`prefill_slots_paged`) and the contiguous slot rows (`SlotKVCache`:
+`step_slots`, `prefill_slots`, and the full-batch `step`). Per decode
+step the model runs attention + the three-tier MoE and returns
+per-expert token counts; the host feeds them to the EMA
 predictor (`observe`), draws cost-ranked migration plans scored with the
 reference's TPU-domain cost model (kept verbatim so the plans equal the
 reference's), and `apply_planned` swaps expert weights between the tier
@@ -28,14 +33,17 @@ from repro_torch.core.tiers import COLD, HOT, WARM
 from repro_torch.kernels.paged_attention import active_block_width
 from repro_torch.models.layers import Params
 from repro_torch.models.model import (
+    decode_step,
     decode_step_paged,
     index_tree,
     layer_signature,
+    prefill,
     prefill_paged,
     stack_plan,
 )
 from repro_torch.obs import resolve_obs
 from repro_torch.obs.metrics import RegistryStats
+from repro_torch.serving.kv_cache import SlotKVCache, gather_slots
 from repro_torch.serving.paged_kv import PagedKVCache
 from repro_torch.serving.tiered_moe import (
     TierSizes,
@@ -135,16 +143,18 @@ class EngineStats(RegistryStats):
 
 
 class TriMoEServingEngine:
-    """Paged-KV serving engine: decode and chunked prefill against the
-    block pools through the tiered MoE runtime, plus the migration
-    planner. `cold_capacity_frac=1.0` keeps the tiered dispatch exactly
-    dropless."""
+    """Serving engine: decode and prefill through the tiered MoE runtime
+    against the paged block pools or the contiguous slot rows, plus the
+    migration planner. `cache` is a PagedKVCache, a SlotKVCache, or a raw
+    contiguous cache tree (wrapped with every slot allocated, for
+    full-batch stepping). `cold_capacity_frac=1.0` keeps the tiered
+    dispatch exactly dropless."""
 
     def __init__(
         self,
         cfg: ModelConfig,
         params: Params,
-        kv: PagedKVCache,
+        cache,
         tiered: Params,
         sizes: Optional[TierSizes] = None,
         cold_capacity_frac: float = 1.0,
@@ -158,7 +168,10 @@ class TriMoEServingEngine:
         self._tr = self.obs.tracer
         self.params = strip_expert_weights(params, cfg)
         self.device = params["embed"]["table"].device
-        self.kv = kv
+        self.kv = (
+            cache if isinstance(cache, (SlotKVCache, PagedKVCache))
+            else SlotKVCache.from_cache(cache)
+        )
         self.tiered = tiered
         self.sizes = sizes or tier_sizes(cfg)
         self.policy = resolve_policy(cfg, scheduler, caller="TriMoEServingEngine")
@@ -184,6 +197,16 @@ class TriMoEServingEngine:
         # lazily from the device; plan_migrations keeps it in lockstep
         self._host_layout: Dict[int, tuple] = {}
 
+    @property
+    def cache(self):
+        """The contiguous cache tree (a SlotKVCache's; the paged layout
+        exposes kv.pools)."""
+        assert isinstance(self.kv, SlotKVCache), (
+            "raw-cache access is a SlotKVCache affordance; the paged "
+            "layout exposes kv.pools"
+        )
+        return self.kv.cache
+
     def _flatten_layer_keys(self) -> List[tuple]:
         """Ordered (kind, name, group) keys, one per MoE layer."""
         layers, slots, n_groups = moe_slot_names(self.cfg)
@@ -203,6 +226,85 @@ class TriMoEServingEngine:
         return torch.as_tensor(np.asarray(a), dtype=dtype, device=self.device)
 
     # ----------------------------------------------------------- stepping
+    def step(self, tokens, pos: int):
+        """Full-batch decode of every cache row at one position, then a
+        synchronous replan."""
+        logits, _, counts = decode_step(
+            self.params, self.cfg, self._dev(tokens), self.cache, self._dev(pos),
+            tiered=self.tiered, cold_capacity_frac=self.cold_capacity_frac,
+        )
+        self.stats.steps += 1
+        self.replan(counts.cpu().numpy())
+        return logits
+
+    def step_slots(self, tokens, pos, slot_indices, live=None):
+        """Decode only the cache rows in `slot_indices` (the active zigzag
+        group): gather the rows, decode (ring buffers written at pos % S),
+        scatter them back. tokens [W, 1]; pos [W] per-slot positions; live
+        [W] bool (dead rows are left out of MoE dispatch and counts).
+        Returns (logits [W, V], expert_counts [L, E]) without replanning."""
+        if live is None:
+            live = np.ones((len(slot_indices),), bool)
+        sub = self.kv.gather(slot_indices)
+        logits, sub, counts = decode_step(
+            self.params, self.cfg, self._dev(tokens), sub, self._dev(pos),
+            tiered=self.tiered, cold_capacity_frac=self.cold_capacity_frac,
+            token_mask=self._dev(live, torch.bool),
+        )
+        self.kv.scatter(sub, slot_indices)
+        self.stats.steps += 1
+        return logits, counts
+
+    def prefill_slots(self, prompts, slot_indices, lengths=None):
+        """Prefill newly admitted requests into their cache rows through
+        the tiered MoE runtime; returns each row's logits [W, V], which
+        sample its first token.
+
+        Without `lengths` every row is exactly S real tokens (the
+        exact-length path). With `lengths` [W], rows are right-padded to
+        a shared bucket width and run through the masked prefill, padded
+        with dummy (all-pad) rows to `prefill_rows` rows a call (more
+        rows run in several calls); the dummy rows are dropped before the
+        scatter, so none overwrites slot 0."""
+        assert self.kv.seq_len is not None, (
+            "prefill_slots needs a SlotKVCache built with an explicit seq_len"
+        )
+        if lengths is None:
+            prompts = np.asarray(prompts, np.int32)
+            logits, sub = prefill(self.params, self.cfg, self._dev(prompts),
+                                  cache_len=self.kv.seq_len, tiered=self.tiered,
+                                  cold_capacity_frac=self.cold_capacity_frac)
+            self.kv.scatter(sub, slot_indices)
+            self.stats.prefills += prompts.shape[0]
+            self.stats.prefill_tokens += int(prompts.shape[0] * prompts.shape[1])
+            return logits
+
+        prompts = np.asarray(prompts, np.int32)
+        lengths = np.asarray(lengths, np.int32)
+        n, width = prompts.shape
+        assert len(slot_indices) == n and lengths.shape == (n,)
+        assert np.all(lengths <= width) and np.all(lengths > 0)
+        r = self.prefill_rows
+        out = []
+        for c0 in range(0, n, r):
+            nr = min(r, n - c0)
+            toks = np.zeros((r, width), np.int32)
+            lens = np.zeros((r,), np.int32)  # dummy rows: all-pad mask
+            toks[:nr] = prompts[c0:c0 + nr]
+            lens[:nr] = lengths[c0:c0 + nr]
+            token_mask = np.arange(width)[None, :] < lens[:, None]
+            logits, sub = prefill(self.params, self.cfg, self._dev(toks),
+                                  cache_len=self.kv.seq_len, tiered=self.tiered,
+                                  cold_capacity_frac=self.cold_capacity_frac,
+                                  token_mask=self._dev(token_mask, torch.bool))
+            if nr < r:  # drop the dummy rows before scattering
+                sub = gather_slots(sub, list(range(nr)))
+            self.kv.scatter(sub, list(slot_indices[c0:c0 + nr]))
+            out.append(logits[:nr])
+            self.stats.prefills += nr
+            self.stats.prefill_tokens += int(lens.sum())
+        return out[0] if len(out) == 1 else torch.cat(out)
+
     def step_slots_paged(self, tokens, pos, slot_indices, tables, live=None):
         """Paged decode of the active zigzag group: K/V reads and writes
         go through the block pools by each row's table ([W, nb] int32),
@@ -453,3 +555,8 @@ class TriMoEServingEngine:
                     )
                 apply_migrations(self._get_state(key), plan)
         self._unapplied = None
+
+    def replan(self, counts) -> None:
+        """Synchronous path: observe + plan + apply in one call (`step`)."""
+        self.observe(counts)
+        self.apply_planned(self.plan_migrations())

@@ -1,10 +1,12 @@
 """Continuous-batching TriMoE serving loop (port of
-repro/serving/loop.py:211, `ServingLoop` with its defaults).
+repro/serving/loop.py:211, `ServingLoop`; `_free_slots` :441,
+`_admit_inner` :468, `step_once` :670, `_default_sizes` :888).
 
   ServingLoop
     ├─ ZigzagBatcher       — request queue, slot allocation, group rotation
     ├─ PagedKVCache        — block pools + tables + radix prefix index
-    └─ TriMoEServingEngine — paged decode / chunked prefill / migration
+    │  (or SlotKVCache     — contiguous ring-buffer rows, kv_layout="slots")
+    └─ TriMoEServingEngine — decode / prefill / migration
 
 Decoding is greedy. With the engine default cold_capacity_frac=1.0 and
 fp32 params the generated tokens equal the reference ServingLoop's on
@@ -31,8 +33,10 @@ from repro_torch.serving.engine import (
     fill_tiers_from_params,
     init_tiered_for_model,
 )
-from repro_torch.serving.paged_kv import PagedKVCache
+from repro_torch.serving.kv_cache import SlotKVCache
+from repro_torch.serving.paged_kv import PagedKVCache, prefix_cacheable
 from repro_torch.serving.tiered_moe import TierSizes, tier_sizes
+
 
 class LoopStats(RegistryStats):
     """Registry-backed serving-loop stats (repro_torch.obs) under the
@@ -172,22 +176,28 @@ class _PrefillTask:
 
 
 class ServingLoop:
-    """Multi-request continuous-batching loop over the TriMoE engine, in
-    the reference's default configuration: paged KV with `block_size`-
-    token blocks, radix prefix reuse and chunked piggyback prefill.
+    """Multi-request continuous-batching loop over the TriMoE engine.
 
     batch_size decode slots are split into n_groups zigzag groups. Each
-    iteration admits queued requests (claiming their longest cached
-    prefix), runs at most one budgeted prefill chunk of up to
-    `prefill_chunk_tokens` suffix tokens, decodes the active group, then
-    applies the previous iteration's migration plans and draws new ones
-    from the previous group's realized expert loads.
+    iteration admits queued requests, prefills them, decodes the active
+    group, then applies the previous iteration's migration plans and
+    draws new ones from the previous group's realized expert loads.
+
+    The defaults are the reference's: paged KV with `block_size`-token
+    blocks and radix prefix reuse (admission claims each prompt's longest
+    cached prefix), and chunked piggyback prefill (`chunked_prefill=True`:
+    the uncached suffix streams in chunks of at most
+    `prefill_chunk_tokens` tokens, one chunk call per iteration beside
+    the decode step). With `chunked_prefill=False`, or under
+    `kv_layout="slots"` (the contiguous SlotKVCache, no prefix reuse),
+    admission prefills each request's whole uncached suffix at once:
+    same-bucket admissions padded to the bucket width in one masked
+    prefill call, or, with `bucket_table=None`, exact-length rows.
 
     Runs on the card unless `device="cpu"` is passed (then every kernel
     wrapper runs its plain PyTorch version). The kernel backends are the
-    config's, resolved by the tensors' device. Later slices of the port
-    add `spec_decode=True` and `kv_layout="slots"`; here they raise
-    NotImplementedError.
+    config's, resolved by the tensors' device. A later slice of the port
+    adds `spec_decode=True`; here it raises NotImplementedError.
     """
 
     def __init__(
@@ -210,6 +220,7 @@ class ServingLoop:
         kv_pool_blocks: Optional[int] = None,
         prefix_cache: bool = True,
         kv_sanitize: Optional[bool] = None,  # None -> $REPRO_KV_SANITIZE
+        chunked_prefill: bool = True,
         prefill_chunk_tokens: Optional[int] = None,
         spec_decode: bool = False,
         scheduler: Optional[SchedulerPolicy] = None,
@@ -217,8 +228,7 @@ class ServingLoop:
         device=None,
     ):
         assert cfg.moe is not None, "ServingLoop drives the TriMoE MoE path"
-        if kv_layout != "paged":
-            raise NotImplementedError("kv_layout='slots' is not ported yet")
+        assert kv_layout in ("paged", "slots"), kv_layout
         if spec_decode:
             raise NotImplementedError("speculative decode is not ported yet")
         check_supported(cfg)
@@ -233,15 +243,23 @@ class ServingLoop:
         self.obs = resolve_obs(cfg, obs, caller="ServingLoop")
         self._tr = self.obs.tracer
         self.cfg = cfg
-        self.kv = PagedKVCache(
-            cfg, batch_size, cache_len, block_size=block_size,
-            n_blocks=kv_pool_blocks, prefix_cache=prefix_cache,
-            sanitize=kv_sanitize, device=self.device,
-        )
+        self.paged = kv_layout == "paged"
+        # chunked piggyback needs a token-position-addressable cache for
+        # every mixer: a chunk boundary cannot thread recurrent state
+        self.chunked = chunked_prefill and self.paged and prefix_cacheable(cfg)
+        if self.paged:
+            self.kv = PagedKVCache(
+                cfg, batch_size, cache_len, block_size=block_size,
+                n_blocks=kv_pool_blocks, prefix_cache=prefix_cache,
+                sanitize=kv_sanitize, device=self.device,
+            )
+        else:
+            self.kv = SlotKVCache(cfg, batch_size, cache_len, device=self.device)
         if tiered is None:
-            if sizes is None:
-                sizes = tier_sizes(
-                    cfg, reclaimed_kv_bytes=self.kv.reclaimed_bytes(cache_len)
+            if sizes is None:  # as the reference: the paged pool's savings buy hot slots
+                sizes = (
+                    tier_sizes(cfg, reclaimed_kv_bytes=self.kv.reclaimed_bytes(cache_len))
+                    if self.paged else _default_sizes(cfg)
                 )
             gen = torch.Generator(device=self.device).manual_seed(rng_seed)
             tiered = init_tiered_for_model(gen, cfg, sizes)
@@ -270,7 +288,7 @@ class ServingLoop:
         self._t_admit: Dict[int, float] = {}
         self._t_submit: Dict[int, float] = {}
         self._t_last_tok: Dict[int, float] = {}
-        self._slot_req: Dict[int, Request] = {}  # slot -> request
+        self._slot_req: Dict[int, Request] = {}  # paged: slot -> request
         self._prefill_tasks: List[_PrefillTask] = []  # FIFO piggyback queue
         self._pending_counts = None  # previous group's realized loads
         self._planned: list = []  # plans drawn but not yet applied
@@ -286,8 +304,14 @@ class ServingLoop:
         self.batcher.submit(req)
 
     def _free_slots(self, freed: List[int]) -> None:
-        """Evict finished requests' KV: index their full (prompt +
-        generated) blocks for future prefix hits, then drop refcounts."""
+        """Evict finished requests' KV: paged slots index their full
+        (prompt + generated) blocks for future prefix hits before the
+        refcounts drop; contiguous slots zero their rows."""
+        if not freed:
+            return
+        if not self.paged:
+            self.kv.free(freed)
+            return
         for i in freed:
             r = self._slot_req.pop(i, None)
             # the FINAL sampled token was never fed back through decode,
@@ -301,19 +325,71 @@ class ServingLoop:
 
     def _admit(self) -> None:
         with self._tr.span("admit"):
-            freed, filled = self.batcher.admit()
-            self._drain_completed()
-            self._free_slots(freed)
+            self._admit_inner()
+
+    def _admit_inner(self) -> None:
+        freed, filled = self.batcher.admit()
+        self._drain_completed()
+        self._free_slots(freed)
+        past_len: Dict[int, int] = {}
+        for i in filled:
+            r = self.batcher.slots[i].request
+            if self.paged:
+                # prefix-match on admission: claim the longest cached
+                # prefix, allocate fresh blocks for the uncached rest
+                past_len[i] = self.kv.admit_slot(i, r.prompt)
+                self._slot_req[i] = r
+            else:
+                self.kv.claim(i)
+            self._t_admit[r.rid] = time.time()
+            self.stats.admitted += 1
+        if not filled:
+            return
+        if self.chunked:
+            # piggyback admission: the uncached suffix streams in as
+            # budgeted chunk work, one chunk call per iteration
             for i in filled:
                 r = self.batcher.slots[i].request
-                # prefix-match on admission: claim the longest cached
-                # prefix; the uncached suffix streams in as chunk work
-                past = self.kv.admit_slot(i, r.prompt)
-                self._slot_req[i] = r
-                self._t_admit[r.rid] = time.time()
-                self.stats.admitted += 1
                 self.batcher.slots[i].prefilling = True
-                self._prefill_tasks.append(_PrefillTask(i, r, past))
+                self._prefill_tasks.append(_PrefillTask(i, r, past_len.get(i, 0)))
+            return
+        # whole-suffix admission: prefill writes the slots' cache (rows or
+        # blocks) and its per-row logits sample the first token
+        if not self.paged and self.bucket_table is None:
+            for i in filled:  # exact-length path
+                r = self.batcher.slots[i].request
+                logits = self.engine.prefill_slots(r.prompt[None, :], [i])
+                self._record_first(r, int(torch.argmax(logits[0], -1)))
+            return
+        # same-bucket admissions share one padded masked prefill; under
+        # the paged layout rows are keyed by their UNCACHED suffix length
+        groups: Dict[int, List[int]] = {}
+        for i in filled:
+            r = self.batcher.slots[i].request
+            n_new = r.prompt_len - past_len.get(i, 0)
+            key = n_new if self.bucket_table is None else self.bucket_table.bucket_of(n_new)
+            groups.setdefault(key, []).append(i)
+        for width, slots in sorted(groups.items()):
+            prompts = np.zeros((len(slots), width), np.int32)
+            lengths = np.zeros((len(slots),), np.int32)
+            pasts = np.zeros((len(slots),), np.int32)
+            for row, i in enumerate(slots):
+                r = self.batcher.slots[i].request
+                pasts[row] = past_len.get(i, 0)
+                suffix = r.prompt[pasts[row]:]
+                prompts[row, : len(suffix)] = suffix
+                lengths[row] = len(suffix)
+            if self.paged:
+                logits = self.engine.prefill_slots_paged(prompts, slots, lengths, pasts)
+                for i in slots:
+                    # index the freshly computed prompt blocks so later
+                    # (and queued) admissions can share them
+                    self.kv.commit_prompt(i, self.batcher.slots[i].request.prompt)
+            else:
+                logits = self.engine.prefill_slots(prompts, slots, lengths=lengths)
+            firsts = torch.argmax(logits, -1).cpu().numpy()
+            for row, i in enumerate(slots):
+                self._record_first(self.batcher.slots[i].request, int(firsts[row]))
 
     def _prefill_step(self) -> None:
         """Run at most ONE budgeted chunk call of pending piggyback
@@ -447,14 +523,17 @@ class ServingLoop:
                 return
             _, idxs, toks, pos, live = gb
             with tr.span("decode"):
-                for row, i in enumerate(idxs):
-                    if live[row]:
-                        # on-demand block alloc at block boundaries,
-                        # copy-on-write if the tail block is shared
-                        self.kv.ensure_block(i, int(pos[row]))
-                logits, counts = self.engine.step_slots_paged(
-                    toks, pos, idxs, self.kv.table_rows(idxs), live=live
-                )
+                if self.paged:
+                    for row, i in enumerate(idxs):
+                        if live[row]:
+                            # on-demand block alloc at block boundaries,
+                            # copy-on-write if the tail block is shared
+                            self.kv.ensure_block(i, int(pos[row]))
+                    logits, counts = self.engine.step_slots_paged(
+                        toks, pos, idxs, self.kv.table_rows(idxs), live=live
+                    )
+                else:
+                    logits, counts = self.engine.step_slots(toks, pos, idxs, live=live)
                 # zigzag overlap: the host applies + replans migrations
                 # while this group's step runs on the device
                 self._flush_replan()
@@ -498,3 +577,12 @@ class ServingLoop:
             torch.cuda.synchronize(self.device)
         self.stats.wall_s += time.time() - t_start
         return self.completions
+
+
+def _default_sizes(cfg: ModelConfig) -> TierSizes:
+    """The contiguous layout's tier split, as the reference's: ~25% hot,
+    ~30% warm, the rest cold."""
+    e = cfg.moe.n_experts
+    n_hot = max(1, e // 4)
+    n_warm = max(1, int(0.3 * e))
+    return TierSizes(n_hot, n_warm, e - n_hot - n_warm)

@@ -1,5 +1,6 @@
 """Paged KV cache with radix prefix reuse (port of repro/serving/paged_kv.py:
-`init_paged_cache` :61, `RadixPrefixIndex` :113, `PagedKVCache` :260).
+`prefix_cacheable` :45, `init_paged_cache` :61, `RadixPrefixIndex` :113,
+`PagedKVCache` :260).
 The host bookkeeping (tables, refcounts, free list, radix index) is the
 reference's, attribute names included, so serving/kv_sanitizer.py sweeps
 it unchanged; the pools are torch tensors on the serving device.
@@ -42,22 +43,19 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import torch_dtype
 from repro_torch.models.model import MIXERS, check_supported, layer_signature, stack_plan
-from repro_torch.serving.kv_cache import cache_bytes
+from repro_torch.serving.kv_cache import batch_axis, cache_bytes, tree_leaves
 from repro_torch.serving.kv_sanitizer import KVSanitizer, SanitizerError, sanitize_default
 
 
-def _pool_axis(top_key: str) -> int:
-    """Pool/slot leaves carry the scan-group dim first under "stack"."""
-    return 1 if top_key == "stack" else 0
-
-
-def _leaves(tree):
-    """Tensor leaves of a nested dict, in insertion order."""
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    else:
-        yield tree
+def prefix_cacheable(cfg: ModelConfig) -> bool:
+    """Prefix reuse (and chunked prefill) needs every mixer's cache to be
+    token-position addressable: attention K/V and MLA latents qualify;
+    recurrent state and enc-dec cross K/V do not (reference :45)."""
+    if cfg.encdec is not None:
+        return False
+    unrolled, _, period = stack_plan(cfg)
+    sigs = [layer_signature(cfg, li) for li in unrolled] + list(period)
+    return all(mixer in ("attn", "mla") for mixer, _ in sigs)
 
 
 def init_paged_cache(cfg: ModelConfig, n_blocks: int, block_size: int,
@@ -285,7 +283,7 @@ class PagedKVCache:
         )
 
     def paged_bytes(self) -> int:
-        return sum(leaf.numel() * leaf.element_size() for leaf in _leaves(self.pools))
+        return sum(leaf.numel() * leaf.element_size() for leaf in tree_leaves(self.pools))
 
     def reclaimed_bytes(self, cache_len: int) -> int:
         """HBM the paged layout hands back vs the contiguous SlotKVCache
@@ -426,8 +424,8 @@ class PagedKVCache:
         new = self._alloc_block()
 
         for top, sub in self.pools.items():
-            for leaf in _leaves(sub):  # in place: block `new` := block `old`
-                if _pool_axis(top) == 0:
+            for leaf in tree_leaves(sub):  # in place: block `new` := block `old`
+                if batch_axis(top) == 0:
                     leaf[new] = leaf[old]
                 else:
                     leaf[:, new] = leaf[:, old]

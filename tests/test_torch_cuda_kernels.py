@@ -169,6 +169,32 @@ def test_expert_gemv_kernel_matches_plain(cuda_device):
                                expert_ffn_gemv_ref(x, w1, w3, w2), atol=1e-4, rtol=1e-4)
 
 
+def _f32_deepseek_tier(rng, dev, t, n_slots=3, d=5120, f=1536):
+    """fp32 tokens [n_slots, t, d] and the gate, up and transposed down
+    views of a [n_slots, 3, d, f] tier buffer at deepseek-v2's widths."""
+    buf = _t(rng.normal(size=(n_slots, 3, d, f)) * d ** -0.5, dev)
+    x = _t(rng.normal(size=(n_slots, t, d)), dev)
+    return x, buf[:, 0], buf[:, 1], buf[:, 2].transpose(1, 2)
+
+
+@pytest.mark.parametrize("t", [11, 32, 40])
+def test_expert_gemv_f32_takes_any_tokens_at_deepseek_widths(cuda_device, t):
+    """fp32 at D = 5120, F = 1536: a slot of more tokens than shared
+    memory holds at once (10) runs group by group in one call, at 1e-5."""
+    x, w1, w3, w2 = _f32_deepseek_tier(np.random.default_rng(40 + t), cuda_device, t)
+    got = expert_ffn_gemv(x, w1, w3, w2, backend="cuda")
+    torch.testing.assert_close(got, expert_ffn_gemv_ref(x, w1, w3, w2), atol=1e-5, rtol=1e-5)
+
+
+def test_expert_gemv_f32_token_groups_do_not_change_a_tokens_bits(cuda_device):
+    """The first 10 tokens of a 40-token call (four groups) equal, bitwise,
+    a 10-token call on the same slots (one group)."""
+    x, w1, w3, w2 = _f32_deepseek_tier(np.random.default_rng(7), cuda_device, 40)
+    long = expert_ffn_gemv(x, w1, w3, w2, backend="cuda")
+    short = expert_ffn_gemv(x[:, :10].contiguous(), w1, w3, w2, backend="cuda")
+    assert torch.equal(long[:, :10], short)
+
+
 def _tier_case(rng, dev, n_slots, t, d, f, live, zero_rows=()):
     """bf16 token buffers [n_slots, t, d] (slots not in `live` all zero,
     rows `zero_rows` of the live slots zero) and the gate, up and

@@ -165,12 +165,23 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
     with pytest.raises(NotImplementedError):
         ServingLoop(cfg, loop.engine.params, loop.engine.tiered, device="cpu",
                     spec_decode=True)
-    with pytest.raises(NotImplementedError):
-        ServingLoop(cfg, loop.engine.params, loop.engine.tiered, device="cpu",
-                    kv_layout="slots")
+    slots = ServingLoop(cfg, loop.engine.params, loop.engine.tiered, device="cpu",
+                        kv_layout="slots")
+    assert slots.kv.cache["stack"]["slot0"]["k"].device.type == "cpu"
 
 
 def test_serve_driver_runs_on_cpu(capsys):
     assert tserve.main(["--arch", ARCH, "--smoke", "--requests", "4", "--batch", "2",
                         "--groups", "1", "--new-tokens", "4", "--device", "cpu"]) == 16
     assert "4/4 requests" in capsys.readouterr().out
+
+
+def test_serve_no_buckets_runs_exact_length_prefill(capsys):
+    """`--no-buckets` maps to bucket_table=None, as in the reference's
+    `launch/serve.py`: the loop still streams prompts in chunks, each
+    chunk exactly as wide as its tokens."""
+    assert tserve.main(["--arch", ARCH, "--smoke", "--requests", "4", "--batch", "2",
+                        "--groups", "1", "--new-tokens", "4", "--device", "cpu",
+                        "--no-buckets"]) == 16
+    out = capsys.readouterr().out
+    assert "4/4 requests" in out and "buckets=off" in out
