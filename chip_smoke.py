@@ -11,8 +11,10 @@ Phases, each fatal on failure:
      bf16 moe_gemm, flash_attention, paged GQA and paged MLA kernels
      must have HGMMA (wgmma), the expert GEMV HMMA (mma.sync);
   2. hold each kernel against its plain PyTorch version at its path's
-     shapes, in bf16 and fp32, and time kernel / plain / library on the
-     device (CUDA-graph replay), plus the kernel's eager call;
+     shapes (a speculative verify chunk's included: rows shorter than the
+     chunk, only their real tokens compared), in bf16 and fp32, and time
+     kernel / plain / library on the device (CUDA-graph replay), plus the
+     kernel's eager call;
   3. drive flash attention's entry point `mha` with the launch counters
      reset just before;
   4. serve granite-moe-1b-a400m (GQA) at full width and depth, then
@@ -24,10 +26,17 @@ Phases, each fatal on failure:
      served in the default mode (paged KV, chunked prefill) and with
      whole-suffix admission prefill, each over the contiguous
      `kv_layout="slots"` cache and over paged KV with
-     `chunked_prefill=False` (those modes must run no prefill chunk);
+     `chunked_prefill=False` (those modes must run no prefill chunk),
+     and with speculative decode (`spec_decode=True`: a recorded wave,
+     then its replay, which must accept drafts and verify chunks wider
+     than 1; its bf16 token agreement with the default mode is reported),
+     and granite at fp32, whose spec tokens must equal its plain tokens;
   5. serve each smoke-size model at fp32 on the card (kernels) and on the
      CPU (plain versions) from the same weights, in each of those modes:
-     tokens must agree.
+     tokens must agree, and speculative serving (a wave and its replay)
+     must give the default mode's tokens and accept drafts; replay a
+     skewed, bursty request trace (`replay_requests`) on both: it must
+     drain with equal tokens.
 Prints one JSON line per phase (each with its seconds), the `kernels`
 JSON line, the card's name and power limit, and last the `ok` JSON line.
 Imports nothing of JAX: the machine with the card has none.
@@ -67,6 +76,7 @@ from repro_torch.kernels.paged_attention import (  # noqa: E402
 )
 from repro_torch.kernels.paged_attention.kernel import _launch as gqa_launch  # noqa: E402
 from repro_torch.kernels.paged_attention.kernel import _launch_mla as mla_launch  # noqa: E402
+from repro_torch.core.traces import synth_request_trace  # noqa: E402
 from repro_torch.models.model import init_params  # noqa: E402
 from repro_torch.serving.batching import Request  # noqa: E402
 from repro_torch.serving.engine import (  # noqa: E402
@@ -75,6 +85,7 @@ from repro_torch.serving.engine import (  # noqa: E402
 )
 from repro_torch.serving.loop import ServingLoop  # noqa: E402
 from repro_torch.serving.paged_kv import PagedStats  # noqa: E402
+from repro_torch.serving.replay import replay_requests  # noqa: E402
 
 HBM_BPS = 3.35e12  # H100 SXM HBM3 bytes/s (NVIDIA data sheet)
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense, no TF32
@@ -187,12 +198,19 @@ L2_BYTES = 50 * 2 ** 20  # H100 SXM L2 cache
 MAX_SETS = 32  # input sets cycled through by the timed graph
 
 
-def attention_case(dtype, *, b, c, nb, past, dev, gen):
+def _real(lens, c, dev):
+    """Each row's real chunk tokens [B, C] (a verify chunk's rows have
+    fewer than C); only these are compared and counted in the bound."""
+    return torch.arange(c, device=dev)[None, :] < torch.tensor(lens, device=dev)[:, None]
+
+
+def attention_case(dtype, *, b, c, nb, past, dev, gen, lens=None):
     """Random pools and tables at the serving shapes: Kv=8, G=2, hd=64,
-    bs=4, each row's blocks a random permutation of the pool. Library:
-    SDPA over the linearized, head-expanded K/V with the position mask.
-    bf16 is held to `gqa_rounding_bound`; a table of enough key tiles to
-    split over is also timed with one split (`unsplit`)."""
+    bs=4, each row's blocks a random permutation of the pool; `lens` the
+    rows' real chunk tokens (default all C). Library: SDPA over the
+    linearized, head-expanded K/V with the position mask. bf16 is held
+    to `gqa_rounding_bound`; a table of enough key tiles to split over is
+    also timed with one split (`unsplit`)."""
     kv, g, hd, bs = 8, 2, 64, 4
     n_blocks = max(8 * 18, b * nb)  # batch 8 x ceil(72 / 4) blocks per slot
     perm = torch.randperm(n_blocks, generator=gen, device="cpu")[: b * nb]
@@ -200,21 +218,24 @@ def attention_case(dtype, *, b, c, nb, past, dev, gen):
     q = torch.randn(b, c, kv, g, hd, generator=gen).to(dev, dtype)
     pool_k = torch.randn(n_blocks + 1, bs, kv, hd, generator=gen).to(dev, dtype)
     pool_v = torch.randn(n_blocks + 1, bs, kv, hd, generator=gen).to(dev, dtype)
+    lens = lens or [c] * b
     past_len = torch.tensor(past, dtype=torch.int32, device=dev)
-    lengths = torch.full((b,), c, dtype=torch.int32, device=dev)
+    lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
     args = (q, pool_k, pool_v, tables, past_len, lengths)
     keys = linearize_blocks(pool_k, tables).repeat_interleave(g, dim=2).transpose(1, 2)
     vals = linearize_blocks(pool_v, tables).repeat_interleave(g, dim=2).transpose(1, 2)
     qh = q.reshape(b, c, kv * g, hd).transpose(1, 2)
     qpos = past_len[:, None] + torch.arange(c, device=dev)[None, :]
     mask = (torch.arange(keys.shape[2], device=dev)[None, None, :] <= qpos[:, :, None])[:, None]
-    # least work: each walked key block read once per row, q read, out written
+    # least work: each walked key block read once per row, the real
+    # tokens' q read and out written
     isz = q.element_size()
-    walked = sum(min(nb, (p + c - 1) // 4 + 1) * 4 for p in past)
-    nbytes = 2 * q.numel() * isz + 2 * walked * kv * hd * isz + tables.numel() * 4
-    visible = sum(sum(p + i + 1 for i in range(c)) for p in past)
+    walked = sum(min(nb, (p + n - 1) // 4 + 1) * 4 for p, n in zip(past, lens))
+    nbytes = 2 * sum(lens) * kv * g * hd * isz + 2 * walked * kv * hd * isz + tables.numel() * 4
+    visible = sum(sum(p + i + 1 for i in range(n)) for p, n in zip(past, lens))
     bf16 = dtype == torch.bfloat16
     return dict(
+        real=_real(lens, c, dev),
         args=args, lib_args=(qh, keys, vals, mask),
         kernel=lambda *a: paged_prefill_gqa(*a, backend="cuda"),
         plain=lambda *a: paged_prefill_gqa(*a, backend="ref"),
@@ -289,7 +310,7 @@ def gemv_case(dtype, *, n_slots, t, dev, gen, d=1024, f=512, live=None, calls=32
     )
 
 
-def mla_case(dtype, *, b, c, past, dev, gen, nb=18):
+def mla_case(dtype, *, b, c, past, dev, gen, nb=18, lens=None):
     """Absorbed MLA at deepseek-v2's widths (H=128, r=512, rd=64, scale
     192^-0.5) over 4-token blocks, `nb` per row (18: cache_len 72, as
     served): fp32 queries, latent pools in `dtype`. The math is fp32 on
@@ -299,7 +320,8 @@ def mla_case(dtype, *, b, c, past, dev, gen, nb=18):
     [ckv | krope] broadcast to the heads, values ckv, with the position
     mask. Bound: bytes, or the fp32-exact operations (bf16: twice the
     fp32 count, the least split the tensor cores need, at 989 TFLOP/s;
-    fp32: at 67). A table of enough key tiles to split over is also
+    fp32: at 67). `lens`: the rows' real chunk tokens, as in
+    `attention_case`. A table of enough key tiles to split over is also
     timed with one split (`unsplit`)."""
     h, r, rd, bs = 128, 512, 64, 4
     scale = (128 + 64) ** -0.5
@@ -310,8 +332,9 @@ def mla_case(dtype, *, b, c, past, dev, gen, nb=18):
     q_rope = torch.randn(b, c, h, rd, generator=gen).to(dev)
     pool_ckv = torch.randn(n_blocks + 1, bs, r, generator=gen).to(dev, dtype)
     pool_krope = torch.randn(n_blocks + 1, bs, rd, generator=gen).to(dev, dtype)
+    lens = lens or [c] * b
     past_len = torch.tensor(past, dtype=torch.int32, device=dev)
-    lengths = torch.full((b,), c, dtype=torch.int32, device=dev)
+    lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
     args = (q_lat, q_rope, pool_ckv, pool_krope, tables, past_len, lengths)
     ckv = linearize_blocks(pool_ckv, tables).float()  # [B, S, r]
     keys = torch.cat([ckv, linearize_blocks(pool_krope, tables).float()], -1)
@@ -321,14 +344,16 @@ def mla_case(dtype, *, b, c, past, dev, gen, nb=18):
     vh = ckv[:, None].expand(b, h, n_keys, r)
     qpos = past_len[:, None] + torch.arange(c, device=dev)[None, :]
     mask = (torch.arange(n_keys, device=dev)[None, None, :] <= qpos[:, :, None])[:, None]
-    # least work: walked latents read once per row, q read, o_lat written
-    walked = sum(min(nb, (p + c - 1) // bs + 1) * bs for p in past)
-    nbytes = ((2 * q_lat.numel() + q_rope.numel()) * 4
+    # least work: walked latents read once per row, the real tokens' q
+    # read and o_lat written
+    walked = sum(min(nb, (p + n - 1) // bs + 1) * bs for p, n in zip(past, lens))
+    nbytes = (sum(lens) * h * (2 * r + rd) * 4
               + walked * (r + rd) * pool_ckv.element_size() + tables.numel() * 4)
-    visible = sum(sum(p + i + 1 for i in range(c)) for p in past)
+    visible = sum(sum(p + i + 1 for i in range(n)) for p, n in zip(past, lens))
     flops = 2.0 * visible * h * (2 * r + rd)
     bf16 = dtype == torch.bfloat16
     return dict(
+        real=_real(lens, c, dev),
         args=args, lib_args=(qh, kh, vh, mask),
         kernel=lambda *a: paged_prefill_mla(*a, scale=scale, backend="cuda"),
         plain=lambda *a: paged_prefill_mla(*a, scale=scale, backend="ref"),
@@ -377,6 +402,11 @@ KERNEL_CASES = [  # (kernel, label, case, kwargs); the first per kernel is its J
     # decode over a long cache (4096 keys, 64 key tiles): the key splits
     # (and their combine) against one split; then the same table width
     # with short rows, where most splits find no key tile to walk
+    # a speculative verify chunk at the default k = 4 (the sampled token
+    # and up to 4 drafts, padded to a width of 8): rows of 5, 1, 3 and 8
+    # real tokens after pasts that are not block-aligned
+    ("paged_prefill_gqa", "verify B=4 C=8 nb=18", attention_case,
+     dict(b=4, c=8, nb=18, past=[41, 50, 63, 27], lens=[5, 1, 3, 8])),
     ("paged_prefill_gqa", "decode B=4 nb=1024 long rows", attention_case,
      dict(b=4, c=1, nb=1024, past=[3900, 4000, 4050, 4095])),
     ("paged_prefill_gqa", "decode B=4 nb=1024 short rows", attention_case,
@@ -413,6 +443,9 @@ KERNEL_CASES = [  # (kernel, label, case, kwargs); the first per kernel is its J
     # whole-suffix admission (chunked_prefill=False): a 64-token bucket
     ("paged_prefill_mla", "prefill B=4 C=64 H=128 r=512 nb=18", mla_case,
      dict(b=4, c=64, past=[0, 16, 0, 16])),
+    # a speculative verify chunk, as the GQA case
+    ("paged_prefill_mla", "verify B=4 C=8 H=128 r=512 nb=18", mla_case,
+     dict(b=4, c=8, past=[41, 50, 63, 27], lens=[5, 1, 3, 8])),
     # decode over a long cache (4096 keys, 64 key tiles): the key splits
     # (and their combine) against one split
     ("paged_prefill_mla", "decode B=4 H=128 r=512 nb=1024", mla_case,
@@ -437,11 +470,17 @@ def run_case(name, label, make, dtype, kw, dev, gen) -> dict:
     want = first["plain"](*first["args"])
     tol = first.get("tol")
     tol = tol() if callable(tol) else tol
+    real = first.get("real")
+    if real is not None:  # pad tokens' outputs are unspecified
+        got, want = got[real], want[real]
+        tol = tol[real] if isinstance(tol, torch.Tensor) else tol
     torch.cuda.synchronize()
     max_abs, max_rel, err_over_tol = compare(f"{name}/{label}", got, want, dtype, tol)
     variants = first.get("variants", {})
     for vname, fn in variants.items():  # held to the same tolerance
-        compare(f"{name}/{label}/{vname}", fn(*first["args"]), want, dtype, tol)
+        out = fn(*first["args"])
+        compare(f"{name}/{label}/{vname}", out if real is None else out[real], want, dtype,
+                tol)
     del got, want, tol
     args = [s["args"] for s in sets]
     b_ms, b_by = first["bound"]
@@ -520,7 +559,9 @@ def mha_entry(dev) -> dict:
 
 
 # serving modes beside the default (paged KV, chunked prefill): loop kwargs
-MODES = {"slots": dict(kv_layout="slots"), "nochunk": dict(chunked_prefill=False)}
+MODES = {"slots": dict(kv_layout="slots"), "nochunk": dict(chunked_prefill=False),
+         "spec": dict(spec_decode=True)}
+WHOLE_SUFFIX = ("slots", "nochunk")  # modes that admit with no prefill chunk
 # (arch, depth cut, mode, kernels that must launch, kernels that must not)
 SERVES = [
     (GQA_ARCH, None, None, ("paged_prefill_gqa", "moe_gemm", "expert_ffn_gemv"),
@@ -535,14 +576,42 @@ SERVES = [
      ("paged_prefill_gqa",)),
     (MLA_ARCH, MLA_LAYERS, "slots", ("moe_gemm", "expert_ffn_gemv"),
      ("paged_prefill_mla", "paged_prefill_gqa")),
+    (GQA_ARCH, None, "spec", ("paged_prefill_gqa", "moe_gemm", "expert_ffn_gemv"),
+     ("paged_prefill_mla",)),
+    (MLA_ARCH, MLA_LAYERS, "spec", ("paged_prefill_mla", "moe_gemm", "expert_ffn_gemv"),
+     ("paged_prefill_gqa",)),
 ]
 
 
-def serve_full(dev, arch: str, n_layers, mode, expect, forbid, profile_out=None) -> dict:
+def serve_wave(loop, reqs) -> list:
+    """Submit `reqs`, run the loop to the end; this wave's completions in
+    submission order."""
+    n_before = len(loop.completions)
+    for r in reqs:
+        loop.submit(r)
+    by_rid = {r.rid: r for r in loop.run()[n_before:]}
+    return [by_rid[r.rid] for r in reqs if r.rid in by_rid]
+
+
+def replayed(reqs, rid_base: int) -> list:
+    """The same prompts and budgets under fresh rids: a replayed wave."""
+    return [Request(rid=rid_base + i, prompt=r.prompt, max_new_tokens=r.max_new_tokens)
+            for i, r in enumerate(reqs)]
+
+
+def serve_full(dev, arch: str, n_layers, mode, expect, forbid, profile_out=None,
+               plain_tokens=None) -> dict:
     """Serve `arch` at its published widths (depth cut to `n_layers`
     where given) through ServingLoop in `mode` (None: the defaults; else
-    a key of MODES, whose admissions must run no prefill chunk); the
-    kernels in `expect` must launch and those in `forbid` must not."""
+    a key of MODES; the whole-suffix modes must run no prefill chunk);
+    the kernels in `expect` must launch and those in `forbid` must not.
+    In spec mode the measured requests are first served once, which
+    indexes their continuations in the radix tree as their slots free;
+    the measured wave then replays the same prompts (fresh rids), as the
+    reference's `serving_bench --spec` does, and must accept drafts and
+    verify a chunk wider than 1. Its tokens are compared with
+    `plain_tokens` (the default mode's, same weights and prompts): at
+    bf16 they may differ, so the agreement is reported, not held."""
     t_phase = time.time()
     path = arch if mode is None else f"{arch}/{mode}"
     cfg = get_config(arch)
@@ -569,11 +638,15 @@ def serve_full(dev, arch: str, n_layers, mode, expect, forbid, profile_out=None)
     if loop.paged:
         loop.kv.stats = PagedStats()
     reqs = make_traffic(cfg.vocab_size, 12, seed=1)
-    n_before = len(loop.completions)
+    recorded = None
+    if mode == "spec":  # the recorded wave; then every metric starts at 0 again
+        recorded = [list(r.generated) for r in serve_wave(loop, reqs)]
+        loop.obs.registry.reset()
+        loop.kv.stats = PagedStats()
+        loop.engine.verify_widths.clear()
+        reqs = replayed(reqs, 100)
     reset_counters()
-    for r in reqs:
-        loop.submit(r)
-    done = loop.run()[n_before:]
+    done = serve_wave(loop, reqs)
     launches = read_counters()
     if len(done) != len(reqs) or any(len(r.generated) != 16 for r in done):
         fail(f"{arch}: served {len(done)}/{len(reqs)} requests completely")
@@ -587,8 +660,26 @@ def serve_full(dev, arch: str, n_layers, mode, expect, forbid, profile_out=None)
         if launches[name] != 0:
             fail(f"{path}: kernel {name} launched {launches[name]} times off its path")
     st, eng = loop.stats, loop.engine
-    if mode is not None and st.prefill_chunks != 0:
+    if mode in WHOLE_SUFFIX and st.prefill_chunks != 0:
         fail(f"{path}: {st.prefill_chunks} prefill chunks in a whole-suffix admission mode")
+    extra = {}
+    if mode == "spec":
+        extra = dict(spec_steps=st.spec_steps, spec_drafted_tokens=st.spec_drafted_tokens,
+                     spec_accepted_tokens=st.spec_accepted_tokens,
+                     spec_acceptance_rate=st.spec_acceptance_rate,
+                     verify_widths=sorted(eng.verify_widths))
+        if st.spec_accepted_tokens == 0:
+            fail(f"{path}: the replayed wave accepted no draft token")
+        if max(eng.verify_widths) <= 1:
+            fail(f"{path}: no verify chunk was wider than 1")
+        # bf16 agreement, reported: with the recorded wave (what the radix
+        # drafts from) and with the default mode's tokens
+        for name, ref in (("recorded", recorded), ("default", plain_tokens)):
+            if ref is not None:
+                extra[f"tokens_equal_to_{name}"] = sum(
+                    a == b for r, p in zip(done, ref) for a, b in zip(r.generated, p))
+                extra[f"first_tokens_equal_to_{name}"] = sum(
+                    r.generated[0] == p[0] for r, p in zip(done, ref))
     out = dict(
         phase="serve", path=path, arch=arch, mode=mode or "default", dtype=cfg.param_dtype,
         layers=cfg.n_layers,
@@ -599,10 +690,11 @@ def serve_full(dev, arch: str, n_layers, mode, expect, forbid, profile_out=None)
         prefill_rows=eng.stats.prefills,
         prefix_hit_rate=loop.kv.stats.hit_rate if loop.paged else None,
         tier_sizes=list(eng.sizes), setup_s=setup_s, setup_peak_mem_gb=setup_peak_gb,
-        peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 1e9, launches=launches,
+        peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 1e9, launches=launches, **extra,
         seconds=time.time() - t_phase,
     )
     print(json.dumps(out), flush=True)
+    out["tokens"] = [list(r.generated) for r in done]
     if profile_out:
         p = Path(profile_out)
         name = path.replace("/", "-")
@@ -610,13 +702,53 @@ def serve_full(dev, arch: str, n_layers, mode, expect, forbid, profile_out=None)
     return out
 
 
+def spec_fp32_full(dev) -> None:
+    """granite-moe-1b-a400m at full width and depth in fp32: the measured
+    requests served plainly, then speculatively (recorded, then replayed
+    under fresh rids). At fp32 a verify chunk's rounding does not flip a
+    greedy token, so both spec waves must give the plain tokens and the
+    replay must accept drafts: the wide verify path holds at full width,
+    where the bf16 spec path's agreement is only reported."""
+    t0 = time.time()
+    cfg = dataclasses.replace(get_config(GQA_ARCH), param_dtype="float32",
+                              compute_dtype="float32")
+    params = init_params(0, cfg, device=dev)
+    kw = dict(batch_size=8, n_groups=2, cache_len=72, block_size=4, prefill_chunk_tokens=32,
+              device=dev)
+    plain = [r.generated for r in serve_wave(ServingLoop(cfg, params, **kw),
+                                             make_traffic(cfg.vocab_size, 12, seed=1))]
+    loop = ServingLoop(cfg, params, spec_decode=True, **kw)
+    reqs = make_traffic(cfg.vocab_size, 12, seed=1)
+    recorded = [r.generated for r in serve_wave(loop, reqs)]
+    loop.obs.registry.reset()
+    loop.engine.verify_widths.clear()
+    replay = [r.generated for r in serve_wave(loop, replayed(reqs, 100))]
+    st = loop.stats
+    if recorded != plain or replay != plain:
+        fail(f"{GQA_ARCH} fp32 full width: spec tokens differ from plain tokens")
+    if st.spec_accepted_tokens == 0 or max(loop.engine.verify_widths) <= 1:
+        fail(f"{GQA_ARCH} fp32 full width: the replay accepted no draft or verified no "
+             f"chunk wider than 1")
+    print(json.dumps(dict(phase="spec_fp32_full", arch=GQA_ARCH, layers=cfg.n_layers,
+                          d_model=cfg.d_model, requests=len(plain), identical_to_plain=True,
+                          spec_drafted_tokens=st.spec_drafted_tokens,
+                          spec_accepted_tokens=st.spec_accepted_tokens,
+                          spec_acceptance_rate=st.spec_acceptance_rate,
+                          verify_widths=sorted(loop.engine.verify_widths),
+                          decode_steps=st.decode_steps, seconds=time.time() - t0)), flush=True)
+
+
 def profile_serving(loop, cfg, path: str, out: Path) -> None:
-    """torch.profiler window over a second wave of traffic: device time
-    by kernel name (the full table is written to `out`)."""
+    """torch.profiler window over a second wave of traffic (a spec loop:
+    served once unprofiled, then replayed under the profiler): device
+    time by kernel name (the full table is written to `out`)."""
     from torch.profiler import ProfilerActivity, profile
 
     t_phase = time.time()
     reqs = make_traffic(cfg.vocab_size, 8, seed=2)
+    if loop.spec:
+        serve_wave(loop, reqs)
+        reqs = replayed(reqs, 200)
     for r in reqs:
         loop.submit(r)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -635,33 +767,77 @@ def profile_serving(loop, cfg, path: str, out: Path) -> None:
     print(table[:6000], flush=True)
 
 
-def serve_smoke_parity(dev, arch: str, mode=None) -> None:
-    """fp32 smoke `arch` served in `mode` (None: the defaults; else a key
-    of MODES): the kernels on the card against the plain versions on the
-    CPU, same weights and tier state -> same tokens."""
-    t0 = time.time()
+def smoke_setup(arch: str):
+    """fp32 smoke config of `arch`, its params and tier state on the CPU."""
     cfg = reduce_for_smoke(get_config(arch))
     cfg = dataclasses.replace(cfg, param_dtype="float32", compute_dtype="float32")
     params = init_params(0, cfg, device="cpu")
     gen = torch.Generator().manual_seed(1)
-    tiered = fill_tiers_from_params(params, init_tiered_for_model(gen, cfg), cfg)
+    return cfg, params, fill_tiers_from_params(params, init_tiered_for_model(gen, cfg), cfg)
 
-    def to(tree, d):
-        return {k: to(v, d) for k, v in tree.items()} if isinstance(tree, dict) else tree.to(d)
 
-    got = {}
+def _to(tree, d):
+    return {k: _to(v, d) for k, v in tree.items()} if isinstance(tree, dict) else tree.to(d)
+
+
+def serve_smoke_parity(dev, arch: str, mode=None, plain=None) -> dict:
+    """fp32 smoke `arch` served in `mode` (None: the defaults; else a key
+    of MODES): the kernels on the card against the plain versions on the
+    CPU, same weights and tier state -> same tokens. In spec mode a wave
+    is served and then replayed (fresh rids), each wave's tokens must
+    equal `plain` (the default mode's) and the replay must accept
+    drafts. Returns the card's tokens by rid."""
+    t0 = time.time()
+    cfg, params, tiered = smoke_setup(arch)
+    got, accepted = {}, {}
     for d in (dev, torch.device("cpu")):
-        loop = ServingLoop(cfg, to(params, d), to(tiered, d), batch_size=4, n_groups=2,
+        loop = ServingLoop(cfg, _to(params, d), _to(tiered, d), batch_size=4, n_groups=2,
                            cache_len=64, prefill_chunk_tokens=8, device=d,
                            **MODES.get(mode, {}))
-        for r in make_traffic(cfg.vocab_size, 6, seed=3, new_tokens=8):
-            loop.submit(r)
-        got[d.type] = {r.rid: r.generated for r in loop.run()}
+        reqs = make_traffic(cfg.vocab_size, 6, seed=3, new_tokens=8)
+        waves = [reqs, replayed(reqs, 100)] if mode == "spec" else [reqs]
+        got[d.type] = {r.rid: list(r.generated) for w in waves for r in serve_wave(loop, w)}
+        accepted[d.type] = loop.stats.spec_accepted_tokens
     if got["cuda"] != got["cpu"]:
         fail(f"{arch} ({mode or 'default'}) fp32 smoke serving: card tokens {got['cuda']} "
              f"!= CPU tokens {got['cpu']}")
+    extra = {}
+    if mode == "spec":
+        want = {rid + off: toks for rid, toks in plain.items() for off in (0, 100)}
+        if got["cuda"] != want:
+            fail(f"{arch} fp32 smoke: spec tokens {got['cuda']} != plain tokens {want}")
+        if min(accepted.values()) == 0:
+            fail(f"{arch} fp32 smoke: the replayed spec wave accepted no draft ({accepted})")
+        extra = dict(identical_to_plain=True, spec_accepted_tokens=accepted["cuda"])
     print(json.dumps(dict(phase="smoke_parity", arch=arch, mode=mode or "default",
-                          requests=len(got["cpu"]), identical_tokens=True,
+                          requests=len(got["cpu"]), identical_tokens=True, **extra,
+                          seconds=time.time() - t0)), flush=True)
+    return got["cuda"]
+
+
+def replay_parity(dev, arch: str) -> None:
+    """`replay_requests` of a skewed trace (Zipf prompts, 2 phases with a
+    re-permuted vocabulary, bursts of 3 every 2 iterations) through the
+    fp32 smoke `arch`: the trace drains, and the card's tokens and
+    iteration count equal the CPU's."""
+    t0 = time.time()
+    cfg, params, tiered = smoke_setup(arch)
+    trace = synth_request_trace(9, cfg.vocab_size, prompt_len=12, prompt_len_jitter=4,
+                                new_tokens=8, n_phases=2, burst=3, gap_steps=2, seed=7)
+    res = {}
+    for d in (dev, torch.device("cpu")):
+        loop = ServingLoop(cfg, _to(params, d), _to(tiered, d), batch_size=4, n_groups=2,
+                           cache_len=32, prefill_chunk_tokens=8, device=d)
+        res[d.type] = replay_requests(loop, trace)
+    got, want = res["cuda"], res["cpu"]
+    if len(got.completions) != len(trace) or any(
+            len(r.generated) != 8 for r in got.completions):
+        fail(f"{arch} replay: {len(got.completions)}/{len(trace)} requests completed")
+    if got.tokens() != want.tokens() or got.iterations != want.iterations:
+        fail(f"{arch} replay: card tokens / iterations {got.tokens()} / {got.iterations} != "
+             f"CPU's {want.tokens()} / {want.iterations}")
+    print(json.dumps(dict(phase="replay_parity", arch=arch, requests=len(trace),
+                          iterations=got.iterations, identical_tokens=True,
                           seconds=time.time() - t0)), flush=True)
 
 
@@ -706,12 +882,19 @@ def main(argv=None) -> int:
     paths = [mha_entry(dev)]
     for arch, n_layers, mode, expect, forbid in SERVES:
         paths.append(serve_full(dev, arch, n_layers, mode, expect, forbid,
-                                profile_out=args.profile_out if args.profile else None))
+                                profile_out=args.profile_out if args.profile else None,
+                                plain_tokens=next((p["tokens"] for p in paths
+                                                   if p["path"] == arch), None)))
         gc.collect()
         torch.cuda.empty_cache()  # the loop's weights and tiers, before the next one
-    for mode in (None, *MODES):
-        for arch in (GQA_ARCH, MLA_ARCH):
-            serve_smoke_parity(dev, arch, mode)
+    spec_fp32_full(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    for arch in (GQA_ARCH, MLA_ARCH):
+        plain = serve_smoke_parity(dev, arch)
+        for mode in MODES:
+            serve_smoke_parity(dev, arch, mode, plain)
+        replay_parity(dev, arch)
 
     by_path = {p["path"]: p["launches"] for p in paths}  # each after its own reset
     kernels = []

@@ -3,7 +3,7 @@ repro/models/model.py: `layer_signature` :41, `stack_plan` :58,
 `init_params` :107, `init_layer_cache` :147, `init_cache` :172, the
 attention and MoE branches of `apply_layer` :195, `_logits` :400,
 `prefill` :462, `decode_step` :565, `decode_step_paged` :640,
-`prefill_paged` :730).
+`prefill_paged` :730, `decode_verify` :824).
 
 Params keep the JAX tree layout: periodic layers are stacked under
 params["stack"]["slot<j>"] with the scan-group dim first. Where JAX
@@ -280,22 +280,29 @@ def _last_real(x: torch.Tensor, token_mask: torch.Tensor | None) -> torch.Tensor
     return x[torch.arange(x.shape[0], device=x.device), last][:, None]
 
 
-def _decode(params, cfg, tokens, cache, tables, pos, tiered, cold_capacity_frac,
-            token_mask):
-    """One decode step over either layout: (logits [B, V], counts [L, E])."""
-    x = embed(params["embed"], tokens)
-    positions = pos[:, None]
-    tmask = None if token_mask is None else token_mask.reshape(-1, 1)
+def _walk(params, cfg, x, positions, cache, tiered, cold_capacity_frac, **layer_kw):
+    """Every layer in execution order over `cache` (the paged pools or
+    the contiguous cache); `layer_kw` selects the mode as `apply_layer`
+    reads it. Returns (x, expert counts [n_layers, E]): one row per
+    layer, zeros for a layer without routed experts, as the reference
+    returns them."""
     e = cfg.moe.n_experts if cfg.moe is not None else 1
     no_moe = torch.zeros((e,), dtype=torch.int32, device=x.device)
     counts_all = []
     for sig, p, c, ts in _layers(params, cfg, cache, tiered):
-        x, counts = apply_layer(
-            cfg, sig, p, x, positions, cache=c, tables=tables, pos=pos,
-            token_mask=tmask, tiered_state=ts, cold_capacity_frac=cold_capacity_frac,
-        )
+        x, counts = apply_layer(cfg, sig, p, x, positions, cache=c, tiered_state=ts,
+                                cold_capacity_frac=cold_capacity_frac, **layer_kw)
         counts_all.append(no_moe if counts is None else counts)
-    return _logits(params, cfg, x)[:, 0], torch.stack(counts_all)
+    return x, torch.stack(counts_all)
+
+
+def _decode(params, cfg, tokens, cache, tables, pos, tiered, cold_capacity_frac,
+            token_mask):
+    """One decode step over either layout: (logits [B, V], counts [L, E])."""
+    tmask = None if token_mask is None else token_mask.reshape(-1, 1)
+    x, counts = _walk(params, cfg, embed(params["embed"], tokens), pos[:, None], cache,
+                      tiered, cold_capacity_frac, tables=tables, pos=pos, token_mask=tmask)
+    return _logits(params, cfg, x)[:, 0], counts
 
 
 def prefill(
@@ -317,13 +324,9 @@ def prefill(
     given. Returns (logits [B, V], cache)."""
     b, s = tokens.shape
     cache = init_cache(cfg, b, cache_len or s, device=tokens.device)
-    x = embed(params["embed"], tokens)
-    positions = torch.arange(s, dtype=torch.int32, device=x.device)[None, :]
-    for sig, p, c, ts in _layers(params, cfg, cache, tiered):
-        x, _ = apply_layer(
-            cfg, sig, p, x, positions, cache=c, token_mask=token_mask, tiered_state=ts,
-            cold_capacity_frac=cold_capacity_frac,
-        )
+    positions = torch.arange(s, dtype=torch.int32, device=tokens.device)[None, :]
+    x, _ = _walk(params, cfg, embed(params["embed"], tokens), positions, cache, tiered,
+                 cold_capacity_frac, token_mask=token_mask)
     return _logits(params, cfg, _last_real(x, token_mask))[:, 0], cache
 
 
@@ -367,6 +370,17 @@ def decode_step_paged(
     return logits, pools, counts
 
 
+def _chunk(params, cfg, tokens, pools, tables, past_len, token_mask, tiered,
+           cold_capacity_frac):
+    """One masked chunk at positions past_len + [0, S) against the paged
+    pools: (hidden states [W, S, D], expert counts [n_layers, E])."""
+    s = tokens.shape[1]
+    positions = (past_len[:, None]
+                 + torch.arange(s, dtype=torch.int32, device=tokens.device)[None, :])
+    return _walk(params, cfg, embed(params["embed"], tokens), positions, pools, tiered,
+                 cold_capacity_frac, tables=tables, past_len=past_len, token_mask=token_mask)
+
+
 def prefill_paged(
     params: Params,
     cfg: ModelConfig,
@@ -381,13 +395,31 @@ def prefill_paged(
     """Suffix-only masked prefill of one chunk against the paged cache
     (decode is the chunk-of-1 case of the same kernels). Returns
     (last_real_token_logits [W, V], pools written in place)."""
-    s = tokens.shape[1]
-    x = embed(params["embed"], tokens)
-    positions = past_len[:, None] + torch.arange(s, dtype=torch.int32, device=x.device)[None, :]
-    for sig, p, pl, ts in _layers(params, cfg, pools, tiered):
-        x, _ = apply_layer(
-            cfg, sig, p, x, positions, cache=pl, tables=tables, past_len=past_len,
-            token_mask=token_mask, tiered_state=ts, cold_capacity_frac=cold_capacity_frac,
-        )
+    x, _ = _chunk(params, cfg, tokens, pools, tables, past_len, token_mask, tiered,
+                  cold_capacity_frac)
     return _logits(params, cfg, _last_real(x, token_mask))[:, 0], pools
 
+
+def decode_verify(
+    params: Params,
+    cfg: ModelConfig,
+    tokens: torch.Tensor,  # [W, K] int
+    pools: Params,
+    tables: torch.Tensor,  # [W, nb] int32, sliced to the active width
+    past_len: torch.Tensor,  # [W] int32 committed tokens before the chunk
+    token_mask: torch.Tensor,  # [W, K] bool real chunk tokens
+    tiered: Params | None = None,
+    cold_capacity_frac: float = 0.25,
+):
+    """Speculative chunk-of-k verification against the paged cache: the
+    forward of `prefill_paged` over each row's [sampled token, draft_1..]
+    chunk, keeping what prefill drops: the logits at EVERY chunk position
+    (the accept rule compares draft i with the argmax after position
+    i - 1) and the expert counts (a verify step feeds the tier scheduler
+    as the decode step it replaces does). A chunk of 1 is the decode
+    step: the same kernel launches, and on the CPU the same plain
+    functions on the same shapes. Returns (logits [W, K, V], pools
+    written in place, expert_counts [n_layers, E])."""
+    x, counts = _chunk(params, cfg, tokens, pools, tables, past_len, token_mask, tiered,
+                       cold_capacity_frac)
+    return _logits(params, cfg, x), pools, counts

@@ -12,6 +12,8 @@ from repro_torch.serving.paged_kv import (
     RadixPrefixIndex,
     init_paged_cache,
 )
+from repro_torch.serving.replay import ReplayResult, replay_requests, requests_from_trace
+from repro_torch.serving.spec_decode import DraftConfig, PromptLookupDrafter
 from repro_torch.serving.tiered_moe import (
     TierSizes,
     apply_migrations,
@@ -26,4 +28,6 @@ __all__ = [
     "cache_bytes", "LoopStats", "ServingLoop", "TierSizes",
     "apply_migrations", "init_tiered_state", "tier_sizes", "tiered_moe_forward",
     "PagedKVCache", "RadixPrefixIndex", "init_paged_cache",
+    "DraftConfig", "PromptLookupDrafter", "ReplayResult", "replay_requests",
+    "requests_from_trace",
 ]

@@ -2,9 +2,9 @@
 `init_tiered_for_model` :73, `fill_tiers_from_params` :93,
 `strip_expert_weights` :130, the constructor :176, `cache` :341, `step`
 :368, `step_slots` :378, `prefill_slots` :401, `step_slots_paged` :470,
-`prefill_slots_paged` :512, the table-width sets :312-316, and the
-planner `observe` / `plan_migrations` / `apply_planned` / `replan`
-:724-904).
+`prefill_slots_paged` :512, `verify_slots_paged` :586 with
+`verify_compiles` :668, the width sets :312-318, and the planner
+`observe` / `plan_migrations` / `apply_planned` / `replan` :724-904).
 
 Two KV layouts: the paged block pools (`PagedKVCache`: `step_slots_paged`,
 `prefill_slots_paged`) and the contiguous slot rows (`SlotKVCache`:
@@ -35,6 +35,7 @@ from repro_torch.models.layers import Params
 from repro_torch.models.model import (
     decode_step,
     decode_step_paged,
+    decode_verify,
     index_tree,
     layer_signature,
     prefill,
@@ -192,6 +193,9 @@ class TriMoEServingEngine:
         self.prefill_rows = prefill_rows
         self.decode_table_widths = set()  # distinct sliced widths (pow2)
         self.prefill_table_widths = set()  # paged prefill's sliced widths
+        self.verify_widths = set()  # spec verify's pow2 chunk widths
+        self.verify_table_widths = set()  # ... and its sliced table widths
+        self._verify_shapes = set()  # (chunk width, table width) pairs
         self._layer_keys = self._flatten_layer_keys()
         # host mirror of each layer's (expert_tier, expert_slot), seeded
         # lazily from the device; plan_migrations keeps it in lockstep
@@ -368,15 +372,7 @@ class TriMoEServingEngine:
             lens[:nr] = lengths[c0:c0 + nr]
             past[:nr] = past_len[c0:c0 + nr]
             tables[:nr] = self.kv.table_rows(slot_indices[c0:c0 + nr])[:, :tw]
-            if self.kv.sanitizer is not None:
-                bs = self.kv.block_size
-                bids, mask = [], []
-                for j in range(r):
-                    lo, hi = int(past[j]) // bs, -(-int(past[j] + lens[j]) // bs)
-                    span = tables[j, lo:hi] if j < nr else tables[j]
-                    bids.extend(span.tolist())
-                    mask.extend([j < nr] * len(span))
-                self.kv.sanitizer.check_scatter_targets(bids, mask)
+            self._check_chunk_writes(tables, past, lens, np.arange(r) < nr)
             token_mask = np.arange(width)[None, :] < lens[:, None]
             logits, _ = prefill_paged(
                 self.params, self.cfg, self._dev(toks), self.kv.pools,
@@ -387,6 +383,78 @@ class TriMoEServingEngine:
             self.stats.prefills += nr
             self.stats.prefill_tokens += int(lens.sum())
         return out[0] if len(out) == 1 else torch.cat(out)
+
+    def _check_chunk_writes(self, tables, past, lens, real) -> None:
+        """Sanitizer hook of a chunk call: each real row writes the span
+        [past, past + len) of its table, whose blocks must be private; a
+        pad or dead row's table must be all trash."""
+        if self.kv.sanitizer is None:
+            return
+        bs = self.kv.block_size
+        bids, mask = [], []
+        for j in range(len(tables)):
+            lo, hi = int(past[j]) // bs, -(-int(past[j] + lens[j]) // bs)
+            span = tables[j, lo:hi] if real[j] else tables[j]
+            bids.extend(span.tolist())
+            mask.extend([bool(real[j])] * len(span))
+        self.kv.sanitizer.check_scatter_targets(bids, mask)
+
+    def verify_slots_paged(self, chunks, slot_indices, lengths, past_len, live=None):
+        """Speculative chunk-of-k verification of the active zigzag group
+        against the paged pools.
+
+        chunks [W, K] int32 each row's [sampled token, draft_1..] chunk,
+        right-padded; lengths [W] real chunk tokens (a row with no drafts
+        verifies a chunk of 1: exactly its decode step); past_len [W] the
+        rows' committed lengths before the chunk. The caller has
+        `ensure_block`'d every chunk position; rejected positions are
+        rolled back afterwards (PagedKVCache.truncate). The chunk pads to
+        a pow2 width and the tables slice to the pow2 active width, as
+        decode and prefill do; dead rows get zero length and past and
+        all-trash tables, so all their writes land in the trash block.
+
+        Returns (logits [W, Kp, V], expert_counts [n_layers, E]): position
+        i's logits condition on chunk tokens 0..i and the cached prefix."""
+        chunks = np.asarray(chunks, np.int32)
+        lengths = np.asarray(lengths, np.int32)
+        past_len = np.asarray(past_len, np.int32)
+        n, width = chunks.shape
+        assert len(slot_indices) == n
+        live = np.ones((n,), bool) if live is None else np.asarray(live, bool)
+        assert np.all(lengths[live] > 0) and np.all(lengths <= width)
+        kw = 1
+        while kw < width:
+            kw *= 2
+        toks = np.zeros((n, kw), np.int32)
+        toks[:, :width] = chunks
+        lens = np.where(live, lengths, 0).astype(np.int32)
+        past = np.where(live, past_len, 0).astype(np.int32)
+        end = int((past + lens).max()) if live.any() else 1
+        tw = active_block_width(end - 1, self.kv.block_size, max(1, self.kv.blocks_per_slot))
+        self.verify_widths.add(kw)
+        self.verify_table_widths.add(tw)
+        self._verify_shapes.add((kw, tw))
+        tables = np.full((n, tw), self.kv.trash, np.int32)
+        tables[live] = self.kv.table_rows(slot_indices)[:, :tw][live]
+        self._check_chunk_writes(tables, past, lens, live)
+        token_mask = np.arange(kw)[None, :] < lens[:, None]
+        # the port's pools hold attention K/V only (no per-slot recurrent
+        # state, `check_supported`), so there is no slot state to scatter
+        logits, _, counts = decode_verify(
+            self.params, self.cfg, self._dev(toks), self.kv.pools, self._dev(tables),
+            self._dev(past), self._dev(token_mask, torch.bool), tiered=self.tiered,
+            cold_capacity_frac=self.cold_capacity_frac,
+        )
+        self.stats.steps += 1
+        return logits, counts
+
+    @property
+    def verify_compiles(self) -> int:
+        """Distinct (pow2 chunk width, table width) shapes the verify ran
+        at. The port has no jit, so this is the reference's own fallback
+        count (`len(_verify_shapes)`), the number of compiles the JAX
+        engine would make for the same traffic."""
+        return len(self._verify_shapes)
 
     # ---------------------------------------------------------- migration
     def _tier_costs(self, loads: np.ndarray) -> np.ndarray:

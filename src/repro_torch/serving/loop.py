@@ -1,10 +1,12 @@
 """Continuous-batching TriMoE serving loop (port of
 repro/serving/loop.py:211, `ServingLoop`; `_free_slots` :441,
-`_admit_inner` :468, `step_once` :670, `_default_sizes` :888).
+`_admit_inner` :468, `step_once` :670, `_spec_step` :744,
+`_default_sizes` :888).
 
   ServingLoop
     ├─ ZigzagBatcher       — request queue, slot allocation, group rotation
     ├─ PagedKVCache        — block pools + tables + radix prefix index
+    ├─ PromptLookupDrafter — speculative drafts (spec_decode=True)
     │  (or SlotKVCache     — contiguous ring-buffer rows, kv_layout="slots")
     └─ TriMoEServingEngine — decode / prefill / migration
 
@@ -35,6 +37,7 @@ from repro_torch.serving.engine import (
 )
 from repro_torch.serving.kv_cache import SlotKVCache
 from repro_torch.serving.paged_kv import PagedKVCache, prefix_cacheable
+from repro_torch.serving.spec_decode import DraftConfig, PromptLookupDrafter
 from repro_torch.serving.tiered_moe import TierSizes, tier_sizes
 
 
@@ -63,6 +66,12 @@ class LoopStats(RegistryStats):
         "generated_tokens": (
             "tokens", "sampled tokens (prefill firsts + decode)"),
         "util_samples": ("samples", "slot-utilization samples taken"),
+        # --- speculative decode (serving/spec_decode.py)
+        "spec_steps": ("steps", "decode steps that verified >= 1 draft"),
+        "spec_drafted_tokens": (
+            "tokens", "draft tokens proposed for verification"),
+        "spec_accepted_tokens": (
+            "tokens", "draft tokens accepted by the verify chunk"),
         # --- scheduler observability (SchedulerPolicy surface)
         "replans": ("passes", "plan_migrations passes drawn by this loop"),
         "migrations": ("moves", "expert moves those passes emitted"),
@@ -95,6 +104,9 @@ class LoopStats(RegistryStats):
             ("serving.migrations_per_replan",
              lambda: self.migrations_per_replan, "",
              "expert moves per replan pass"),
+            ("serving.spec_acceptance_rate",
+             lambda: self.spec_acceptance_rate, "",
+             "accepted / proposed draft tokens"),
         ):
             self.registry.derived(name, fn, unit=unit, desc=desc,
                                   source="LoopStats")
@@ -106,6 +118,12 @@ class LoopStats(RegistryStats):
     @property
     def migrations_per_replan(self) -> float:
         return self.migrations / max(self.replans, 1)
+
+    @property
+    def spec_acceptance_rate(self) -> float:
+        """Fraction of proposed draft tokens the verify chunk accepted;
+        exactly 0.0 before any drafting (no division by zero)."""
+        return self.spec_accepted_tokens / max(self.spec_drafted_tokens, 1)
 
     @property
     def plan_p50_s(self) -> float:
@@ -155,6 +173,8 @@ class LoopStats(RegistryStats):
             f"itl_p95={self.itl_p95_s * 1e3:.0f}ms, "
             f"decode_steps={self.decode_steps} idle_steps={self.idle_steps} "
             f"prefill_chunks={self.prefill_chunks}, "
+            f"spec_acc={self.spec_acceptance_rate:.2f} "
+            f"({self.spec_accepted_tokens}/{self.spec_drafted_tokens}), "
             f"replans={self.replans} "
             f"migrations={self.migrations} "
             f"({self.migrations_per_replan:.1f}/replan) "
@@ -194,10 +214,21 @@ class ServingLoop:
     same-bucket admissions padded to the bucket width in one masked
     prefill call, or, with `bucket_table=None`, exact-length rows.
 
+    Speculative decode (`spec_decode=True`, serving/spec_decode.py):
+    each decode step drafts up to `spec_config.k` tokens per live slot
+    (prompt lookup: the radix prefix index first, the slot's own suffix
+    n-grams second; no draft model, no RNG) and verifies the chunks
+    [sampled token, drafts...] of the group in ONE
+    `engine.verify_slots_paged` call through the same paged kernels. The
+    greedy accept-prefix rule commits every draft that matches the
+    verify argmax plus one bonus token; rejected tails roll back through
+    `PagedKVCache.truncate`. At fp32 the token streams equal plain
+    serving's (a chunk of 1 is the decode step); it needs the paged
+    layout and an attention-only arch.
+
     Runs on the card unless `device="cpu"` is passed (then every kernel
     wrapper runs its plain PyTorch version). The kernel backends are the
-    config's, resolved by the tensors' device. A later slice of the port
-    adds `spec_decode=True`; here it raises NotImplementedError.
+    config's, resolved by the tensors' device.
     """
 
     def __init__(
@@ -223,14 +254,13 @@ class ServingLoop:
         chunked_prefill: bool = True,
         prefill_chunk_tokens: Optional[int] = None,
         spec_decode: bool = False,
+        spec_config: Optional[DraftConfig] = None,
         scheduler: Optional[SchedulerPolicy] = None,
         obs=None,  # Observability | ObsConfig | None (repro_torch.obs)
         device=None,
     ):
         assert cfg.moe is not None, "ServingLoop drives the TriMoE MoE path"
         assert kv_layout in ("paged", "slots"), kv_layout
-        if spec_decode:
-            raise NotImplementedError("speculative decode is not ported yet")
         check_supported(cfg)
         self.device = resolve_device(device)
         if params["embed"]["table"].device != self.device:
@@ -283,6 +313,18 @@ class ServingLoop:
             prefill_chunk_tokens = 32
         assert prefill_chunk_tokens >= 1
         self.prefill_chunk_tokens = prefill_chunk_tokens
+        # verify and rollback go through the paged block pools, so spec
+        # decode has the gate of chunked prefill
+        self.spec = bool(spec_decode)
+        if self.spec:
+            assert self.paged and prefix_cacheable(cfg), (
+                "spec_decode requires kv_layout='paged' and an "
+                "attention-only arch (chunk-of-k verification and "
+                "rollback go through the paged block pools)"
+            )
+            self.drafter = PromptLookupDrafter(spec_config, radix=self.kv.radix)
+        else:
+            self.drafter = None
         self.stats = LoopStats(self.obs.registry)
         self.completions: List[Request] = []
         self._t_admit: Dict[int, float] = {}
@@ -314,6 +356,8 @@ class ServingLoop:
             return
         for i in freed:
             r = self._slot_req.pop(i, None)
+            if self.drafter is not None:
+                self.drafter.free_slot(i)
             # the FINAL sampled token was never fed back through decode,
             # so its K/V does not exist: index prompt + generated[:-1]
             toks = (
@@ -339,6 +383,8 @@ class ServingLoop:
                 # prefix, allocate fresh blocks for the uncached rest
                 past_len[i] = self.kv.admit_slot(i, r.prompt)
                 self._slot_req[i] = r
+                if self.drafter is not None:
+                    self.drafter.begin_slot(i, r.prompt)
             else:
                 self.kv.claim(i)
             self._t_admit[r.rid] = time.time()
@@ -359,7 +405,7 @@ class ServingLoop:
             for i in filled:  # exact-length path
                 r = self.batcher.slots[i].request
                 logits = self.engine.prefill_slots(r.prompt[None, :], [i])
-                self._record_first(r, int(torch.argmax(logits[0], -1)))
+                self._record_first(r, int(torch.argmax(logits[0], -1)), i)
             return
         # same-bucket admissions share one padded masked prefill; under
         # the paged layout rows are keyed by their UNCACHED suffix length
@@ -389,7 +435,7 @@ class ServingLoop:
                 logits = self.engine.prefill_slots(prompts, slots, lengths=lengths)
             firsts = torch.argmax(logits, -1).cpu().numpy()
             for row, i in enumerate(slots):
-                self._record_first(self.batcher.slots[i].request, int(firsts[row]))
+                self._record_first(self.batcher.slots[i].request, int(firsts[row]), i)
 
     def _prefill_step(self) -> None:
         """Run at most ONE budgeted chunk call of pending piggyback
@@ -437,14 +483,16 @@ class ServingLoop:
                     firsts = torch.argmax(logits, -1).cpu().numpy()
                 self.batcher.slots[t.slot].prefilling = False
                 self.kv.commit_prompt(t.slot, t.req.prompt)
-                self._record_first(t.req, int(firsts[row]))
+                self._record_first(t.req, int(firsts[row]), t.slot)
             else:
                 unfinished.append(t)
         # rows is a prefix of the task queue; rotate its survivors back
         self._prefill_tasks = self._prefill_tasks[len(rows):] + unfinished
 
-    def _record_first(self, r: Request, tok: int) -> None:
+    def _record_first(self, r: Request, tok: int, slot: int) -> None:
         r.generated.append(tok)
+        if self.drafter is not None:
+            self.drafter.extend(slot, [tok])
         self.stats.generated_tokens += 1
         now = time.time()
         t0 = self._t_submit.get(r.rid, self._t_admit.get(r.rid))
@@ -522,6 +570,10 @@ class ServingLoop:
                 self._flush_replan()
                 return
             _, idxs, toks, pos, live = gb
+            if self.spec:
+                with tr.span("decode"):
+                    self._spec_step(idxs, toks, pos, live)
+                return
             with tr.span("decode"):
                 if self.paged:
                     for row, i in enumerate(idxs):
@@ -550,6 +602,84 @@ class ServingLoop:
                 if prev is not None:
                     self.stats.itl_s.append(now - prev)
                 self._t_last_tok[rid] = now
+
+    def _spec_step(self, idxs, toks, pos, live) -> None:
+        """Speculative decode of one zigzag group: draft per slot, verify
+        every chunk in ONE chunk-of-k engine call, greedy accept-prefix,
+        roll back rejected tails.
+
+        A live row's chunk is [this step's input token, draft_1..]: the
+        argmax at position i is what sequential greedy decode would sample
+        after draft i, so comparing it with draft i + 1 and committing the
+        first mismatch position's argmax as the bonus token reproduces the
+        sequential stream token for token (a row with no drafts is the
+        chunk of 1, the plain decode step). Accepted positions keep the
+        K/V the verify scattered; rejected tails roll back through
+        `PagedKVCache.truncate`."""
+        st, tr = self.stats, self._tr
+        drafts: List[List[int]] = [[] for _ in idxs]
+        with tr.span("spec.draft", cat="spec"):
+            for row, i in enumerate(idxs):
+                if not live[row]:
+                    continue
+                r = self.batcher.slots[i].request
+                # the commit adds at most `remaining` tokens (accepted
+                # drafts + bonus), and every chunk position must fit the
+                # slot's block table
+                cap = min(r.max_new_tokens - len(r.generated) - 1,
+                          self.kv.seq_len - 1 - int(pos[row]))
+                if cap > 0:
+                    drafts[row] = self.drafter.draft(i, cap)
+        n_drafted = sum(len(d) for d in drafts)
+        width = 1 + max(len(d) for d in drafts)
+        chunk = np.zeros((len(idxs), width), np.int32)
+        lens = np.zeros((len(idxs),), np.int32)
+        for row, i in enumerate(idxs):
+            if not live[row]:
+                continue
+            row_toks = [int(toks[row, 0])] + drafts[row]
+            chunk[row, : len(row_toks)] = row_toks
+            lens[row] = len(row_toks)
+            for p in range(int(pos[row]), int(pos[row]) + len(row_toks)):
+                # on-demand alloc + copy-on-write for every chunk position
+                self.kv.ensure_block(i, p)
+        with tr.span("spec.verify", cat="spec"):
+            logits, counts = self.engine.verify_slots_paged(chunk, idxs, lens, pos, live=live)
+            # zigzag overlap, exactly as the plain decode step
+            self._flush_replan()
+            self._pending_counts = counts
+            nxt = torch.argmax(logits, -1).cpu().numpy()  # [W, Kp]
+        st.decode_steps += 1
+        if n_drafted:
+            st.spec_steps += 1
+            st.spec_drafted_tokens += n_drafted
+        now = time.time()
+        for row, i in enumerate(idxs):
+            if not live[row]:
+                continue
+            r = self.batcher.slots[i].request
+            d = drafts[row]
+            a = 0
+            while a < len(d) and int(nxt[row, a]) == d[a]:
+                a += 1
+            commit = d[:a] + [int(nxt[row, a])]
+            st.spec_accepted_tokens += a
+            # multi-token commit by hand (ZigzagBatcher.record takes one
+            # token), then the cache rolls back to the committed length:
+            # the bonus token's K/V does not exist yet, as after a step
+            r.generated.extend(commit)
+            self.batcher.slots[i].pos += len(commit)
+            self.kv.truncate(i, int(pos[row]) + len(commit))
+            self.drafter.extend(i, commit)
+            st.generated_tokens += len(commit)
+            prev = self._t_last_tok.get(r.rid)
+            if prev is not None:
+                # the step's gap spread over its committed tokens, so ITL
+                # percentiles stay comparable with plain decode
+                gap = (now - prev) / len(commit)
+                for _ in commit:
+                    st.itl_s.append(gap)
+            self._t_last_tok[r.rid] = now
 
     def finish(self) -> None:
         """Settle deferred scheduling work and recycle the final wave of

@@ -1,6 +1,6 @@
 """Paged KV cache with radix prefix reuse (port of repro/serving/paged_kv.py:
-`prefix_cacheable` :45, `init_paged_cache` :61, `RadixPrefixIndex` :113,
-`PagedKVCache` :260).
+`prefix_cacheable` :45, `init_paged_cache` :61, `RadixPrefixIndex` :113
+with `lookup_extension` :161, `PagedKVCache` :260 with `truncate` :524).
 The host bookkeeping (tables, refcounts, free list, radix index) is the
 reference's, attribute names included, so serving/kv_sanitizer.py sweeps
 it unchanged; the pools are torch tensors on the serving device.
@@ -138,6 +138,41 @@ class RadixPrefixIndex:
             node.stamp = max(node.stamp, stamp)
             node = node.parent
         return out
+
+    def lookup_extension(self, tokens, k: int) -> List[int]:
+        """Speculative-draft probe: up to `k` token ids the tree has
+        seen FOLLOWING `tokens`. Walks the full-block chunks of the
+        history, consumes a partial-block remainder against a matching
+        child edge, then descends deterministically (lexicographically
+        smallest edge) gathering tokens.
+
+        READ-ONLY by contract: no `_tick`, no stamp updates — a
+        speculative probe must not look like a cache hit to LRU
+        eviction, or drafting would pin blocks it never claims."""
+        if k <= 0:
+            return []
+        bs = self.block_size
+        toks = [int(t) for t in tokens]
+        node = self.root
+        for ci in range(len(toks) // bs):
+            node = node.children.get(tuple(toks[ci * bs:(ci + 1) * bs]))
+            if node is None:
+                return []
+        out: List[int] = []
+        rem = tuple(toks[(len(toks) // bs) * bs:])
+        if rem:
+            for key in sorted(node.children):
+                if key[: len(rem)] == rem:
+                    out.extend(key[len(rem):])
+                    node = node.children[key]
+                    break
+            else:
+                return []
+        while len(out) < k and node.children:
+            key = min(node.children)
+            out.extend(key)
+            node = node.children[key]
+        return [int(t) for t in out[:k]]
 
     def insert(self, tokens, block_ids: Sequence[int]) -> List[int]:
         """Index `tokens`' full blocks, adopting the caller's physical
@@ -436,6 +471,39 @@ class PagedKVCache:
         if self.sanitizer is not None:
             self.sanitizer.validate("copy_on_write")
         return new
+
+    def truncate(self, slot: int, n: int) -> None:
+        """Speculative-decode rollback: shrink `slot` to `n` committed
+        tokens, releasing the rejected tail's block references.
+
+        Dropped tail blocks are `_decref`'d — a block physically frees
+        only when this slot held the LAST reference (rc==1) and the
+        radix does not index it; shared or cached blocks just lose one
+        reference. A kept PARTIAL tail block is detached when shared
+        (rc>1) or radix-indexed via copy-on-write: future decode writes
+        land at positions >= n inside it, and neither another reader
+        nor the index's immutable full-content chunk may see them."""
+        assert slot not in self._slot_free, f"slot {slot} is free"
+        length = int(self.lengths[slot])
+        assert 0 <= n <= length, (slot, n, length)
+        bs = self.block_size
+        new_nb = -(-n // bs)
+        # lengths first: copy_on_write/validate below sweep
+        # slot_coherence against ceil(length/bs)
+        self.lengths[slot] = n
+        for lb in range(new_nb, -(-length // bs)):
+            bid = int(self.tables[slot, lb])
+            if bid != self.trash:
+                self._decref(bid)
+            self.tables[slot, lb] = self.trash
+        if n % bs:
+            bid = int(self.tables[slot, new_nb - 1])
+            if self.refcount[bid] > 1 or (
+                self.radix is not None and bid in self.radix
+            ):
+                self.copy_on_write(slot, new_nb - 1)
+        if self.sanitizer is not None:
+            self.sanitizer.validate("truncate")
 
     def free_slot(self, slot: int, tokens=None) -> None:
         """Evict a finished request: index its full blocks (prompt +

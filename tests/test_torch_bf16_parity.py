@@ -17,7 +17,12 @@ compared.
 (b) End to end. Each package runs `prefill_paged` and two
 `decode_step_paged` steps on its own pools (the decode tokens are the
 JAX run's argmax, fed to both), and the logits are held to the composed
-bound.
+bound. Then each runs one speculative verify chunk (`decode_verify`) of
+width V = 4 over the JAX run's pools as the prefill left them (bridged to
+the port, so the cache it reads is the same in both): each row's chunk
+is [the JAX prefill's argmax, random drafts], V_r in 1..4 real tokens at
+positions past the row's prompt (not block-aligned), and the logits at
+every real position are held.
 
 Tolerance. Per element, |port - jax| <= k * u * (|ref| + scale), with
 u = 2^-8 (bf16's unit roundoff), ref the JAX value and scale the RMS of
@@ -46,6 +51,11 @@ longer path in every half (the port keeps scores and GEMV sums in fp32):
 End to end the halves compose: the prefill logits take k = K + 2, K the
 sum over all halves of all layers; decode step j (1, 2) reads cache
 entries that carry the earlier passes' errors, so k = (j + 1) * K + 2.
+The verify chunk takes the prefill step's k = K + 2: the cache it reads
+is common, so no earlier pass's error reaches it, and its position i
+reads the chunk's own K/V of positions 0..i, computed in the same pass,
+as a prefill chunk's positions do; a chunk wider than 1 runs the MoE on
+the grouped path of a prefill chunk, whose halves K counts.
 With K = 84 (granite smoke: 4 layers x (11 + 10)) or 87 (deepseek),
 k * u is 0.34 at the prefill step and 0.66-1.03 at the decode steps:
 a worst-case sum of roundings that mostly do not line up. So (b) is a
@@ -70,6 +80,8 @@ rows are independent at dropless capacity (cold_capacity_frac=1.0), so
 token whose margin lies within the composed router bound at that layer
 (the (a) checks hold the routing itself); it names every row it leaves
 out, and fails if a routing difference falls outside the composed bound.
+The verify chunk applies the same rule on its own: its tokens are not
+(a)'s, so only its own routing differences leave a row out.
 
 Mutants must fail the gate: rope positions shifted by one in the port
 fail (a); the last real token's logits taken one token early fail (b)'s
@@ -320,9 +332,59 @@ def _k_layers(st):
     return sum(K_MIXER[sig[0]] + k_ffn(st["jcfg"], sig[1]) for _, sig, _, _ in _layers(st))
 
 
+def _routing_left_out(st, rec, label, tmask, k_before, held):
+    """Pop one pass's router scores (every MoE layer, in order); returns
+    the rows of `held` whose top-k set differed within the composed
+    router bound (k_before roundings before the pass); fails on a
+    difference outside it."""
+    jcfg, flipped = st["jcfg"], set()
+    for name, sig, *_ in _layers(st):
+        if sig[1] == "moe":
+            sj, stt = rec.pop()
+            sj, stt = sj.reshape(*tmask.shape, -1), stt.reshape(*tmask.shape, -1)
+            k = jcfg.moe.top_k
+            near, _ = _near_ties(sj, k, k_before + K_MIXER[sig[0]] + K_ROUTER)
+            keep = np.array([r not in flipped and held[r] for r in range(W)])
+            diff = (_topk_sets(sj, k) != _topk_sets(stt, k)).any(-1) & tmask
+            diff &= keep.reshape(-1, *[1] * (diff.ndim - 1))
+            assert not (diff & ~near).any(), (
+                f"{label} {name}: routing differs outside the composed bound")
+            flipped.update(int(r) for r in np.argwhere(diff)[:, 0])
+        k_before += K_MIXER[sig[0]] + k_ffn(jcfg, sig[1])
+    return flipped
+
+
+def verify_chunk(st, rec, jpools, first):
+    """(b)'s verify chunk: `decode_verify` of each package over the JAX
+    pools `jpools` (as the prefill left them), chunk [first, drafts];
+    returns (rows held, worst error over the bound)."""
+    jcfg, tcfg = st["jcfg"], st["tcfg"]
+    rng = np.random.default_rng(12)
+    vlen = rng.integers(1, 5, size=W).astype(np.int32)
+    toks = rng.integers(0, jcfg.vocab_size, size=(W, 4)).astype(np.int32)
+    toks[:, 0] = first[:, 0]
+    vmask = np.arange(4)[None, :] < vlen[:, None]
+    past = st["lens"]
+    jl, _, _, _ = jm.decode_verify(st["params"], jcfg, jnp.asarray(toks), jpools,
+                                   jnp.asarray(st["tables"]), jnp.asarray(past),
+                                   jnp.asarray(vmask), tiered=st["tiered"],
+                                   cold_capacity_frac=1.0)
+    tl, _, _ = tm.decode_verify(st["tp"], tcfg, torch.tensor(toks),
+                                to_torch(jax.tree.map(np.asarray, jpools)),
+                                torch.tensor(st["tables"]), torch.tensor(past),
+                                torch.tensor(vmask), tiered=st["tt"], cold_capacity_frac=1.0)
+    flipped = _routing_left_out(st, rec, "verify", vmask, 0, np.ones(W, bool))
+    keep = np.array([r not in flipped for r in range(W)])
+    print(f"verify chunk: rows left out {sorted(flipped)}")
+    assert keep.sum() * 16 >= W, f"only {keep.sum()} of {W} rows left to compare"
+    worst = _hold("verify chunk logits", tl, jl, _k_layers(st) + K_HEAD,
+                  keep[:, None] & vmask)
+    return keep, worst
+
+
 def end_to_end(st, rec, nxt, rows):
     """(b): logits of prefill_paged and two decode steps, each package on
-    its own pools; returns the rows compared."""
+    its own pools, then the verify chunk; returns the rows compared."""
     jcfg, tcfg = st["jcfg"], st["tcfg"]
     tables, lens = st["tables"], st["lens"]
     mask = np.arange(S)[None, :] < lens[:, None]
@@ -333,6 +395,7 @@ def end_to_end(st, rec, nxt, rows):
                                      jpools, jnp.asarray(tables), jnp.asarray(past),
                                      jnp.asarray(mask), tiered=st["tiered"],
                                      cold_capacity_frac=1.0)
+    jpools_prefill, first = jpools, nxt
     tl, _ = tm.prefill_paged(st["tp"], tcfg, torch.tensor(st["toks"]), tpools,
                              torch.tensor(tables), torch.tensor(past), torch.tensor(mask),
                              tiered=st["tt"], cold_capacity_frac=1.0)
@@ -353,24 +416,11 @@ def end_to_end(st, rec, nxt, rows):
         pos = pos + 1
     # a routing difference within the composed router bound leaves its row
     # out from there on (the row's later layers legitimately diverge)
-    k_all, sigs = _k_layers(st), [(name, sig) for name, sig, *_ in _layers(st)]
+    k_all = _k_layers(st)
     flipped = set()
     for step, tmask in enumerate(tmasks):
-        k_before = step * k_all
-        for name, sig in sigs:
-            if sig[1] == "moe":
-                sj, stt = rec.pop()
-                sj, stt = sj.reshape(*tmask.shape, -1), stt.reshape(*tmask.shape, -1)
-                kr = k_before + K_MIXER[sig[0]] + K_ROUTER
-                k = jcfg.moe.top_k
-                near, _ = _near_ties(sj, k, kr)
-                held = np.array([r not in rows | flipped for r in range(W)])
-                diff = (_topk_sets(sj, k) != _topk_sets(stt, k)).any(-1) & tmask
-                diff &= held.reshape(-1, *[1] * (diff.ndim - 1))
-                assert not (diff & ~near).any(), (
-                    f"step {step} {name}: routing differs outside the composed bound")
-                flipped.update(int(r) for r in np.argwhere(diff)[:, 0])
-            k_before += K_MIXER[sig[0]] + k_ffn(jcfg, sig[1])
+        held = np.array([r not in rows | flipped for r in range(W)])
+        flipped |= _routing_left_out(st, rec, f"step {step}", tmask, step * k_all, held)
     left_out = sorted(rows | flipped)
     print(f"end to end: rows left out {left_out} (near-ties in (a): {sorted(rows)}, "
           f"routing differed end to end: {sorted(flipped)})")
@@ -381,6 +431,8 @@ def end_to_end(st, rec, nxt, rows):
     for step, (tl, jl) in enumerate(logits):
         k = (step + 1) * k_all + K_HEAD
         worst.append((round(k * U, 3), _hold(f"step {step} logits", tl, jl, k, keep)))
+    _, w = verify_chunk(st, rec, jpools_prefill, first)
+    worst.append((round((k_all + K_HEAD) * U, 3), w))
     return keep, worst
 
 

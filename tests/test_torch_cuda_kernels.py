@@ -366,6 +366,57 @@ def test_paged_mla_bf16_kernel_at_deepseek_widths(cuda_device, c, nb, past, leng
         assert torch.equal(dec, got[:, 0])
 
 
+# a speculative verify chunk: the sampled token and up to k = 4 drafts,
+# padded to a width of 8; rows shorter than 8, pasts not block-aligned,
+# the last row dead (an all-trash table, length 0)
+VERIFY_PAST, VERIFY_LENS = [41, 50, 63, 27, 0], [5, 1, 3, 8, 0]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_gqa_verify_chunk_matches_plain(cuda_device, dtype):
+    dev = cuda_device
+    rng = np.random.default_rng(50)
+    b, c, kv, g, hd, bs, nb = 5, 8, 8, 2, 64, 4, 18
+    n_blocks = b * nb + 2
+    tables = rng.permutation(n_blocks)[: b * nb].reshape(b, nb)
+    tables[-1] = n_blocks
+    q = _t(rng.normal(size=(b, c, kv, g, hd)), dev, dtype)
+    pk, pv = (_t(rng.normal(size=(n_blocks + 1, bs, kv, hd)), dev, dtype) for _ in range(2))
+    args = (q, pk, pv, _t(tables, dev, torch.int32), _t(VERIFY_PAST, dev, torch.int32),
+            _t(VERIFY_LENS, dev, torch.int32))
+    got = paged_prefill_gqa(*args, backend="cuda")
+    want = paged_prefill_gqa_ref(*args)
+    assert got.dtype == dtype
+    real = torch.arange(c, device=dev)[None, :] < args[-1][:, None]
+    assert torch.isfinite(got[real].float()).all()
+    if dtype == torch.float32:
+        torch.testing.assert_close(got[real], want[real], atol=1e-5, rtol=1e-5)
+    else:
+        bound = gqa_rounding_bound(*args[:5])
+        assert ((got[real].float() - want[real].float()).abs() <= bound[real]).all()
+
+
+@pytest.mark.parametrize("pool_dtype", [torch.float32, torch.bfloat16])
+def test_paged_mla_verify_chunk_at_deepseek_widths(cuda_device, pool_dtype):
+    dev = cuda_device
+    rng = np.random.default_rng(51)
+    b, c, h, r, rd, bs, nb = 5, 8, 128, 512, 64, 4, 18
+    n_blocks = b * nb + 2
+    tables = rng.permutation(n_blocks)[: b * nb].reshape(b, nb)
+    tables[-1] = n_blocks
+    args = (_t(rng.normal(size=(b, c, h, r)), dev), _t(rng.normal(size=(b, c, h, rd)), dev),
+            _t(rng.normal(size=(n_blocks + 1, bs, r)), dev, pool_dtype),
+            _t(rng.normal(size=(n_blocks + 1, bs, rd)), dev, pool_dtype),
+            _t(tables, dev, torch.int32), _t(VERIFY_PAST, dev, torch.int32),
+            _t(VERIFY_LENS, dev, torch.int32))
+    scale = (128 + 64) ** -0.5
+    got = paged_prefill_mla(*args, scale=scale, backend="cuda")
+    want = paged_prefill_mla_ref(*args, scale=scale)
+    real = torch.arange(c, device=dev)[None, :] < args[-1][:, None]
+    assert torch.isfinite(got[real]).all()
+    torch.testing.assert_close(got[real], want[real], atol=1e-5, rtol=1e-5)
+
+
 def test_paged_mla_bf16_refuses_what_it_cannot_address(cuda_device):
     dev = cuda_device
     b, h, bs = 1, 4, 4

@@ -162,9 +162,10 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
     loop = tserve.build_loop(cfg, batch=2, groups=1, cache_len=16, device="cpu")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ServingLoop(cfg, loop.engine.params, loop.engine.tiered, batch_size=2)
-    with pytest.raises(NotImplementedError):
-        ServingLoop(cfg, loop.engine.params, loop.engine.tiered, device="cpu",
-                    spec_decode=True)
+    spec = ServingLoop(cfg, loop.engine.params, loop.engine.tiered, device="cpu",
+                       spec_decode=True)
+    assert spec.drafter is not None and spec.drafter.radix is spec.kv.radix
+    assert next(iter(spec.kv.pools["stack"]["slot0"].values())).device.type == "cpu"
     slots = ServingLoop(cfg, loop.engine.params, loop.engine.tiered, device="cpu",
                         kv_layout="slots")
     assert slots.kv.cache["stack"]["slot0"]["k"].device.type == "cpu"
