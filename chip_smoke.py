@@ -16,7 +16,12 @@ Phases, each fatal on failure:
      kernel / plain / library on the device (CUDA-graph replay), plus the
      kernel's eager call;
   3. drive flash attention's entry point `mha` with the launch counters
-     reset just before;
+     reset just before; time one jamba Mamba layer at published widths
+     (its masked 64-token forward, the chunk scan alone, a decode step);
+     run xlstm-125m at full width and depth (bf16 prefill and 16 decode
+     steps through the contiguous and the paged model functions: equal
+     tokens, no kernel launched; fp32 smoke logits on the card within
+     1e-5 of the CPU's);
   4. serve granite-moe-1b-a400m (GQA) at full width and depth, then
      deepseek-v2-236b (MLA, dense layer 0, shared experts) at full width
      with its depth cut to 3 layers (bf16, seeded random weights),
@@ -31,12 +36,17 @@ Phases, each fatal on failure:
      then its replay, which must accept drafts and verify chunks wider
      than 1; its bf16 token agreement with the default mode is reported),
      and granite at fp32, whose spec tokens must equal its plain tokens;
+     then jamba-v0.1-52b (Mamba + GQA + MoE) at full width with its depth
+     cut to 8 layers (one Jamba block), in its paged default (whole-suffix
+     admission: a recurrent arch has no chunked prefill or radix) and over
+     the slots cache, with spec_decode refused;
   5. serve each smoke-size model at fp32 on the card (kernels) and on the
      CPU (plain versions) from the same weights, in each of those modes:
      tokens must agree, and speculative serving (a wave and its replay)
      must give the default mode's tokens and accept drafts; replay a
      skewed, bursty request trace (`replay_requests`) on both: it must
-     drain with equal tokens.
+     drain with equal tokens; and jamba's smoke config in its paged
+     default and slots modes.
 Prints one JSON line per phase (each with its seconds), the `kernels`
 JSON line, the card's name and power limit, and last the `ok` JSON line.
 Imports nothing of JAX: the machine with the card has none.
@@ -77,21 +87,38 @@ from repro_torch.kernels.paged_attention import (  # noqa: E402
 from repro_torch.kernels.paged_attention.kernel import _launch as gqa_launch  # noqa: E402
 from repro_torch.kernels.paged_attention.kernel import _launch_mla as mla_launch  # noqa: E402
 from repro_torch.core.traces import synth_request_trace  # noqa: E402
-from repro_torch.models.model import init_params  # noqa: E402
+from repro_torch.models.mamba import _assoc_scan, mamba_decode, mamba_forward  # noqa: E402
+from repro_torch.models.model import (  # noqa: E402
+    decode_step,
+    decode_step_paged,
+    init_params,
+    is_recurrent,
+    prefill,
+    prefill_paged,
+)
 from repro_torch.serving.batching import Request  # noqa: E402
 from repro_torch.serving.engine import (  # noqa: E402
     fill_tiers_from_params,
     init_tiered_for_model,
 )
 from repro_torch.serving.loop import ServingLoop  # noqa: E402
-from repro_torch.serving.paged_kv import PagedStats  # noqa: E402
+from repro_torch.serving.paged_kv import PagedStats, init_paged_cache  # noqa: E402
 from repro_torch.serving.replay import replay_requests  # noqa: E402
+from repro_torch.serving.tiered_moe import TierSizes  # noqa: E402
 
 HBM_BPS = 3.35e12  # H100 SXM HBM3 bytes/s (NVIDIA data sheet)
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense, no TF32
 GQA_ARCH = "granite-moe-1b-a400m"
 MLA_ARCH = "deepseek-v2-236b"
 MLA_LAYERS = 3  # deepseek depth cut 60 -> 3: dense layer 0 + 2 MoE layers
+JAMBA_ARCH = "jamba-v0.1-52b"
+# jamba depth cut 32 -> 8: one whole Jamba block (attention at layer 4,
+# Mamba elsewhere, MoE at 1 / 3 / 5 / 7); 16 layers would not fit the card
+JAMBA_LAYERS = 8
+XLSTM_ARCH = "xlstm-125m"
+# loop arguments by arch: jamba's tiers as explicit sizes (4 hot slots;
+# the cold buffer pads to 16 slots: ~35 GB of tier buffers at 8 layers)
+ARCH_LOOP_KW = {JAMBA_ARCH: dict(sizes=TierSizes(4, 5, 7))}
 MHA_PATH = "mha"
 # source -> the tensor-core instruction its bf16 path must compile to
 TENSOR_CORE_KERNELS = {"moe_gemm": "HGMMA", "flash_attention": "HGMMA",
@@ -145,6 +172,22 @@ def call_time_ms(fn, iters: int, warmup: int = 3) -> float:
     for _ in range(warmup):
         fn()
     return _events_ms(fn, iters) / iters
+
+
+def profiled_device_ms(fn, reps: int) -> float:
+    """Mean device time of fn(): the profiler's kernel time over `reps`
+    calls (for a function of many small launches, where a CUDA graph of
+    it would time the same kernels without their gaps)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.time_range.elapsed_us() for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3 / reps
 
 
 def device_time_ms(fn, arg_sets, calls: int = 32, reps: int = 5) -> float:
@@ -204,14 +247,15 @@ def _real(lens, c, dev):
     return torch.arange(c, device=dev)[None, :] < torch.tensor(lens, device=dev)[:, None]
 
 
-def attention_case(dtype, *, b, c, nb, past, dev, gen, lens=None):
-    """Random pools and tables at the serving shapes: Kv=8, G=2, hd=64,
-    bs=4, each row's blocks a random permutation of the pool; `lens` the
-    rows' real chunk tokens (default all C). Library: SDPA over the
-    linearized, head-expanded K/V with the position mask. bf16 is held
-    to `gqa_rounding_bound`; a table of enough key tiles to split over is
-    also timed with one split (`unsplit`)."""
-    kv, g, hd, bs = 8, 2, 64, 4
+def attention_case(dtype, *, b, c, nb, past, dev, gen, lens=None, kv=8, g=2, hd=64):
+    """Random pools and tables at the serving shapes: granite's Kv=8, G=2,
+    hd=64 unless given (jamba: G=4, hd=128), bs=4, each row's blocks a
+    random permutation of the pool; `lens` the rows' real chunk tokens
+    (default all C). Library: SDPA over the linearized, head-expanded K/V
+    with the position mask. bf16 is held to `gqa_rounding_bound`; a table
+    of enough key tiles to split over is also timed with one split
+    (`unsplit`)."""
+    bs = 4
     n_blocks = max(8 * 18, b * nb)  # batch 8 x ceil(72 / 4) blocks per slot
     perm = torch.randperm(n_blocks, generator=gen, device="cpu")[: b * nb]
     tables = perm.reshape(b, nb).to(torch.int32).to(dev)
@@ -436,6 +480,25 @@ KERNEL_CASES = [  # (kernel, label, case, kwargs); the first per kernel is its J
     # a time there (two token groups)
     ("expert_ffn_gemv", "deepseek hot 25 slots T=16", gemv_case,
      dict(n_slots=25, t=16, d=5120, f=1536, calls=8)),
+    # jamba-v0.1-52b's attention layer (32 heads, 8 KV heads, hd 128): a
+    # decode step of one group over its 18-block tables, and the 64-token
+    # whole-suffix bucket (no prefix reuse for a recurrent arch: past 0)
+    ("paged_prefill_gqa", "jamba decode B=4 G=4 hd=128 nb=18", attention_case,
+     dict(b=4, c=1, nb=18, past=[40, 51, 60, 71], g=4, hd=128)),
+    ("paged_prefill_gqa", "jamba prefill B=4 C=64 G=4 hd=128 nb=18", attention_case,
+     dict(b=4, c=64, nb=18, past=[0, 0, 0, 0], g=4, hd=128)),
+    # jamba's tiers (d_model 4096, d_expert 14336, TierSizes(4, 5, 7)): a
+    # decode step's hot tier with every slot live and warm tier with 2 of
+    # 5 live; a prefill call's hot tier through the grouped GEMM (gate|up
+    # N = 28672, down K = 14336); one input set is ~1.4-1.8 GB: 8 calls a graph
+    ("expert_ffn_gemv", "jamba hot 4 slots T=4", gemv_case,
+     dict(n_slots=4, t=4, d=4096, f=14336, calls=8)),
+    ("expert_ffn_gemv", "jamba warm 5 slots T=4, 2 live", gemv_case,
+     dict(n_slots=5, t=4, d=4096, f=14336, live=2, calls=8)),
+    ("moe_gemm", "jamba gate|up hot 4x128x4096x28672", moe_gemm_case,
+     dict(n_slots=4, rows=128, d=4096, f=14336, pair=True, calls=8)),
+    ("moe_gemm", "jamba down hot 4x128x14336x4096", moe_gemm_case,
+     dict(n_slots=4, rows=128, d=4096, f=14336, pair=False, calls=8)),
     ("paged_prefill_mla", "decode B=4 H=128 r=512 nb=18", mla_case,
      dict(b=4, c=1, past=[40, 51, 60, 71])),
     ("paged_prefill_mla", "prefill B=4 C=32 H=128 r=512 nb=18", mla_case,
@@ -580,6 +643,12 @@ SERVES = [
      ("paged_prefill_mla",)),
     (MLA_ARCH, MLA_LAYERS, "spec", ("paged_prefill_mla", "moe_gemm", "expert_ffn_gemv"),
      ("paged_prefill_gqa",)),
+    # jamba: Mamba + GQA + MoE; its default paged mode admits whole
+    # suffixes (a recurrent arch turns chunked prefill and the radix off)
+    (JAMBA_ARCH, JAMBA_LAYERS, None, ("paged_prefill_gqa", "moe_gemm", "expert_ffn_gemv"),
+     ("paged_prefill_mla", "flash_attention")),
+    (JAMBA_ARCH, JAMBA_LAYERS, "slots", ("moe_gemm", "expert_ffn_gemv"),
+     ("paged_prefill_gqa", "paged_prefill_mla", "flash_attention")),
 ]
 
 
@@ -622,9 +691,9 @@ def serve_full(dev, arch: str, n_layers, mode, expect, forbid, profile_out=None,
     torch.cuda.reset_peak_memory_stats(dev)  # peak_mem_gb: this phase only
     t0 = time.time()
     params = init_params(0, cfg, device=dev)
-    loop = ServingLoop(cfg, params, batch_size=8, n_groups=2, cache_len=72,
-                       block_size=4, prefill_chunk_tokens=32, device=dev,
-                       **MODES.get(mode, {}))
+    kw = dict(batch_size=8, n_groups=2, cache_len=72, block_size=4, prefill_chunk_tokens=32,
+              device=dev, **ARCH_LOOP_KW.get(arch, {}))
+    loop = ServingLoop(cfg, params, **kw, **MODES.get(mode, {}))
     del params  # the engine keeps the stripped params, the tiers the experts
     torch.cuda.synchronize()
     setup_s = time.time() - t0
@@ -639,6 +708,13 @@ def serve_full(dev, arch: str, n_layers, mode, expect, forbid, profile_out=None,
         loop.kv.stats = PagedStats()
     reqs = make_traffic(cfg.vocab_size, 12, seed=1)
     recorded = None
+    # distinct experts each decode step's MoE layers touch (the loop
+    # observes every step's counts once): the GEMV streams those slots
+    # only, so their weight bytes bound the step's MoE time from below
+    moe_rows = [i for i in range(cfg.n_layers) if cfg.uses_moe_layer(i)]
+    touched, observe = [], loop.engine.observe
+    loop.engine.observe = lambda c: (touched.append(int((np.asarray(c)[moe_rows] > 0).sum())),
+                                     observe(c))
     if mode == "spec":  # the recorded wave; then every metric starts at 0 again
         recorded = [list(r.generated) for r in serve_wave(loop, reqs)]
         loop.obs.registry.reset()
@@ -646,8 +722,10 @@ def serve_full(dev, arch: str, n_layers, mode, expect, forbid, profile_out=None,
         loop.engine.verify_widths.clear()
         reqs = replayed(reqs, 100)
     reset_counters()
+    touched.clear()
     done = serve_wave(loop, reqs)
     launches = read_counters()
+    del loop.engine.observe  # the engine's own method again
     if len(done) != len(reqs) or any(len(r.generated) != 16 for r in done):
         fail(f"{arch}: served {len(done)}/{len(reqs)} requests completely")
     toks = np.concatenate([np.asarray(r.generated) for r in done])
@@ -660,9 +738,18 @@ def serve_full(dev, arch: str, n_layers, mode, expect, forbid, profile_out=None,
         if launches[name] != 0:
             fail(f"{path}: kernel {name} launched {launches[name]} times off its path")
     st, eng = loop.stats, loop.engine
-    if mode in WHOLE_SUFFIX and st.prefill_chunks != 0:
+    if (mode in WHOLE_SUFFIX or is_recurrent(cfg)) and (loop.chunked or st.prefill_chunks):
         fail(f"{path}: {st.prefill_chunks} prefill chunks in a whole-suffix admission mode")
     extra = {}
+    if is_recurrent(cfg) and mode is None:
+        # speculative decode refuses a recurrent arch (the reference's
+        # assertion), checked on the served weights and tiers
+        try:
+            ServingLoop(cfg, eng.params, eng.tiered, spec_decode=True, **kw)
+        except AssertionError:
+            extra["spec_decode_refused"] = True
+        else:
+            fail(f"{path}: spec_decode=True was accepted on a recurrent arch")
     if mode == "spec":
         extra = dict(spec_steps=st.spec_steps, spec_drafted_tokens=st.spec_drafted_tokens,
                      spec_accepted_tokens=st.spec_accepted_tokens,
@@ -689,7 +776,10 @@ def serve_full(dev, arch: str, n_layers, mode, expect, forbid, profile_out=None,
         prefill_chunks=st.prefill_chunks, replans=st.replans, migrations=st.migrations,
         prefill_rows=eng.stats.prefills,
         prefix_hit_rate=loop.kv.stats.hit_rate if loop.paged else None,
-        tier_sizes=list(eng.sizes), setup_s=setup_s, setup_peak_mem_gb=setup_peak_gb,
+        tier_sizes=list(eng.sizes), experts_per_step=float(np.mean(touched)),
+        expert_bound_ms_per_step=float(np.mean(touched)) * 3 * cfg.d_model
+        * cfg.moe.d_expert * 2 / HBM_BPS * 1e3,
+        setup_s=setup_s, setup_peak_mem_gb=setup_peak_gb,
         peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 1e9, launches=launches, **extra,
         seconds=time.time() - t_phase,
     )
@@ -841,6 +931,128 @@ def replay_parity(dev, arch: str) -> None:
                           seconds=time.time() - t0)), flush=True)
 
 
+def _recurrent_tokens(params, cfg, toks, lens, steps: int, paged: bool):
+    """Prefill right-padded rows, then `steps` greedy decode steps, through
+    the contiguous model functions or the paged ones (the rows' recurrent
+    states beside the pools). Returns the logits of every step, stacked
+    [steps + 1, B, V]."""
+    dev = toks.device
+    b, s = toks.shape
+    mask = torch.arange(s, device=dev)[None, :] < lens[:, None]
+    if paged:
+        n_blocks = b * -(-(s + steps) // 4)
+        pools, states = init_paged_cache(cfg, b, n_blocks, 4, device=dev)
+        tables = torch.arange(n_blocks, dtype=torch.int32, device=dev).reshape(b, -1)
+        logits, _, states = prefill_paged(params, cfg, toks, pools, tables,
+                                          torch.zeros(b, dtype=torch.int32, device=dev), mask)
+    else:
+        logits, cache = prefill(params, cfg, toks, cache_len=s + steps, token_mask=mask)
+    out, pos = [logits], lens.to(torch.int32)
+    for _ in range(steps):
+        nxt = out[-1].argmax(-1).to(torch.int32)[:, None]
+        if paged:
+            logits, _, states, _ = decode_step_paged(params, cfg, nxt, pools, states, tables,
+                                                     pos)
+        else:
+            logits, cache, _ = decode_step(params, cfg, nxt, cache, pos)
+        out.append(logits)
+        pos = pos + 1
+    return torch.stack(out)
+
+
+def xlstm_phase(dev) -> None:
+    """xlstm-125m at full width and depth (12 layers, d_model 768), bf16,
+    seeded random weights: prefill of 4 right-padded rows (64, 40, 33 and
+    57 real tokens), then 16 greedy decode steps, through the contiguous
+    model functions (`prefill`, `decode_step`) and the paged ones
+    (`prefill_paged`, `decode_step_paged` over the per-slot states: xLSTM
+    has no pools). Both run the same plain functions on the same shapes,
+    so their tokens must be equal, and none of the five kernels may
+    launch (no Pallas kernel reaches xLSTM in the reference). Then the
+    fp32 smoke config on the card and on the CPU from the same weights:
+    logits within 1e-5 (abs + rel), equal tokens."""
+    t_phase = time.time()
+    cfg = get_config(XLSTM_ARCH)
+    params = init_params(0, cfg, device=dev)
+    gen = torch.Generator().manual_seed(6)
+    lens = torch.tensor([64, 40, 33, 57], device=dev)
+    toks = torch.randint(0, cfg.vocab_size, (4, 64), generator=gen).to(dev)
+    reset_counters()
+    full, secs = {}, {}
+    for paged in (False, True):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        full[paged] = _recurrent_tokens(params, cfg, toks, lens, 16, paged)
+        torch.cuda.synchronize()
+        secs[paged] = time.time() - t0
+    launches = read_counters()
+    if any(launches.values()):
+        fail(f"{XLSTM_ARCH}: a kernel launched on a path without attention or MoE: {launches}")
+    if not all(torch.isfinite(v.float()).all() for v in full.values()):
+        fail(f"{XLSTM_ARCH}: non-finite logits at full width")
+    if full[False].shape != (17, 4, cfg.vocab_size):
+        fail(f"{XLSTM_ARCH}: logits of shape {tuple(full[False].shape)}")
+    toks_c, toks_p = full[False].argmax(-1), full[True].argmax(-1)
+    if not torch.equal(toks_c, toks_p):
+        fail(f"{XLSTM_ARCH}: contiguous tokens {toks_c.tolist()} != paged {toks_p.tolist()}")
+    # fp32 smoke: the card against the CPU, same weights and inputs
+    scfg = dataclasses.replace(reduce_for_smoke(cfg), param_dtype="float32",
+                               compute_dtype="float32")
+    sp = init_params(0, scfg, device="cpu")
+    stoks = torch.randint(0, scfg.vocab_size, (4, 16), generator=gen)
+    slens = torch.tensor([16, 9, 12, 5])
+    worst = 0.0
+    for paged in (False, True):
+        got = _recurrent_tokens(_to(sp, dev), scfg, stoks.to(dev), slens.to(dev), 8, paged)
+        want = _recurrent_tokens(sp, scfg, stoks, slens, 8, paged)
+        got = got.cpu()
+        worst = max(worst, float(((got - want).abs() / (1e-5 + 1e-5 * want.abs())).max()))
+        if not torch.equal(got.argmax(-1), want.argmax(-1)) or worst > 1:
+            fail(f"{XLSTM_ARCH} fp32 smoke ({'paged' if paged else 'contiguous'}): card "
+                 f"logits off the CPU's by {worst:.3f} of 1e-5, or other tokens")
+    print(json.dumps(dict(
+        phase="xlstm", arch=XLSTM_ARCH, layers=cfg.n_layers, d_model=cfg.d_model,
+        dtype=cfg.param_dtype, rows=4, decode_steps=16, contiguous_s=secs[False],
+        paged_s=secs[True], identical_tokens=True, launches=launches,
+        smoke_fp32_err_over_tol=worst, seconds=time.time() - t_phase)), flush=True)
+
+
+def mamba_phase(dev) -> None:
+    """One jamba Mamba layer at published widths (d_model 4096, d_inner
+    8192, d_state 16, d_conv 4, dt_rank 256), bf16, seeded random weights:
+    the eager call time (CUDA events around a loop, host cost included)
+    and the device time (the profiler's kernel time) of its masked
+    forward over the 64-token whole-suffix bucket of 4 rows, of the chunk
+    scan alone on that call's fp32 [4, 64, 8192, 16] transitions, and of
+    a decode step of 4 rows. Section 5 of PERF.md reads the Mamba
+    layers' and the scan's share of a serve from them."""
+    from repro_torch.models.mamba import init_mamba
+
+    t_phase = time.time()
+    cfg = get_config(JAMBA_ARCH)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    p = init_mamba(gen, cfg)
+    x = torch.randn(4, 64, cfg.d_model, generator=gen, device=dev).to(torch.bfloat16)
+    mask = torch.arange(64, device=dev)[None, :] < torch.tensor([64, 40, 33, 57],
+                                                                device=dev)[:, None]
+    di, n = 2 * cfg.d_model, cfg.mamba.d_state
+    a = torch.rand(4, 64, di, n, generator=gen, device=dev)
+    b = torch.randn(4, 64, di, n, generator=gen, device=dev)
+    _, state = mamba_forward(p, cfg, x, return_state=True, token_mask=mask)
+    calls = dict(
+        prefill=lambda: mamba_forward(p, cfg, x, return_state=True, token_mask=mask),
+        scan=lambda: _assoc_scan(a, b),
+        decode=lambda: mamba_decode(p, cfg, x[:, :1], state),
+    )
+    out = {}
+    for name, fn in calls.items():
+        out[f"{name}_ms"] = call_time_ms(fn, 10)
+        out[f"{name}_device_ms"] = profiled_device_ms(fn, 10)
+    print(json.dumps(dict(phase="mamba", arch=JAMBA_ARCH, d_model=cfg.d_model, d_inner=di,
+                          d_state=n, rows=4, bucket=64, **out,
+                          seconds=time.time() - t_phase)), flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", action="store_true",
@@ -880,6 +1092,10 @@ def main(argv=None) -> int:
 
     rows = kernel_phases(dev)
     paths = [mha_entry(dev)]
+    mamba_phase(dev)
+    xlstm_phase(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
     for arch, n_layers, mode, expect, forbid in SERVES:
         paths.append(serve_full(dev, arch, n_layers, mode, expect, forbid,
                                 profile_out=args.profile_out if args.profile else None,
@@ -895,6 +1111,8 @@ def main(argv=None) -> int:
         for mode in MODES:
             serve_smoke_parity(dev, arch, mode, plain)
         replay_parity(dev, arch)
+    for mode in (None, "slots"):  # jamba: the paged default admits whole suffixes
+        serve_smoke_parity(dev, JAMBA_ARCH, mode)
 
     by_path = {p["path"]: p["launches"] for p in paths}  # each after its own reset
     kernels = []

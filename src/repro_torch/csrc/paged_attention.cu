@@ -42,9 +42,12 @@
 // fills the SMs; one split writes the output directly.
 //
 // fp32 keeps the CUDA-core kernel (TF32 would break the fp32 token
-// identity with the CPU): grid (row, kv head); key tiles of 32 staged in
-// fp32 shared memory (K padded to hd+1 columns); one warp scores one
-// query row at a time, lane j key j; per-row (m, l, acc) in shared memory.
+// identity with the CPU): grid (row, kv head, tile of up to 64 query
+// rows: a whole-suffix bucket of 64 tokens x G 4 at hd 128 does not fit
+// one block's shared memory; each query row's arithmetic is the same in
+// any tile); key tiles of 32 staged in fp32 shared memory (K padded to
+// hd+1 columns); one warp scores one query row at a time, lane j key j;
+// per-row (m, l, acc) in shared memory.
 #include "hopper_mma.cuh"
 #include "key_splits.cuh"
 
@@ -55,6 +58,7 @@ constexpr float kNegInf = -1e30f;
 // ------------------------------------------------ fp32: CUDA-core kernel
 constexpr int kTile = 32;      // keys per tile (one per lane)
 constexpr int kThreads = 128;  // 4 warps
+constexpr int kF32Rows = 64;   // query rows per block
 
 __global__ void __launch_bounds__(kThreads) paged_gqa_f32_kernel(
     const float* __restrict__ q, const float* __restrict__ pool_k,
@@ -64,7 +68,8 @@ __global__ void __launch_bounds__(kThreads) paged_gqa_f32_kernel(
     float scale) {
   extern __shared__ float smem[];
   const int b = blockIdx.x, h = blockIdx.y;
-  const int R = C * G;
+  const int r0 = blockIdx.z * kF32Rows;     // this block's first query row
+  const int R = min(C * G - r0, kF32Rows);  // and its row count
   float* q_s = smem;                       // [R, hd]
   float* acc_s = q_s + R * hd;             // [R, hd]
   float* m_s = acc_s + R * hd;             // [R]
@@ -82,9 +87,9 @@ __global__ void __launch_bounds__(kThreads) paged_gqa_f32_kernel(
   const int walk_blocks = min(nb, last_block + 1);  // >= 1: block 0 always runs
   const int n_keys = walk_blocks * bs;
 
-  // queries of (b, :, h, :, :) -> q_s[r = c*G + g]
+  // queries of (b, :, h, :, :) -> q_s[r], query row r0 + r = c*G + g
   for (int i = tid; i < R * hd; i += kThreads) {
-    const int r = i / hd, d = i % hd;
+    const int r = r0 + i / hd, d = i % hd;
     const int c = r / G, g = r % G;
     q_s[i] = q[(((size_t)b * C + c) * Kv + h) * G * hd + (size_t)g * hd + d];
     acc_s[i] = 0.f;
@@ -112,7 +117,7 @@ __global__ void __launch_bounds__(kThreads) paged_gqa_f32_kernel(
     }
     __syncthreads();
     for (int r = warp; r < R; r += nwarps) {
-      const int qpos = past + r / G;
+      const int qpos = past + (r0 + r) / G;
       const bool walked = lane < tile_n;
       float s = -INFINITY;  // not walked: no part in max or sum
       if (walked) {
@@ -149,15 +154,18 @@ __global__ void __launch_bounds__(kThreads) paged_gqa_f32_kernel(
   }
   __syncthreads();
   for (int i = tid; i < R * hd; i += kThreads) {
-    const int r = i / hd, d = i % hd;
+    const int r = r0 + i / hd, d = i % hd;
     const int c = r / G, g = r % G;
     out[(((size_t)b * C + c) * Kv + h) * G * hd + (size_t)g * hd + d] =
-        acc_s[i] / fmaxf(l_s[r], 1e-30f);
+        acc_s[i] / fmaxf(l_s[i / hd], 1e-30f);
   }
 }
 
-size_t f32_smem_bytes(int R, int hd) {
-  return sizeof(float) * ((size_t)2 * R * hd + 2 * R + kTile * (hd + 1) + kTile * hd +
+// Shared memory of one block of the fp32 kernel for `rows` query rows of
+// a (row, kv head) pair: at most kF32Rows of them a block.
+size_t f32_smem_bytes(int rows, int hd) {
+  const size_t R = rows < kF32Rows ? rows : kF32Rows;
+  return sizeof(float) * (2 * R * hd + 2 * R + kTile * (hd + 1) + kTile * hd +
                           (kThreads / 32) * kTile) +
          sizeof(int) * kTile;
 }
@@ -170,7 +178,7 @@ int launch_f32(const void* q, const void* pk, const void* pv, const void* tables
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        (int)smem);
   if (e != cudaSuccess) return (int)e;
-  dim3 grid(B, Kv);
+  dim3 grid(B, Kv, (C * G + kF32Rows - 1) / kF32Rows);
   paged_gqa_f32_kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(pk),
       static_cast<const float*>(pv), static_cast<const int*>(tables),
@@ -436,8 +444,9 @@ int launch_bf16(const void* q, const void* pk, const void* pv, const void* table
 
 extern "C" {
 
-// Shared memory the fp32 kernel needs for C*G query rows of width hd (the
-// wrapper rejects shapes above the 227 KB a block may use).
+// Shared memory a block of the fp32 kernel needs for C*G query rows of
+// width hd, 64 rows a block at most (the wrapper rejects shapes above the
+// 227 KB a block may use).
 size_t paged_prefill_gqa_smem(int rows, int hd) { return f32_smem_bytes(rows, hd); }
 
 // Keys per bf16 key tile (the unit the splits are counted in).

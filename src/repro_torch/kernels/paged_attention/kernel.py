@@ -97,7 +97,7 @@ def _launch(q, pool_k, pool_v, tables, past_len, lengths, splits=None) -> torch.
         splits = 1
         smem = smem_of(c * g, hd)
         L.require(smem <= L.MAX_SMEM, OP,
-                  f"{c}x{g} query rows of width {hd} need {smem} B of shared memory")
+                  f"{c}x{g} query rows of width {hd} need {smem} B of shared memory a block")
     else:
         L.require(hd in BF16_HEAD_DIMS, OP,
                   f"bf16 head width {hd} not in {BF16_HEAD_DIMS}")

@@ -1,24 +1,30 @@
-"""Model assembly for serving (port of the serving part of
-repro/models/model.py: `layer_signature` :41, `stack_plan` :58,
-`init_params` :107, `init_layer_cache` :147, `init_cache` :172, the
-attention and MoE branches of `apply_layer` :195, `_logits` :400,
-`prefill` :462, `decode_step` :565, `decode_step_paged` :640,
-`prefill_paged` :730, `decode_verify` :824).
+"""Model assembly for serving (port of repro/models/model.py:
+`layer_signature` :41, `stack_plan` :58, `init_params` :107,
+`init_layer_cache` :147, `init_cache` :172, the attention, MoE and
+recurrent branches of `apply_layer` :195 (:301-336 for Mamba / mLSTM /
+sLSTM), `_logits` :400, `prefill` :462, `decode_step` :565,
+`decode_step_paged` :640, `prefill_paged` :730, `decode_verify` :824).
 
 Params keep the JAX tree layout: periodic layers are stacked under
 params["stack"]["slot<j>"] with the scan-group dim first. Where JAX
 runs `jax.lax.scan` over that dim, the port runs a Python loop over
-groups on views of the stacked tensors. K/V pools are updated in place.
+groups on views of the stacked tensors. Caches are updated in place: an
+attention layer's K/V pools or ring buffers, and a recurrent layer's
+per-row state (the "state" subtree: {ssm, conv}, {C, n, m} or
+{c, n, h, m}), which the paged layout keeps beside the pools, one row
+per slot (`init_states`).
 """
 from __future__ import annotations
 
-from typing import Callable, List, NamedTuple, Tuple
+from typing import Callable, List, NamedTuple, Optional, Tuple
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import mamba as mb
 from repro_torch.models import moe as moe_lib
+from repro_torch.models import xlstm as xl
 from repro_torch.models.layers import (
     Params,
     embed,
@@ -69,18 +75,28 @@ def stack_plan(cfg: ModelConfig) -> Tuple[List[int], int, List[Sig]]:
 
 
 class Mixer(NamedTuple):
-    """What the port knows of one mixer kind: its params; its functions
-    over the contiguous layout (whole-sequence `forward`, ring-buffer
-    `decode`) and over the paged one (`decode_paged`, chunk
-    `prefill_paged`); and its cache leaves (keys in the order those
-    functions take them, with their per-token shapes)."""
+    """What the port knows of one mixer kind: its params and its
+    functions. An attention mixer caches token-addressed leaves
+    (`cache_shapes`: keys in the order its functions take them, with
+    their per-token shapes), ring buffers in the contiguous layout
+    (whole-sequence `forward`, one-token `decode`) and block pools in the
+    paged one (`decode_paged`, chunk `prefill_paged`). A recurrent mixer
+    caches one state per row (`init_state`) in either layout: its
+    `forward` (x, token_mask) starts from the init state and returns
+    (y, state), its `decode` (x, state) returns (y, state)."""
 
     init: Callable
     forward: Callable
     decode: Callable
-    decode_paged: Callable
-    prefill_paged: Callable
-    cache_shapes: Callable  # (cfg, n_tokens) -> {cache key: shape}
+    decode_paged: Optional[Callable] = None
+    prefill_paged: Optional[Callable] = None
+    cache_shapes: Optional[Callable] = None  # (cfg, n_tokens) -> {cache key: shape}
+    init_state: Optional[Callable] = None  # (cfg, batch, dtype, device) -> {key: tensor}
+
+
+def _recurrent(init, forward, decode, init_state) -> Mixer:
+    return Mixer(init, lambda p, cfg, x, token_mask: forward(
+        p, cfg, x, return_state=True, token_mask=token_mask), decode, init_state=init_state)
 
 
 MIXERS = {  # the mixers the port serves
@@ -88,18 +104,27 @@ MIXERS = {  # the mixers the port serves
                   attn.gqa_prefill_paged, attn.gqa_cache_shapes),
     "mla": Mixer(attn.init_mla, attn.mla_forward, attn.mla_decode, attn.mla_decode_paged,
                  attn.mla_prefill_paged, attn.mla_cache_shapes),
+    "mamba": _recurrent(mb.init_mamba, mb.mamba_forward, mb.mamba_decode,
+                        mb.mamba_init_state),
+    "mlstm": _recurrent(xl.init_mlstm, xl.mlstm_forward, xl.mlstm_decode,
+                        lambda cfg, b, dt, dev: xl.mlstm_init_state(cfg, b, dev)),
+    "slstm": _recurrent(xl.init_slstm, xl.slstm_forward, xl.slstm_decode,
+                        lambda cfg, b, dt, dev: xl.slstm_init_state(cfg, b, dev)),
 }
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """The port serves GQA and MLA attention with MoE or dense FFNs;
-    recurrent mixers and encoder-decoder models are later slices."""
+    """The port serves every decoder-only config; encoder-decoder models
+    are a later slice."""
     if cfg.encdec is not None:
         raise NotImplementedError("encoder-decoder models are not ported yet")
+
+
+def is_recurrent(cfg: ModelConfig) -> bool:
+    """Whether any layer carries per-row recurrent state."""
     unrolled, _, period = stack_plan(cfg)
-    for mixer, _ffn in [layer_signature(cfg, i) for i in unrolled] + list(period):
-        if mixer not in MIXERS:
-            raise NotImplementedError(f"{mixer} layers are not ported yet")
+    sigs = [layer_signature(cfg, i) for i in unrolled] + list(period)
+    return any(MIXERS[mixer].init_state is not None for mixer, _ in sigs)
 
 
 # ------------------------------------------------------------ layer init
@@ -154,26 +179,53 @@ def init_params(seed: int, cfg: ModelConfig, device=None) -> Params:
 
 
 # ------------------------------------------------------------ cache init
+def layer_tree(cfg: ModelConfig, leaf_fn) -> Params:
+    """{"layer<i>": leaf_fn(sig, ()), "stack": {"slot<j>": leaf_fn(sig,
+    (n_groups,))}}: the cache tree layout, one subtree per layer."""
+    unrolled_idx, n_groups, period = stack_plan(cfg)
+    tree: Params = {f"layer{li}": leaf_fn(layer_signature(cfg, li), ())
+                    for li in unrolled_idx}
+    tree["stack"] = {f"slot{j}": leaf_fn(sig, (n_groups,)) for j, sig in enumerate(period)}
+    return tree
+
+
+def init_layer_state(cfg: ModelConfig, sig: Sig, batch: int, device=None,
+                     lead=()) -> Params:
+    """A recurrent layer's per-row state at its init values and dtypes
+    ({"state": {key: [*lead, batch, ...]}}: the SSM state fp32 under bf16
+    params, xLSTM's m at -inf); {} for an attention layer."""
+    m = MIXERS[sig[0]]
+    if m.init_state is None:
+        return {}
+    state = m.init_state(cfg, batch, torch_dtype(cfg.param_dtype), device)
+    return {"state": {k: v.expand(*lead, *v.shape).clone() for k, v in state.items()}}
+
+
 def init_layer_cache(cfg: ModelConfig, sig: Sig, batch: int, seq: int, device=None,
                      lead=()) -> Params:
-    """Zeroed ring buffers of one attention layer: [*lead, batch, seq, ...]
-    per leaf of the mixer's `cache_shapes`."""
+    """One layer's contiguous cache: zeroed ring buffers [*lead, batch,
+    seq, ...] per leaf of an attention mixer's `cache_shapes`, or a
+    recurrent mixer's init state."""
+    m = MIXERS[sig[0]]
+    if m.cache_shapes is None:
+        return init_layer_state(cfg, sig, batch, device, lead)
     dt = torch_dtype(cfg.param_dtype)
     return {k: torch.zeros((*lead, batch, *shape), dtype=dt, device=device)
-            for k, shape in MIXERS[sig[0]].cache_shapes(cfg, seq).items()}
+            for k, shape in m.cache_shapes(cfg, seq).items()}
 
 
 def init_cache(cfg: ModelConfig, batch: int, seq: int, device=None) -> Params:
-    """The contiguous decode cache: "layer<i>" leaves [batch, seq, ...],
-    "stack" leaves [n_groups, batch, seq, ...]."""
+    """The contiguous decode cache: "layer<i>" leaves [batch, ...], "stack"
+    leaves [n_groups, batch, ...]."""
     check_supported(cfg)
-    unrolled_idx, n_groups, period = stack_plan(cfg)
-    cache: Params = {f"layer{li}": init_layer_cache(cfg, layer_signature(cfg, li), batch,
-                                                    seq, device)
-                     for li in unrolled_idx}
-    cache["stack"] = {f"slot{j}": init_layer_cache(cfg, sig, batch, seq, device, (n_groups,))
-                      for j, sig in enumerate(period)}
-    return cache
+    return layer_tree(cfg, lambda sig, lead: init_layer_cache(cfg, sig, batch, seq, device,
+                                                              lead))
+
+
+def init_states(cfg: ModelConfig, batch: int, device=None) -> Params:
+    """The per-row recurrent state of every layer ({} for attention
+    layers), in the cache tree layout: the paged layout's `slot_state`."""
+    return layer_tree(cfg, lambda sig, lead: init_layer_state(cfg, sig, batch, device, lead))
 
 
 def index_tree(tree, g: int):
@@ -191,9 +243,11 @@ def apply_layer(
     x: torch.Tensor,
     positions: torch.Tensor,
     *,
-    cache: Params,  # this layer's cache leaves, written in place, keyed as
-                    # MIXERS[mixer].cache_shapes: block pools when `tables`
-                    # is given, else ring buffers [B, S, ...]
+    cache: Params,  # this layer's cache, written in place: an attention
+                    # layer's leaves keyed as MIXERS[mixer].cache_shapes
+                    # (block pools when `tables` is given, else ring
+                    # buffers [B, S, ...]); a recurrent layer's rows'
+                    # {"state": {...}} ([B, ...]) in either layout
     tables: torch.Tensor | None = None,  # [B, nb] int32 block tables
     pos: torch.Tensor | None = None,  # decode: [B] int32 positions
     past_len: torch.Tensor | None = None,  # chunk prefill: [B] int32
@@ -206,11 +260,18 @@ def apply_layer(
     pools (a chunk after `past_len` cached tokens) when `tables` is
     given, else over the contiguous layout, where the tokens' entries land
     at the head of the rows' ring buffers with pad entries zeroed (the
-    reference's `prefill.merge`). Returns (x, expert_counts [E] int32 or
-    None)."""
-    mixer, ffn = sig
+    reference's `prefill.merge`). A recurrent layer decodes from its rows'
+    state and otherwise runs the masked forward from the init state (a
+    paged chunk included, as the reference's), and writes the new state
+    over the old. Returns (x, expert_counts [E] int32 or None)."""
     h = rmsnorm(p["norm1"], x, cfg.norm_eps)
-    m = MIXERS[mixer]
+    m = MIXERS[sig[0]]
+    if m.init_state is not None:
+        y, new = (m.decode(p["mixer"], cfg, h, cache["state"]) if pos is not None
+                  else m.forward(p["mixer"], cfg, h, token_mask))
+        for key, val in new.items():
+            cache["state"][key].copy_(val)
+        return _ffn(cfg, sig, p, x + y, token_mask, tiered_state, cold_capacity_frac)
     keys = list(m.cache_shapes(cfg, 0))
     a, b = (cache[key] for key in keys)
     if pos is not None and tables is not None:
@@ -227,7 +288,12 @@ def apply_layer(
             if token_mask is not None:  # pad entries zeroed
                 val = val * token_mask[(...,) + (None,) * (val.ndim - 2)].to(val.dtype)
             cache[key][:, :s] = val
-    x = x + y
+    return _ffn(cfg, sig, p, x + y, token_mask, tiered_state, cold_capacity_frac)
+
+
+def _ffn(cfg, sig, p, x, token_mask, tiered_state, cold_capacity_frac):
+    """A layer's FFN half: (x, expert_counts [E] int32 or None)."""
+    ffn = sig[1]
     counts = None
     if ffn != "none":
         h2 = rmsnorm(p["norm2"], x, cfg.norm_eps)
@@ -253,22 +319,30 @@ def _logits(params: Params, cfg: ModelConfig, x: torch.Tensor):
     return lm_head(params["head"], x)
 
 
-def _layers(params: Params, cfg: ModelConfig, cache: Params, tiered: Params | None):
+def _layers(params: Params, cfg: ModelConfig, cache: Params, tiered: Params | None,
+            states: Params | None = None):
     """(sig, layer params, layer cache, tier state) for every layer in
     execution order; stacked leaves come as views of their group. `cache`
-    is the paged pools or the contiguous cache (same tree layout)."""
+    is the paged pools or the contiguous cache (same tree layout); the
+    paged layout's per-row `states` merge into each layer's cache."""
     unrolled_idx, n_groups, period = stack_plan(cfg)
+
+    def merged(c, s):
+        return c if s is None else {**c, **s}
+
     for li in unrolled_idx:
         name = f"layer{li}"
         ts = tiered.get(name) if tiered else None
-        yield layer_signature(cfg, li), params[name], cache[name], ts
+        st = None if states is None else states[name]
+        yield layer_signature(cfg, li), params[name], merged(cache[name], st), ts
     ts_stack = tiered.get("stack") if tiered else None
     for g in range(n_groups):
         for j, sig in enumerate(period):
             slot = f"slot{j}"
             ts = index_tree(ts_stack[slot], g) if ts_stack and slot in ts_stack else None
+            st = None if states is None else index_tree(states["stack"][slot], g)
             yield (sig, index_tree(params["stack"][slot], g),
-                   index_tree(cache["stack"][slot], g), ts)
+                   merged(index_tree(cache["stack"][slot], g), st), ts)
 
 
 def _last_real(x: torch.Tensor, token_mask: torch.Tensor | None) -> torch.Tensor:
@@ -280,29 +354,34 @@ def _last_real(x: torch.Tensor, token_mask: torch.Tensor | None) -> torch.Tensor
     return x[torch.arange(x.shape[0], device=x.device), last][:, None]
 
 
-def _walk(params, cfg, x, positions, cache, tiered, cold_capacity_frac, **layer_kw):
+def _walk(params, cfg, x, positions, cache, tiered, cold_capacity_frac, states=None,
+          **layer_kw):
     """Every layer in execution order over `cache` (the paged pools or
-    the contiguous cache); `layer_kw` selects the mode as `apply_layer`
-    reads it. Returns (x, expert counts [n_layers, E]): one row per
-    layer, zeros for a layer without routed experts, as the reference
-    returns them."""
+    the contiguous cache) and, in the paged layout, the rows' recurrent
+    `states`; `layer_kw` selects the mode as `apply_layer` reads it.
+    Returns (x, expert counts [n_layers, E], new states): one counts row
+    per layer, zeros for a layer without routed experts, as the
+    reference returns them; the states are `states` (or, contiguous,
+    `cache`), written in place."""
     e = cfg.moe.n_experts if cfg.moe is not None else 1
     no_moe = torch.zeros((e,), dtype=torch.int32, device=x.device)
     counts_all = []
-    for sig, p, c, ts in _layers(params, cfg, cache, tiered):
+    for sig, p, c, ts in _layers(params, cfg, cache, tiered, states):
         x, counts = apply_layer(cfg, sig, p, x, positions, cache=c, tiered_state=ts,
                                 cold_capacity_frac=cold_capacity_frac, **layer_kw)
         counts_all.append(no_moe if counts is None else counts)
-    return x, torch.stack(counts_all)
+    return x, torch.stack(counts_all), cache if states is None else states
 
 
 def _decode(params, cfg, tokens, cache, tables, pos, tiered, cold_capacity_frac,
-            token_mask):
-    """One decode step over either layout: (logits [B, V], counts [L, E])."""
+            token_mask, states=None):
+    """One decode step over either layout: (logits [B, V], counts [L, E],
+    states)."""
     tmask = None if token_mask is None else token_mask.reshape(-1, 1)
-    x, counts = _walk(params, cfg, embed(params["embed"], tokens), pos[:, None], cache,
-                      tiered, cold_capacity_frac, tables=tables, pos=pos, token_mask=tmask)
-    return _logits(params, cfg, x)[:, 0], counts
+    x, counts, states = _walk(params, cfg, embed(params["embed"], tokens), pos[:, None],
+                              cache, tiered, cold_capacity_frac, states, tables=tables,
+                              pos=pos, token_mask=tmask)
+    return _logits(params, cfg, x)[:, 0], counts, states
 
 
 def prefill(
@@ -325,8 +404,8 @@ def prefill(
     b, s = tokens.shape
     cache = init_cache(cfg, b, cache_len or s, device=tokens.device)
     positions = torch.arange(s, dtype=torch.int32, device=tokens.device)[None, :]
-    x, _ = _walk(params, cfg, embed(params["embed"], tokens), positions, cache, tiered,
-                 cold_capacity_frac, token_mask=token_mask)
+    x, _, cache = _walk(params, cfg, embed(params["embed"], tokens), positions, cache,
+                        tiered, cold_capacity_frac, token_mask=token_mask)
     return _logits(params, cfg, _last_real(x, token_mask))[:, 0], cache
 
 
@@ -341,12 +420,13 @@ def decode_step(
     token_mask: torch.Tensor | None = None,  # [B] live rows
 ):
     """One decode step against the contiguous cache (ring buffers written
-    in place at pos % S). Returns (logits [B, V], cache, expert_counts
-    [n_layers, E]): one row per layer, zeros for a layer without routed
-    experts, as the reference's `decode_step` returns them."""
+    in place at pos % S, recurrent states over the old). Returns (logits
+    [B, V], cache, expert_counts [n_layers, E]): one row per layer, zeros
+    for a layer without routed experts, as the reference's `decode_step`
+    returns them."""
     pos = torch.as_tensor(pos, dtype=torch.int32, device=tokens.device).expand(tokens.shape[0])
-    logits, counts = _decode(params, cfg, tokens, cache, None, pos, tiered,
-                             cold_capacity_frac, token_mask)
+    logits, counts, cache = _decode(params, cfg, tokens, cache, None, pos, tiered,
+                                    cold_capacity_frac, token_mask)
     return logits, cache, counts
 
 
@@ -355,6 +435,7 @@ def decode_step_paged(
     cfg: ModelConfig,
     tokens: torch.Tensor,  # [B, 1] int
     pools: Params,
+    states: Params,  # the rows' recurrent state (`init_states` layout, [B, ...])
     tables: torch.Tensor,  # [B, nb] int32
     pos: torch.Tensor,  # [B] int32
     tiered: Params | None = None,
@@ -362,23 +443,28 @@ def decode_step_paged(
     token_mask: torch.Tensor | None = None,  # [B] live rows
 ):
     """One decode step against the paged KV cache. Returns (logits
-    [B, V], pools (written in place), expert_counts [n_layers, E]): one
-    row per layer in execution order, zeros for a layer without routed
-    experts, as the reference's `decode_step_paged` returns them."""
-    logits, counts = _decode(params, cfg, tokens, pools, tables, pos, tiered,
-                             cold_capacity_frac, token_mask)
-    return logits, pools, counts
+    [B, V], pools, states (both written in place), expert_counts
+    [n_layers, E]): one counts row per layer in execution order, zeros for
+    a layer without routed experts, as the reference's
+    `decode_step_paged` returns them. Dead rows' states advance too, as
+    the reference's do (admission prefill overwrites them)."""
+    logits, counts, states = _decode(params, cfg, tokens, pools, tables, pos, tiered,
+                                     cold_capacity_frac, token_mask, states)
+    return logits, pools, states, counts
 
 
 def _chunk(params, cfg, tokens, pools, tables, past_len, token_mask, tiered,
            cold_capacity_frac):
     """One masked chunk at positions past_len + [0, S) against the paged
-    pools: (hidden states [W, S, D], expert counts [n_layers, E])."""
+    pools, recurrent layers from their init state: (hidden states
+    [W, S, D], expert counts [n_layers, E], the rows' new states)."""
     s = tokens.shape[1]
     positions = (past_len[:, None]
                  + torch.arange(s, dtype=torch.int32, device=tokens.device)[None, :])
+    states = init_states(cfg, tokens.shape[0], tokens.device)
     return _walk(params, cfg, embed(params["embed"], tokens), positions, pools, tiered,
-                 cold_capacity_frac, tables=tables, past_len=past_len, token_mask=token_mask)
+                 cold_capacity_frac, states, tables=tables, past_len=past_len,
+                 token_mask=token_mask)
 
 
 def prefill_paged(
@@ -393,11 +479,14 @@ def prefill_paged(
     cold_capacity_frac: float = 0.25,
 ):
     """Suffix-only masked prefill of one chunk against the paged cache
-    (decode is the chunk-of-1 case of the same kernels). Returns
-    (last_real_token_logits [W, V], pools written in place)."""
-    x, _ = _chunk(params, cfg, tokens, pools, tables, past_len, token_mask, tiered,
-                  cold_capacity_frac)
-    return _logits(params, cfg, _last_real(x, token_mask))[:, 0], pools
+    (decode is the chunk-of-1 case of the same kernels). Recurrent layers
+    run the masked forward from the init state: rows with past_len > 0
+    need an attention-only arch, which the loop's `chunked` gate ensures.
+    Returns (last_real_token_logits [W, V], pools written in place, the
+    rows' recurrent states [W, ...])."""
+    x, _, states = _chunk(params, cfg, tokens, pools, tables, past_len, token_mask, tiered,
+                          cold_capacity_frac)
+    return _logits(params, cfg, _last_real(x, token_mask))[:, 0], pools, states
 
 
 def decode_verify(
@@ -419,7 +508,16 @@ def decode_verify(
     as the decode step it replaces does). A chunk of 1 is the decode
     step: the same kernel launches, and on the CPU the same plain
     functions on the same shapes. Returns (logits [W, K, V], pools
-    written in place, expert_counts [n_layers, E])."""
-    x, counts = _chunk(params, cfg, tokens, pools, tables, past_len, token_mask, tiered,
+    written in place, expert_counts [n_layers, E]).
+
+    A recurrent arch raises: a chunk would restart its layers from the
+    init state, not the rows' (the reference passes `cache={}` there,
+    model.py:857-867, behind the loop's spec gate)."""
+    if is_recurrent(cfg):
+        raise ValueError(
+            "decode_verify requires an attention-only arch: a verify chunk "
+            "cannot thread the rows' recurrent state"
+        )
+    x, counts, _ = _chunk(params, cfg, tokens, pools, tables, past_len, token_mask, tiered,
                        cold_capacity_frac)
     return _logits(params, cfg, x), pools, counts

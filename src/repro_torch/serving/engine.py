@@ -44,7 +44,7 @@ from repro_torch.models.model import (
 )
 from repro_torch.obs import resolve_obs
 from repro_torch.obs.metrics import RegistryStats
-from repro_torch.serving.kv_cache import SlotKVCache, gather_slots
+from repro_torch.serving.kv_cache import SlotKVCache, gather_slots, scatter_slots
 from repro_torch.serving.paged_kv import PagedKVCache
 from repro_torch.serving.tiered_moe import (
     TierSizes,
@@ -310,11 +310,12 @@ class TriMoEServingEngine:
         return out[0] if len(out) == 1 else torch.cat(out)
 
     def step_slots_paged(self, tokens, pos, slot_indices, tables, live=None):
-        """Paged decode of the active zigzag group: K/V reads and writes
-        go through the block pools by each row's table ([W, nb] int32),
-        SLICED to the pow2-bucketed active width first. Dead rows write
-        to the trash block. Returns (logits [W, V], expert_counts [L, E])
-        without replanning."""
+        """Paged decode of the active zigzag group: recurrent state rows
+        gather and scatter by slot index (reference :279-285), K/V reads
+        and writes go through the block pools by each row's table
+        ([W, nb] int32), SLICED to the pow2-bucketed active width first.
+        Dead rows write to the trash block. Returns (logits [W, V],
+        expert_counts [L, E]) without replanning."""
         live = (
             np.ones((len(slot_indices),), bool) if live is None
             else np.asarray(live, bool)
@@ -331,12 +332,15 @@ class TriMoEServingEngine:
         width = active_block_width(mx, self.kv.block_size, max(1, self.kv.blocks_per_slot))
         self.decode_table_widths.add(width)
         tables = np.ascontiguousarray(tables[:, :width])
-        logits, _, counts = decode_step_paged(
-            self.params, self.cfg, self._dev(tokens), self.kv.pools,
+        # the group's recurrent state rows move as the contiguous layout's do
+        sub = gather_slots(self.kv.slot_state, slot_indices)
+        logits, _, sub, counts = decode_step_paged(
+            self.params, self.cfg, self._dev(tokens), self.kv.pools, sub,
             self._dev(tables), self._dev(pos), tiered=self.tiered,
             cold_capacity_frac=self.cold_capacity_frac,
             token_mask=self._dev(live, torch.bool),
         )
+        scatter_slots(self.kv.slot_state, sub, slot_indices)
         self.stats.steps += 1
         return logits, counts
 
@@ -347,8 +351,9 @@ class TriMoEServingEngine:
         padded; lengths [W] real lengths; past_len [W] tokens cached
         before the chunk. Tables are sliced to the pow2 active width of
         the furthest row end, rows padded to `prefill_rows` (dummy rows:
-        all-trash tables, zero mask). Returns last-real-token logits
-        [W, V]."""
+        all-trash tables, zero mask). The real rows' recurrent states are
+        scattered into their slots; the dummy rows' never are (reference
+        :571-579). Returns last-real-token logits [W, V]."""
         suffixes = np.asarray(suffixes, np.int32)
         lengths = np.asarray(lengths, np.int32)
         past_len = np.asarray(past_len, np.int32)
@@ -374,11 +379,14 @@ class TriMoEServingEngine:
             tables[:nr] = self.kv.table_rows(slot_indices[c0:c0 + nr])[:, :tw]
             self._check_chunk_writes(tables, past, lens, np.arange(r) < nr)
             token_mask = np.arange(width)[None, :] < lens[:, None]
-            logits, _ = prefill_paged(
+            logits, _, row_states = prefill_paged(
                 self.params, self.cfg, self._dev(toks), self.kv.pools,
                 self._dev(tables), self._dev(past), self._dev(token_mask, torch.bool),
                 tiered=self.tiered, cold_capacity_frac=self.cold_capacity_frac,
             )
+            if nr < r:  # drop the dummy rows before scattering state
+                row_states = gather_slots(row_states, list(range(nr)))
+            scatter_slots(self.kv.slot_state, row_states, list(slot_indices[c0:c0 + nr]))
             out.append(logits[:nr])
             self.stats.prefills += nr
             self.stats.prefill_tokens += int(lens.sum())
@@ -438,8 +446,9 @@ class TriMoEServingEngine:
         tables[live] = self.kv.table_rows(slot_indices)[:, :tw][live]
         self._check_chunk_writes(tables, past, lens, live)
         token_mask = np.arange(kw)[None, :] < lens[:, None]
-        # the port's pools hold attention K/V only (no per-slot recurrent
-        # state, `check_supported`), so there is no slot state to scatter
+        # no slot state to scatter: `decode_verify` raises for a recurrent
+        # arch (a chunk would restart its layers from the init state, not
+        # the rows'), as the loop's spec gate refuses one
         logits, _, counts = decode_verify(
             self.params, self.cfg, self._dev(toks), self.kv.pools, self._dev(tables),
             self._dev(past), self._dev(token_mask, torch.bool), tiered=self.tiered,

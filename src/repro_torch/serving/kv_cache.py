@@ -3,36 +3,32 @@ repro/serving/kv_cache.py: `cache_bytes` :34, `gather_slots` :47,
 `scatter_slots` :56, `reset_slots` :70, `SlotKVCache` :90).
 
 The model's contiguous cache (`models.model.init_cache`) holds, per slot,
-a ring buffer of static length for every attention layer. Top-level keys
-are "layer<i>" (unrolled prefix layers; leaves carry the slot dim on axis
-0) and "stack" (scanned layers; leaves carry the scan-group dim on axis 0
-and the slot dim on axis 1). Every row-level operation here respects that
+a ring buffer of static length for every attention layer and the
+recurrent state ({"state": {...}}, nested) of every Mamba / xLSTM layer.
+Top-level keys are "layer<i>" (unrolled prefix layers; leaves carry the
+slot dim on axis 0) and "stack" (scanned layers; leaves carry the
+scan-group dim on axis 0 and the slot dim on axis 1). Every row-level operation here respects that
 split. `gather_slots` copies rows out; `scatter_slots` and `reset_slots`
 write in place (the JAX functions return new trees).
 """
 from __future__ import annotations
 
-import math
 from typing import List, Optional, Sequence
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.layers import torch_dtype
-from repro_torch.models.model import MIXERS, check_supported, init_cache, layer_signature
+from repro_torch.models.model import init_cache
 
 
 def cache_bytes(cfg: ModelConfig, batch: int, seq: int) -> int:
-    """Bytes of a contiguous cache of `batch` rows of `seq` tokens, as
-    `init_cache` allocates it: 2 * Kv * hd values per token of an
-    attention layer, kv_lora_rank + qk_rope_head_dim of an MLA layer."""
-    check_supported(cfg)
-    itemsize = torch_dtype(cfg.param_dtype).itemsize
-    return sum(
-        batch * math.prod(shape) * itemsize
-        for i in range(cfg.n_layers)
-        for shape in MIXERS[layer_signature(cfg, i)[0]].cache_shapes(cfg, seq).values()
-    )
+    """Bytes of a contiguous cache of `batch` rows of `seq` tokens: every
+    leaf of `init_cache` at its own dtype (the reference counts its
+    `eval_shape`), built on the meta device, which allocates nothing.
+    Attention layers hold ring buffers, recurrent layers their state (the
+    SSM and xLSTM states fp32 under bf16 params)."""
+    return sum(leaf.numel() * leaf.element_size()
+               for leaf in tree_leaves(init_cache(cfg, batch, seq, device="meta")))
 
 
 def _map(tree, fn):
@@ -87,7 +83,9 @@ def scatter_slots(cache, sub_cache, slot_indices):
 
 
 def reset_slots(cache, slot_indices):
-    """Zero the cache rows of recycled slots, in place."""
+    """Zero the cache rows of recycled slots, in place: every leaf, the
+    recurrent states' too (xLSTM's m then reads 0, not its init -inf, as
+    in the reference; the next admission's prefill writes a fresh state)."""
     for k, v in cache.items():
         ax = batch_axis(k)
         for a in tree_leaves(v):

@@ -22,10 +22,10 @@ vLLM/SGLang-style paged layout:
     prefix without recompute, refcount-0 radix blocks are reclaimed LRU
     when the pool runs dry, and copy-on-write protects a shared block
     if a writer ever diverges into it;
-  * the reference also keeps per-slot recurrent state (mamba/xlstm)
-    and gates prefix reuse off for such archs; the port serves GQA and
-    MLA attention models only (`models.model.check_supported`), whose
-    whole cache is token-addressable, so prefix reuse is always possible.
+  * recurrent state (Mamba / xLSTM) has no sequence dim: it stays
+    per slot in `slot_state`, and prefix reuse is gated off for archs
+    that carry it (a token-keyed prefix cannot rebuild a recurrent
+    state): `radix` is then None.
 
 Why it matters here: the TriMoE setting is HBM-budget-driven (paper
 §3.1) — every KV byte the pool does NOT commit relative to the
@@ -42,7 +42,13 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import torch_dtype
-from repro_torch.models.model import MIXERS, check_supported, layer_signature, stack_plan
+from repro_torch.models.model import (
+    MIXERS,
+    check_supported,
+    init_states,
+    is_recurrent,
+    layer_tree,
+)
 from repro_torch.serving.kv_cache import batch_axis, cache_bytes, tree_leaves
 from repro_torch.serving.kv_sanitizer import KVSanitizer, SanitizerError, sanitize_default
 
@@ -51,32 +57,29 @@ def prefix_cacheable(cfg: ModelConfig) -> bool:
     """Prefix reuse (and chunked prefill) needs every mixer's cache to be
     token-position addressable: attention K/V and MLA latents qualify;
     recurrent state and enc-dec cross K/V do not (reference :45)."""
-    if cfg.encdec is not None:
-        return False
-    unrolled, _, period = stack_plan(cfg)
-    sigs = [layer_signature(cfg, li) for li in unrolled] + list(period)
-    return all(mixer in ("attn", "mla") for mixer, _ in sigs)
+    return cfg.encdec is None and not is_recurrent(cfg)
 
 
-def init_paged_cache(cfg: ModelConfig, n_blocks: int, block_size: int,
+def init_paged_cache(cfg: ModelConfig, n_slots: int, n_blocks: int, block_size: int,
                      device=None):
-    """The block pools of the paged layout, one set per attention layer:
-    [n_blocks + 1, block_size, ...] per leaf of the mixer's `cache_shapes` (stack
-    leaves: [G, n_blocks + 1, ...]); the last block is the write trash.
-    The reference also returns per-slot state for recurrent mixers, which
-    the port does not serve yet (`check_supported`)."""
+    """(pools, slot_state) of the paged layout (reference :61). pools: one
+    set per attention layer, [n_blocks + 1, block_size, ...] per leaf of
+    the mixer's `cache_shapes` (stack leaves: [G, n_blocks + 1, ...]); the
+    last block is the write trash. slot_state: every recurrent layer's
+    state, one row per slot, at its real init values (xLSTM's m at -inf),
+    in the same "layer<i>" / "stack" layout, so the slot gather / scatter
+    helpers apply to it unchanged."""
     check_supported(cfg)
-    unrolled, n_groups, period = stack_plan(cfg)
     dt = torch_dtype(cfg.param_dtype)
 
-    def pools_of(sig, lead=()):
-        return {k: torch.zeros((*lead, n_blocks + 1, block_size, *shape[1:]), dtype=dt,
-                               device=device)
-                for k, shape in MIXERS[sig[0]].cache_shapes(cfg, block_size).items()}
+    def pools_of(sig, lead):
+        shapes = MIXERS[sig[0]].cache_shapes
+        return {} if shapes is None else {
+            k: torch.zeros((*lead, n_blocks + 1, block_size, *shape[1:]), dtype=dt,
+                           device=device)
+            for k, shape in shapes(cfg, block_size).items()}
 
-    pools: Dict = {f"layer{li}": pools_of(layer_signature(cfg, li)) for li in unrolled}
-    pools["stack"] = {f"slot{j}": pools_of(sig, (n_groups,)) for j, sig in enumerate(period)}
-    return pools
+    return layer_tree(cfg, pools_of), init_states(cfg, n_slots, device)
 
 
 # --------------------------------------------------------- radix index
@@ -283,7 +286,8 @@ class PagedKVCache:
             n_blocks if n_blocks is not None
             else n_slots * self.blocks_per_slot
         )
-        self.pools = init_paged_cache(cfg, self.n_blocks, bs, device)
+        self.pools, self.slot_state = init_paged_cache(cfg, n_slots, self.n_blocks, bs,
+                                                       device)
         self.trash = self.n_blocks  # sentinel physical block id
         self.tables = np.full(
             (n_slots, self.blocks_per_slot), self.trash, np.int32
@@ -293,7 +297,7 @@ class PagedKVCache:
         self._free: List[int] = list(range(self.n_blocks))
         self._slot_free: List[int] = list(range(n_slots))
         self.radix = (
-            RadixPrefixIndex(bs) if prefix_cache else None
+            RadixPrefixIndex(bs) if prefix_cache and prefix_cacheable(cfg) else None
         )
         self.stats = PagedStats()
         # None = resolve from $REPRO_KV_SANITIZE (tests turn it on suite-
@@ -318,7 +322,10 @@ class PagedKVCache:
         )
 
     def paged_bytes(self) -> int:
-        return sum(leaf.numel() * leaf.element_size() for leaf in tree_leaves(self.pools))
+        """Bytes of the pools and the per-slot recurrent state, each leaf
+        at its own dtype (reference :353)."""
+        return sum(leaf.numel() * leaf.element_size()
+                   for tree in (self.pools, self.slot_state) for leaf in tree_leaves(tree))
 
     def reclaimed_bytes(self, cache_len: int) -> int:
         """HBM the paged layout hands back vs the contiguous SlotKVCache

@@ -1,7 +1,8 @@
 """bf16 parity gate between the PyTorch port and the JAX package.
 
-The granite (GQA) and deepseek (MLA, a dense first layer, shared experts)
-smoke configs at their default bf16 `param_dtype` and `compute_dtype`;
+The granite (GQA), deepseek (MLA, a dense first layer, shared experts)
+and jamba (Mamba + GQA + MoE) smoke configs at their default bf16
+`param_dtype` and `compute_dtype`;
 both packages get the same bridged params and tier state
 (`repro_torch.bridge.to_torch`), on the CPU (the port's plain versions,
 the JAX package's reference backends).
@@ -9,15 +10,16 @@ the JAX package's reference backends).
 (a) Layer by layer. Every layer of one `prefill_paged` chunk, then of one
 `decode_step_paged` step, runs in its two residual halves: the mixer half
 x + attn(norm1(x)) and the FFN half x + ffn(norm2(x)). Each half of each
-package gets the SAME bf16 input, the JAX run's (the JAX run's pools too,
-for the decode step), so errors do not compound; its output is held to
+package gets the SAME bf16 input, the JAX run's (the JAX run's pools and
+recurrent states too, for the decode step), so errors do not compound; its output is held to
 its bound, and an MoE half's router scores and expert counts are
 compared.
 
 (b) End to end. Each package runs `prefill_paged` and two
 `decode_step_paged` steps on its own pools (the decode tokens are the
 JAX run's argmax, fed to both), and the logits are held to the composed
-bound. Then each runs one speculative verify chunk (`decode_verify`) of
+bound. Then, for an attention-only arch (a recurrent one refuses
+`decode_verify`), each runs one speculative verify chunk of
 width V = 4 over the JAX run's pools as the prefill left them (bridged to
 the port, so the cache it reads is the same in both): each row's chunk
 is [the JAX prefill's argmax, random drafts], V_r in 1..4 real tokens at
@@ -40,6 +42,12 @@ longer path in every half (the port keeps scores and GEMV sums in fp32):
 - MLA mixer half, 8: norm1; q and kv_a projections; rope of q_rope and
   krope; the latent scores, softmax and values are fp32; o cast to bf16
   after the fp32 W_v expansion; wo; the residual sum.
+- Mamba mixer half, 18: norm1; in_proj (x and z); the causal conv, tap
+  by tap in bf16: 4 products, 3 sums and the bias; the SiLU cast; x_proj
+  (dt, B and C); dt_proj; dt, abar, Bx, the scan and C h are fp32; y cast
+  to bf16; the SiLU(z) cast; y * SiLU(z); out_proj; the residual sum. The
+  same in a prefill chunk (from the zero state) and a decode step (from
+  the JAX run's {ssm, conv}).
 - MoE FFN half, 8 + top_k (+ 6 with shared experts): norm2; the router is
   fp32; each expert's gate, up, silu cast, gate * up, down; the routing
   weight cast and the weighted product; top_k - 1 sums of a token's
@@ -56,8 +64,9 @@ is common, so no earlier pass's error reaches it, and its position i
 reads the chunk's own K/V of positions 0..i, computed in the same pass,
 as a prefill chunk's positions do; a chunk wider than 1 runs the MoE on
 the grouped path of a prefill chunk, whose halves K counts.
-With K = 84 (granite smoke: 4 layers x (11 + 10)) or 87 (deepseek),
-k * u is 0.34 at the prefill step and 0.66-1.03 at the decode steps:
+With K = 84 (granite smoke: 4 layers x (11 + 10)), 87 (deepseek) or 99
+(jamba: 3 Mamba, 1 GQA, 2 dense, 2 MoE halves of 18, 11, 7 and 10),
+k * u is 0.34-0.39 at the prefill step and 0.66-1.17 at the decode steps:
 a worst-case sum of roundings that mostly do not line up. So (b) is a
 precision gate at the prefill step only (a 25% error in the logits'
 scale reads 0.61 of that bound); at a decode step the bound is as large
@@ -110,9 +119,9 @@ from repro_torch.models import model as tm
 from repro_torch.serving.paged_kv import init_paged_cache
 from repro_torch.serving.tiered_moe import TierSizes
 
-ARCHS = ["granite-moe-1b-a400m", "deepseek-v2-236b"]
+ARCHS = ["granite-moe-1b-a400m", "deepseek-v2-236b", "jamba-v0.1-52b"]
 U = 2.0 ** -8
-K_MIXER = {"attn": 11, "mla": 8}
+K_MIXER = {"attn": 11, "mla": 8, "mamba": 18}
 K_HEAD = 2
 K_ROUTER = 1
 W, S, BS = 64, 16, 4  # rows (the decode step's tokens), chunk width, block size
@@ -295,6 +304,7 @@ def layer_by_layer(st, rec):
             cache=pools[name], token_mask=jnp.asarray(mask), paged_tables=jnp.asarray(tables),
             paged_past_len=jnp.asarray(past))
         tpool = to_torch(jax.tree.map(np.asarray, pools[name]))
+        tpool.update(tm.init_layer_state(tcfg, half, W))  # a recurrent layer's rows
         xm_t, _ = tm.apply_layer(
             tcfg, half, to_torch(jp), to_torch(x), torch.tensor(positions), cache=tpool,
             tables=torch.tensor(tables), past_len=torch.tensor(past),
@@ -389,16 +399,15 @@ def end_to_end(st, rec, nxt, rows):
     tables, lens = st["tables"], st["lens"]
     mask = np.arange(S)[None, :] < lens[:, None]
     past = np.zeros(W, np.int32)
-    jpools, jstates = jax_init_paged_cache(jcfg, W, st["n_blocks"], BS)
-    tpools = init_paged_cache(tcfg, st["n_blocks"], BS, device="cpu")
-    jl, jpools, _ = jm.prefill_paged(st["params"], jcfg, {"tokens": jnp.asarray(st["toks"])},
-                                     jpools, jnp.asarray(tables), jnp.asarray(past),
-                                     jnp.asarray(mask), tiered=st["tiered"],
-                                     cold_capacity_frac=1.0)
+    jpools, _ = jax_init_paged_cache(jcfg, W, st["n_blocks"], BS)
+    tpools, _ = init_paged_cache(tcfg, W, st["n_blocks"], BS, device="cpu")
+    jl, jpools, jstates = jm.prefill_paged(
+        st["params"], jcfg, {"tokens": jnp.asarray(st["toks"])}, jpools, jnp.asarray(tables),
+        jnp.asarray(past), jnp.asarray(mask), tiered=st["tiered"], cold_capacity_frac=1.0)
     jpools_prefill, first = jpools, nxt
-    tl, _ = tm.prefill_paged(st["tp"], tcfg, torch.tensor(st["toks"]), tpools,
-                             torch.tensor(tables), torch.tensor(past), torch.tensor(mask),
-                             tiered=st["tt"], cold_capacity_frac=1.0)
+    tl, _, tstates = tm.prefill_paged(
+        st["tp"], tcfg, torch.tensor(st["toks"]), tpools, torch.tensor(tables),
+        torch.tensor(past), torch.tensor(mask), tiered=st["tt"], cold_capacity_frac=1.0)
     logits = [(tl, jl)]
     tmasks = [mask]
     pos, live = lens.copy(), np.ones(W, bool)
@@ -407,9 +416,10 @@ def end_to_end(st, rec, nxt, rows):
             st["params"], jcfg, jnp.asarray(nxt), jpools, jstates, jnp.asarray(tables),
             jnp.asarray(pos), tiered=st["tiered"], cold_capacity_frac=1.0,
             token_mask=jnp.asarray(live))
-        tl, _, _ = tm.decode_step_paged(
-            st["tp"], tcfg, torch.tensor(nxt), tpools, torch.tensor(tables), torch.tensor(pos),
-            tiered=st["tt"], cold_capacity_frac=1.0, token_mask=torch.tensor(live))
+        tl, _, _, _ = tm.decode_step_paged(
+            st["tp"], tcfg, torch.tensor(nxt), tpools, tstates, torch.tensor(tables),
+            torch.tensor(pos), tiered=st["tt"], cold_capacity_frac=1.0,
+            token_mask=torch.tensor(live))
         logits.append((tl, jl))
         tmasks.append(live[:, None])
         nxt = np.asarray(jl).astype(np.float32).argmax(-1).astype(np.int32)[:, None]
@@ -431,8 +441,9 @@ def end_to_end(st, rec, nxt, rows):
     for step, (tl, jl) in enumerate(logits):
         k = (step + 1) * k_all + K_HEAD
         worst.append((round(k * U, 3), _hold(f"step {step} logits", tl, jl, k, keep)))
-    _, w = verify_chunk(st, rec, jpools_prefill, first)
-    worst.append((round((k_all + K_HEAD) * U, 3), w))
+    if not tm.is_recurrent(tcfg):
+        _, w = verify_chunk(st, rec, jpools_prefill, first)
+        worst.append((round((k_all + K_HEAD) * U, 3), w))
     return keep, worst
 
 

@@ -396,6 +396,84 @@ def test_paged_gqa_verify_chunk_matches_plain(cuda_device, dtype):
         assert ((got[real].float() - want[real].float()).abs() <= bound[real]).all()
 
 
+# --------------------------------------------- jamba-v0.1-52b's kernel shapes
+JAMBA_D, JAMBA_F = 4096, 14336  # d_model, d_expert
+
+
+def _jamba_buffer(dev, dtype, n_slots, seed):
+    """A [n_slots, 3, 4096, 14336] tier buffer (gate, up, down transposed),
+    drawn on the card: ~0.7-1.8 GB of weights."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    w = torch.randn(n_slots, 3, JAMBA_D, JAMBA_F, generator=gen, device=dev)
+    return w.mul_(JAMBA_D ** -0.5).to(dtype), gen
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c", [1, 64])
+def test_paged_gqa_at_jamba_widths(cuda_device, dtype, c):
+    """jamba's attention layer (8 KV heads, G 4, hd 128) over 18-block
+    tables: a decode step and the 64-token whole-suffix bucket; bf16 held
+    to `gqa_rounding_bound`, fp32 to 1e-5."""
+    dev = cuda_device
+    args = _gqa_case(np.random.default_rng(70 + c), dev, dtype, b=5, c=c, g=4, hd=128,
+                     nb=18, kv=8)
+    got = paged_prefill_gqa(*args, backend="cuda")
+    want = paged_prefill_gqa_ref(*args)
+    real = torch.arange(c, device=dev)[None, :] < args[-1][:, None]
+    assert got.dtype == dtype and torch.isfinite(got[real].float()).all()
+    if dtype == torch.float32:
+        torch.testing.assert_close(got[real], want[real], atol=1e-5, rtol=1e-5)
+    else:
+        bound = gqa_rounding_bound(*args[:5])
+        assert ((got[real].float() - want[real].float()).abs() <= bound[real]).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n_slots,t,live", [(4, 4, 4), (5, 4, 2), (7, 8, 3)])
+def test_expert_gemv_at_jamba_widths(cuda_device, dtype, n_slots, t, live):
+    """jamba's decode tiers (D 4096, F 14336: about 9x the F panels a
+    slot has at deepseek's widths): hot 4 slots all live, warm 5 with 2
+    live, a cold-like 7 with 3 live at 8 tokens. Slots past `live` have
+    no tokens; bf16 holds `gemv_rounding_bound` and gives them exactly
+    zero, fp32 holds 1e-5."""
+    dev = cuda_device
+    buf, gen = _jamba_buffer(dev, dtype, n_slots, 80 + n_slots)
+    x = torch.randn(n_slots, t, JAMBA_D, generator=gen, device=dev).to(dtype)
+    x[live:] = 0
+    w1, w3, w2 = buf[:, 0], buf[:, 1], buf[:, 2].transpose(1, 2)
+    got = expert_ffn_gemv(x, w1, w3, w2, backend="cuda")
+    want = expert_ffn_gemv_ref(x, w1, w3, w2)
+    assert got.dtype == dtype and torch.isfinite(got.float()).all()
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+    else:
+        assert (got[live:] == 0).all()
+        bound = gemv_rounding_bound(x, w1, w3, w2)
+        assert ((got.float() - want.float()).abs() <= bound).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("pair", [True, False])
+def test_moe_gemm_at_jamba_widths(cuda_device, dtype, pair):
+    """A prefill call's hot tier at jamba's widths, 4 slots x 128 rows:
+    gate|up (K 4096, N 28672, read as the buffer's panel pair) and down
+    (K 14336, N 4096, the stored matrix transposed); bf16 held to
+    `_gemm_bound`, fp32 to 1e-4."""
+    dev = cuda_device
+    buf, gen = _jamba_buffer(dev, dtype, 4, 90 + pair)
+    x = torch.randn(4 * 128, JAMBA_D if pair else JAMBA_F, generator=gen, device=dev)
+    x = x.to(dtype)
+    w = (buf[:, 0], buf[:, 1]) if pair else buf[:, 2].transpose(1, 2)
+    te = torch.arange(4, dtype=torch.int32, device=dev)
+    got = moe_gemm(x, w, te, backend="cuda")
+    want = moe_gemm_ref(x, w, te)
+    assert got.dtype == dtype and torch.isfinite(got.float()).all()
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+    else:
+        assert ((got.float() - want.float()).abs() <= _gemm_bound(x, w, te, 128)).all()
+
+
 @pytest.mark.parametrize("pool_dtype", [torch.float32, torch.bfloat16])
 def test_paged_mla_verify_chunk_at_deepseek_widths(cuda_device, pool_dtype):
     dev = cuda_device

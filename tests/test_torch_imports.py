@@ -39,5 +39,6 @@ def test_port_imports_no_jax_and_nothing_of_repro():
                 "repro_torch.kernels.flash_attention.ops",
                 "repro_torch.kernels.flash_attention.ref",
                 "repro_torch.kernels.paged_attention.kernel",
-                "repro_torch.models.attention", "repro_torch.serving.kv_cache"):
+                "repro_torch.models.attention", "repro_torch.serving.kv_cache",
+                "repro_torch.models.mamba", "repro_torch.models.xlstm"):
         assert mod in res["modules"]

@@ -216,7 +216,7 @@ def test_mla_pools_and_cache_bytes_match_jax(param_dtype):
     tcfg = dataclasses.replace(tcfgs.reduce_for_smoke(tcfgs.get_config(ARCH)),
                                param_dtype=param_dtype)
     jpools, _ = jax_init_paged_cache(jcfg, 3, 10, 4)
-    assert _shapes(init_paged_cache(tcfg, 10, 4, device="cpu")) == _shapes(
+    assert _shapes(init_paged_cache(tcfg, 3, 10, 4, device="cpu")[0]) == _shapes(
         jax.tree.map(np.asarray, jpools))
     for batch, seq in ((4, 16), (8, 72)):
         assert cache_bytes(tcfg, batch, seq) == jax_cache_bytes(jcfg, batch, seq)

@@ -166,9 +166,9 @@ def test_prefill_then_decode_logits_match(arch):
                                       jnp.asarray(tables), jnp.asarray(past),
                                       jnp.asarray(mask), tiered=tiered,
                                       cold_capacity_frac=1.0)
-    tpools = init_paged_cache(tcfg, n_blocks, bs, device="cpu")
+    tpools, tstates = init_paged_cache(tcfg, 3, n_blocks, bs, device="cpu")
     tp, tt = to_torch(params), to_torch(tiered)
-    tl, tpools = prefill_paged(tp, tcfg, torch.tensor(toks), tpools, torch.tensor(tables),
+    tl, tpools, _ = prefill_paged(tp, tcfg, torch.tensor(toks), tpools, torch.tensor(tables),
                                torch.tensor(past), torch.tensor(mask), tiered=tt,
                                cold_capacity_frac=1.0)
     _close(tl, jl, atol=1e-4)
@@ -189,9 +189,9 @@ def test_prefill_then_decode_logits_match(arch):
     jd, _, _, jc = jax_decode_step_paged(params, jcfg, jnp.asarray(nxt), jpools, states,
                                          jnp.asarray(dtab), jnp.asarray(pos), tiered=tiered,
                                          cold_capacity_frac=1.0, token_mask=jnp.asarray(live))
-    td, _, tc = decode_step_paged(tp, tcfg, torch.tensor(nxt), tpools, torch.tensor(dtab),
-                                  torch.tensor(pos), tiered=tt, cold_capacity_frac=1.0,
-                                  token_mask=torch.tensor(live))
+    td, _, _, tc = decode_step_paged(tp, tcfg, torch.tensor(nxt), tpools, tstates,
+                                     torch.tensor(dtab), torch.tensor(pos), tiered=tt,
+                                     cold_capacity_frac=1.0, token_mask=torch.tensor(live))
     _close(td[:2], np.asarray(jd)[:2], atol=1e-4)
     np.testing.assert_array_equal(td[:2].argmax(-1).numpy(), np.asarray(jd)[:2].argmax(-1))
     np.testing.assert_array_equal(tc.numpy(), np.asarray(jc))
