@@ -21,7 +21,16 @@ Phases, each fatal on failure:
      run xlstm-125m at full width and depth (bf16 prefill and 16 decode
      steps through the contiguous and the paged model functions: equal
      tokens, no kernel launched; fp32 smoke logits on the card within
-     1e-5 of the CPU's);
+     1e-5 of the CPU's); hold the differentiable moe_gemm's output and
+     gradients (the SwiGLU FFN of granite's training buffers, h [32, 1280,
+     1024]) against the plain route's autograd and time its two dX
+     products; train granite-moe-1b-a400m at full width and depth for 8
+     steps of 8 x 512 (finite, falling loss; moe_gemm 6 launches a MoE
+     layer a step and no other kernel), then generate from it without
+     tiers (moe_gemm on the prefill, the GEMV on the decode steps); two
+     fp32 smoke train steps on the card and the CPU (state within 1e-5,
+     equal expert counts) and a checkpoint of the card's state restored
+     on the CPU bitwise;
   4. serve granite-moe-1b-a400m (GQA) at full width and depth, then
      deepseek-v2-236b (MLA, dense layer 0, shared experts) at full width
      with its depth cut to 3 layers (bf16, seeded random weights),
@@ -47,8 +56,9 @@ Phases, each fatal on failure:
      skewed, bursty request trace (`replay_requests`) on both: it must
      drain with equal tokens; and jamba's smoke config in its paged
      default and slots modes.
-Prints one JSON line per phase (each with its seconds), the `kernels`
-JSON line, the card's name and power limit, and last the `ok` JSON line.
+`--profile` also profiles 2 train steps. Prints one JSON line per phase
+(each with its seconds), the `kernels` JSON line (moe_gemm's with its
+train-step dX rows), the card's name and power limit, and last the `ok` JSON line.
 Imports nothing of JAX: the machine with the card has none.
 """
 from __future__ import annotations
@@ -60,6 +70,7 @@ import json
 import math
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -71,13 +82,21 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch.configs import get_config, reduce_for_smoke  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
-from repro_torch.kernels.expert_gemv import expert_ffn_gemv, gemv_rounding_bound  # noqa: E402
+from repro_torch.kernels.expert_gemv import (  # noqa: E402
+    cold_expert_ffn,
+    expert_ffn_gemv,
+    gemv_rounding_bound,
+)
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention,
     mha,
     rounding_bound,
 )
-from repro_torch.kernels.moe_gemm import moe_gemm  # noqa: E402
+from repro_torch.checkpoint import restore, save  # noqa: E402
+from repro_torch.data.pipeline import SyntheticCorpus  # noqa: E402
+from repro_torch.kernels.moe_gemm import grouped_expert_ffn, moe_gemm  # noqa: E402
+from repro_torch.kernels.moe_gemm.kernel import _launch as gemm_launch  # noqa: E402
+from repro_torch.kernels.moe_gemm.ref import grad_rounding_bound, moe_gemm_ref  # noqa: E402
 from repro_torch.kernels.paged_attention import (  # noqa: E402
     gqa_rounding_bound,
     linearize_blocks,
@@ -91,6 +110,7 @@ from repro_torch.models.mamba import _assoc_scan, mamba_decode, mamba_forward  #
 from repro_torch.models.model import (  # noqa: E402
     decode_step,
     decode_step_paged,
+    forward_train,
     init_params,
     is_recurrent,
     prefill,
@@ -105,6 +125,14 @@ from repro_torch.serving.loop import ServingLoop  # noqa: E402
 from repro_torch.serving.paged_kv import PagedStats, init_paged_cache  # noqa: E402
 from repro_torch.serving.replay import replay_requests  # noqa: E402
 from repro_torch.serving.tiered_moe import TierSizes  # noqa: E402
+from repro_torch.training import (  # noqa: E402
+    AdamWConfig,
+    adamw_init,
+    init_train_state,
+    make_train_step,
+    value_and_grad,
+)
+from repro_torch.tree import leaves_with_path, tree_map  # noqa: E402
 
 HBM_BPS = 3.35e12  # H100 SXM HBM3 bytes/s (NVIDIA data sheet)
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense, no TF32
@@ -120,6 +148,10 @@ XLSTM_ARCH = "xlstm-125m"
 # the cold buffer pads to 16 slots: ~35 GB of tier buffers at 8 layers)
 ARCH_LOOP_KW = {JAMBA_ARCH: dict(sizes=TierSizes(4, 5, 7))}
 MHA_PATH = "mha"
+TRAIN_PATH = "train"  # granite-moe-1b-a400m trained at full width and depth
+GENERATE_PATH = "train/generate"  # then prefill + decode of the flat MoE model
+TRAIN_B, TRAIN_S, TRAIN_STEPS = 8, 512, 8
+TRAIN_OPT = AdamWConfig(lr=1e-3, warmup_steps=2)
 # source -> the tensor-core instruction its bf16 path must compile to
 TENSOR_CORE_KERNELS = {"moe_gemm": "HGMMA", "flash_attention": "HGMMA",
                        "paged_attention": "HGMMA", "paged_attention_mla": "HGMMA",
@@ -291,12 +323,16 @@ def attention_case(dtype, *, b, c, nb, past, dev, gen, lens=None, kv=8, g=2, hd=
     )
 
 
-def moe_gemm_case(dtype, *, n_slots, rows, d, f, pair, dev, gen, calls=32):
+def moe_gemm_case(dtype, *, n_slots, rows, d, f, pair, dev, gen, calls=32, flat=False):
     """Hot tier of a prefill chunk: n_slots groups of `rows` real rows
     padded to 128, over a tier buffer [n_slots, 3, d, f]. gate|up
     (k = d, n = 2f) reads its two panels as one; down (k = f, n = d)
-    reads the stored [d, f] matrix transposed. Library: torch.bmm over
-    the concatenated (or copied) weights."""
+    reads the stored [d, f] matrix transposed. `flat`: the flat MoE's
+    own parameters instead (its prefill and training forward), all
+    experts as groups: gate|up over the [E, d, 2f] panel that
+    `grouped_expert_ffn` joins from the separate [E, d, f] parameters by
+    torch.cat, down over the row-major [E, f, d] parameter. Library:
+    torch.bmm over the concatenated (or copied) weights."""
     bm = 128
     k, n = (d, 2 * f) if pair else (f, d)
     c_pad = -(-rows // bm) * bm
@@ -304,9 +340,13 @@ def moe_gemm_case(dtype, *, n_slots, rows, d, f, pair, dev, gen, calls=32):
     x = torch.zeros(n_slots, c_pad, k, dtype=dtype, device=dev)
     x[:, :rows] = torch.randn(n_slots, rows, k, generator=gen).to(dev, dtype)
     x = x.reshape(n_slots * c_pad, k)
-    w = (buf[:, 0], buf[:, 1]) if pair else buf[:, 2].transpose(1, 2)
+    if flat:
+        w = torch.cat([buf[:, 0], buf[:, 1]], -1) if pair else buf[:, 2].transpose(1, 2)
+        w = w.contiguous()
+    else:
+        w = (buf[:, 0], buf[:, 1]) if pair else buf[:, 2].transpose(1, 2)
     te = torch.arange(n_slots, dtype=torch.int32, device=dev).repeat_interleave(c_pad // bm)
-    wj = torch.cat(list(w), -1) if pair else w.contiguous()
+    wj = torch.cat(list(w), -1) if pair and not flat else w.contiguous()
     isz = x.element_size()
     nbytes = (x.numel() + n_slots * k * n + x.shape[0] * n) * isz
     return dict(
@@ -320,9 +360,15 @@ def moe_gemm_case(dtype, *, n_slots, rows, d, f, pair, dev, gen, calls=32):
     )
 
 
-def gemv_case(dtype, *, n_slots, t, dev, gen, d=1024, f=512, live=None, calls=32):
+def gemv_case(dtype, *, n_slots, t, dev, gen, d=1024, f=512, live=None, calls=32,
+              flat=False):
     """One tier of a decode step: n_slots experts, t tokens each, read as
-    views of the [n, 3, D, F] tier buffer (down matrix transposed). With
+    views of the [n, 3, D, F] tier buffer (down matrix transposed).
+    `flat`: the flat MoE's decode step instead, all experts as slots over
+    the model's own parameters, the row-major [E, F, D] w_down read in
+    place, through `cold_expert_ffn` as the model calls it; in bf16 also
+    timed as `copied`: w_down first copied into the tier layout, as the
+    wrapper did before the down pass read the row-major layout. With
     `live`, only the first `live` slots have tokens and the others' rows
     are zero, as dispatch leaves a slot no token was routed to; the bound
     then counts only the live slots' weight bytes, which is all the work
@@ -334,6 +380,9 @@ def gemv_case(dtype, *, n_slots, t, dev, gen, d=1024, f=512, live=None, calls=32
     n_live = n_slots if live is None else live
     x[n_live:] = 0
     w1, w3, w2 = buf[:, 0], buf[:, 1], buf[:, 2].transpose(1, 2)
+    if flat:
+        w2 = w2.contiguous()
+    launch = cold_expert_ffn if flat else expert_ffn_gemv
 
     def library(x, w13, w2c):
         gu = torch.bmm(x, w13)
@@ -345,12 +394,15 @@ def gemv_case(dtype, *, n_slots, t, dev, gen, d=1024, f=512, live=None, calls=32
         args=(x, w1, w3, w2), lib_args=(x, torch.cat([w1, w3], -1), w2.contiguous()),
         tol=(lambda: gemv_rounding_bound(x, w1, w3, w2)) if dtype == torch.bfloat16
         else GEMV_F32_TOL,
-        kernel=lambda *a: expert_ffn_gemv(*a, backend="cuda"),
+        kernel=lambda *a: launch(*a, backend="cuda"),
         plain=lambda *a: expert_ffn_gemv(*a, backend="ref"),
         library=library,
         held=(buf.numel() + x.numel()) * isz,
         bound=bound_ms(nbytes, 6.0 * n_live * t * d * f, dtype),
         calls=calls,
+        variants={"copied": lambda x, w1, w3, w2: expert_ffn_gemv(
+            x, w1, w3, w2.transpose(1, 2).contiguous().transpose(1, 2), backend="cuda")}
+        if flat and dtype == torch.bfloat16 else {},
     )
 
 
@@ -499,6 +551,17 @@ KERNEL_CASES = [  # (kernel, label, case, kwargs); the first per kernel is its J
      dict(n_slots=4, rows=128, d=4096, f=14336, pair=True, calls=8)),
     ("moe_gemm", "jamba down hot 4x128x14336x4096", moe_gemm_case,
      dict(n_slots=4, rows=128, d=4096, f=14336, pair=False, calls=8)),
+    # the train phase's generate through granite's flat MoE (no tiers):
+    # its prefill runs all 32 experts as groups of 128 rows over the
+    # model's parameters (gate|up joined by torch.cat, down row-major),
+    # its decode steps the GEMV over all 32 experts as slots of cap = B = 4
+    # tokens, every slot live here, w_down read row-major in place
+    ("moe_gemm", "flat gate|up 32x128x1024x1024 joined", moe_gemm_case,
+     dict(n_slots=32, rows=128, d=1024, f=512, pair=True, flat=True)),
+    ("moe_gemm", "flat down 32x128x512x1024 row-major", moe_gemm_case,
+     dict(n_slots=32, rows=128, d=1024, f=512, pair=False, flat=True)),
+    ("expert_ffn_gemv", "flat decode 32 slots T=4 row-major W2", gemv_case,
+     dict(n_slots=32, t=4, flat=True)),
     ("paged_prefill_mla", "decode B=4 H=128 r=512 nb=18", mla_case,
      dict(b=4, c=1, past=[40, 51, 60, 71])),
     ("paged_prefill_mla", "prefill B=4 C=32 H=128 r=512 nb=18", mla_case,
@@ -1053,6 +1116,299 @@ def mamba_phase(dev) -> None:
                           seconds=time.time() - t_phase)), flush=True)
 
 
+# ------------------------------------------------------------- training
+GRAD_NAMES = ("out", "dh", "dw_gate", "dw_up", "dw_down")
+
+
+def _with_grads(fn, inputs, dy):
+    """fn's output and the gradients of <output, dy> with respect to each
+    input (fresh leaves)."""
+    leaves = [t.detach().clone().requires_grad_() for t in inputs]
+    out = fn(*leaves)
+    out.backward(dy)
+    return [out.detach()] + [t.grad for t in leaves]
+
+
+def _train_widths():
+    """granite's MoE widths and the capacity of its global dispatch at the
+    train phase's batch: (E, D, F, cap)."""
+    cfg = get_config(GQA_ARCH)
+    mo, t = cfg.moe, TRAIN_B * TRAIN_S
+    cap = min(t, max(mo.top_k, int(t * mo.top_k * mo.capacity_factor / mo.n_experts + 0.5)))
+    return mo.n_experts, cfg.d_model, mo.d_expert, cap
+
+
+def grad_phase(dev) -> dict:
+    """The differentiable moe_gemm at granite's training widths: the
+    expert buffers of one MoE layer's global dispatch at batch 8 x 512
+    (h [32, 1280, 1024], F 512). `grouped_expert_ffn`'s output and its
+    gradients (dh, dW_gate, dW_up, dW_down) on the kernel route against
+    the plain route's autograd, in bf16 (per element to
+    `grad_rounding_bound`) and fp32 (TOL). Then the two dX products of the
+    backward alone, in bf16: device time of the kernel (CUDA-graph
+    replay), the plain version and torch.bmm over the same operands, and
+    their bound. Returns the dX rows by name."""
+    t_phase = time.time()
+    e, d, f, cap = _train_widths()
+    gen = torch.Generator().manual_seed(8)
+    c_pad = -(-cap // 128) * 128  # the buffers' rows as the GEMM pads them
+    te = torch.arange(e, dtype=torch.int32, device=dev).repeat_interleave(c_pad // 128)
+    held, rows = {}, {}
+    for dtype in (torch.bfloat16, torch.float32):
+        h = torch.randn(e, cap, d, generator=gen).to(dev, dtype)
+        ws = [(torch.randn(*shape, generator=gen) * shape[1] ** -0.5).to(dev, dtype)
+              for shape in ((e, d, f), (e, d, f), (e, f, d))]
+        dy = (torch.randn(e, cap, d, generator=gen) * cap ** -0.5).to(dev, dtype)
+        got = _with_grads(lambda *a: grouped_expert_ffn(*a, backend="cuda"), (h, *ws), dy)
+        want = _with_grads(lambda *a: grouped_expert_ffn(*a, backend="ref"), (h, *ws), dy)
+        torch.cuda.synchronize()
+        bf16 = dtype == torch.bfloat16
+        for name, g, w in zip(GRAD_NAMES, got, want):
+            tol = grad_rounding_bound(w) if bf16 else None
+            max_abs, _, over = compare(f"moe_gemm gradient {name}", g, w, dtype, tol)
+            held[f"{name}/{str(dtype)[6:]}"] = dict(max_abs_err=max_abs, err_over_tol=over)
+        del got, want
+        if not bf16:
+            continue
+        w_gu = torch.cat(ws[:2], -1)
+        products = {  # name -> (dY [M, N], the weight read transposed [E, N, K])
+            "dx_gate_up": (torch.randn(e * c_pad, 2 * f, generator=gen).to(dev, dtype),
+                           w_gu.transpose(1, 2)),
+            "dx_down": (torch.randn(e * c_pad, d, generator=gen).to(dev, dtype),
+                        ws[2].transpose(1, 2)),
+        }
+        for name, (a, wt) in products.items():
+            m, n = a.shape
+            k = wt.shape[2]
+            isz = a.element_size()
+            sets = [(a, wt), (a.flip(0).contiguous(), wt)]  # dY alone exceeds L2
+            max_abs, _, _ = compare(f"moe_gemm {name}", gemm_launch(a, wt, te, 128),
+                                    moe_gemm_ref(a, wt, te), dtype, TOL[dtype])
+            b_ms, b_by = bound_ms((m * n + e * n * k + m * k) * isz, 2.0 * m * n * k, dtype)
+            rows[name] = dict(
+                shape=[m, n, k], max_abs_err=max_abs,
+                kernel_ms=device_time_ms(lambda x, w: gemm_launch(x, w, te, 128), sets,
+                                         calls=8),
+                plain_ms=device_time_ms(lambda x, w: moe_gemm_ref(x, w, te), sets, calls=8),
+                library_ms=device_time_ms(lambda x, w: torch.bmm(x.view(e, c_pad, n), w), sets,
+                                          calls=8),
+                bound_ms=b_ms, bound_by=b_by)
+    print(json.dumps(dict(phase="gradient", arch=GQA_ARCH, experts=e, cap=cap, d_model=d,
+                          d_expert=f, held=held, dx=rows, seconds=time.time() - t_phase)),
+          flush=True)
+    return rows
+
+
+def _batches(cfg, b: int, s: int, dev, n: int = 2) -> list:
+    corpus = SyntheticCorpus(cfg.vocab_size, seed=0)
+    return [{k: torch.as_tensor(v, device=dev) for k, v in corpus.batch(i, b, s).items()}
+            for i in range(n)]
+
+
+def train_phase(dev, profile_out=None) -> list:
+    """granite-moe-1b-a400m at published width and full depth (24 layers,
+    d 1024, 32 experts top-8), bf16 params from a seed, trained for 8
+    steps of batch 8 x 512 from `SyntheticCorpus` (batches i % 2, as the
+    reference's tests train), AdamW lr 1e-3 with 2 warm-up steps, with
+    the launch counters reset just before. Every loss finite, the last
+    below the first; moe_gemm launches 6 times per MoE layer and step
+    (forward, recompute under remat, dX; two GEMMs each) and no other
+    kernel launches. Then a model-level generate with the trained
+    weights and no tiers (`prefill` of 4 x 32 tokens, 16 `decode_step`s):
+    moe_gemm on the prefill, the GEMV on the decode steps. Returns the
+    two paths' launch counts."""
+    t_phase = time.time()
+    cfg = get_config(GQA_ARCH)
+    torch.cuda.reset_peak_memory_stats(dev)
+    params, opt = init_train_state(0, cfg, TRAIN_OPT, device=dev)
+    step = make_train_step(cfg, TRAIN_OPT)
+    batches = _batches(cfg, TRAIN_B, TRAIN_S, dev)
+    n_moe = sum(cfg.uses_moe_layer(i) for i in range(cfg.n_layers))
+    torch.cuda.synchronize()
+    setup_s = time.time() - t_phase
+    reset_counters()
+    losses, secs = [], []
+    for i in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        params, opt, metrics = step(params, opt, batches[i % 2])
+        losses.append(float(metrics["loss"]))  # synchronises
+        secs.append(time.time() - t0)
+    launches = read_counters()
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    if not all(math.isfinite(v) for v in losses) or not losses[-1] < losses[0]:
+        fail(f"{TRAIN_PATH}: losses {losses} are not finite and falling")
+    if launches["moe_gemm"] != 6 * n_moe * TRAIN_STEPS:
+        fail(f"{TRAIN_PATH}: moe_gemm launched {launches['moe_gemm']} times, not 6 per MoE "
+             f"layer and step (forward, recompute, dX): {launches}")
+    off = {k: v for k, v in launches.items() if k != "moe_gemm" and v}
+    if off:
+        fail(f"{TRAIN_PATH}: kernels off the training path launched: {off}")
+    step_s = sorted(secs[1:])[len(secs[1:]) // 2]
+    # the trained weights, served by the model functions without tiers
+    gen = torch.Generator().manual_seed(9)
+    toks = torch.randint(0, cfg.vocab_size, (4, 32), generator=gen).to(dev)
+    reset_counters()
+    t0 = time.time()
+    with torch.no_grad():
+        logits, cache = prefill(params, cfg, toks, cache_len=48)
+        prefill_launches = read_counters()
+        out = [logits]
+        for pos in range(32, 48):
+            nxt = out[-1].argmax(-1, keepdim=True).to(torch.int32)
+            logits, cache, _ = decode_step(params, cfg, nxt, cache, pos)
+            out.append(logits)
+    torch.cuda.synchronize()
+    gen_s = time.time() - t0
+    gen_launches = read_counters()
+    if not all(torch.isfinite(o.float()).all() for o in out):
+        fail(f"{GENERATE_PATH}: non-finite logits")
+    if prefill_launches["moe_gemm"] == 0 or gen_launches["expert_ffn_gemv"] == 0:
+        fail(f"{GENERATE_PATH}: prefill launches {prefill_launches}, all {gen_launches}: "
+             f"moe_gemm must run the prefill, the GEMV the decode steps")
+    if any(gen_launches[k] for k in ("paged_prefill_gqa", "paged_prefill_mla",
+                                     "flash_attention")):
+        fail(f"{GENERATE_PATH}: attention kernels launched off their path: {gen_launches}")
+    print(json.dumps(dict(
+        phase="train", path=TRAIN_PATH, arch=GQA_ARCH, layers=cfg.n_layers,
+        d_model=cfg.d_model, experts=cfg.moe.n_experts, top_k=cfg.moe.top_k,
+        dtype=cfg.param_dtype, batch=TRAIN_B, seq=TRAIN_S, steps=TRAIN_STEPS,
+        losses=losses, step_s=secs, median_step_s=step_s,
+        tokens_per_s=TRAIN_B * TRAIN_S / step_s, peak_mem_gb=peak_gb, setup_s=setup_s,
+        launches=launches, moe_gemm_launches_per_step=launches["moe_gemm"] / TRAIN_STEPS,
+        generate_s=gen_s, generate_launches=gen_launches,
+        seconds=time.time() - t_phase)), flush=True)
+    if profile_out is not None:
+        profile_train(step, params, opt, batches, Path(profile_out))
+    return [dict(path=TRAIN_PATH, launches=launches),
+            dict(path=GENERATE_PATH, launches=gen_launches)]
+
+
+def profile_train(step, params, opt, batches, out: Path) -> None:
+    """torch.profiler window over 2 train steps: device busy share and
+    device time by kernel name (the full table goes to `out`'s stem-train)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    t_phase = time.time()
+    step(params, opt, batches[0])  # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        for i in range(2):
+            params, opt, metrics = step(params, opt, batches[i % 2])
+        float(metrics["loss"])
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    table = prof.key_averages().table(sort_by="cuda_time_total", row_limit=40)
+    path = out.with_name(f"{out.stem}-train{out.suffix}")
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_text(table)
+    dev_us = sum(e.time_range.elapsed_us() for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA)
+    print(json.dumps(dict(phase="profile", path=TRAIN_PATH, steps=2, wall_s=wall,
+                          device_busy_s=dev_us / 1e6, device_busy_share=dev_us / 1e6 / wall,
+                          seconds=time.time() - t_phase)), flush=True)
+    print(table[:6000], flush=True)
+
+
+def _over(got, want) -> list:
+    """[(leaf path, (largest err / tol, elements over, elements))] of the
+    tree `got` against `want`, worst first: tol = 1e-5 * (|want| + the
+    leaf's largest |want|), relative to the element plus its leaf's
+    scale, for elements near 0."""
+    ref = dict(leaves_with_path(want))
+    over = {}
+    for path, leaf in leaves_with_path(got):
+        w = ref[path].float().cpu()
+        err = (leaf.float().cpu() - w).abs()
+        r = err / (1e-5 * (w.abs() + w.abs().max())).clamp_min(1e-30)
+        over["|".join(map(str, path))] = (float(r.max()), int((r > 1).sum()), r.numel())
+    return sorted(over.items(), key=lambda kv: -kv[1][0])
+
+
+def _off_grad(got, want, grads, leaf: str):
+    """The largest first-step |gradient| where `leaf` of the state `got`
+    is off `want`'s (to `_over`'s tol), over the leaf's largest; None for
+    a leaf with no gradient (the step count)."""
+    path = leaf.split("|")
+    gpath = (path[1:] if path[0] == "params"
+             else path[2:] if path[1] in ("m", "v") else None)
+    if gpath is None:
+        return None
+
+    def by_path(tree):
+        return {"|".join(map(str, k)): v.float().cpu() for k, v in leaves_with_path(tree)}
+
+    g = by_path(grads)["|".join(gpath)].abs()
+    a, w = by_path(got)[leaf], by_path(want)[leaf]
+    off = (a - w).abs() > 1e-5 * (w.abs() + w.abs().max())
+    return float(g[off].max() / g.max()) if off.any() else 0.0
+
+
+def train_smoke_parity(dev) -> None:
+    """The fp32 smoke granite config on the card (the kernels) and on the
+    CPU (the plain versions) from the same weights and batches. Held, to
+    `_over`'s 1e-5: the first step's gradients (before Adam's division,
+    so at any learning rate), then every param and optimizer leaf after
+    two steps of AdamW at its defaults (lr 3e-4 over 100 warm-up steps);
+    the expert counts of the first step and after training are equal.
+    Reported, not held: the same two steps at the train phase's lr 1e-3,
+    its three farthest leaves and, for the farthest, how large the first
+    step's gradient is where its elements are off (relative to the
+    leaf's largest): Adam's first update is g / (|g| + eps), so an
+    element whose gradient is near 0 may move by up to 2 lr for a
+    rounding-sized change of it. Then the card's state saved as a
+    checkpoint and restored on the CPU equals it bitwise."""
+    t0 = time.time()
+    cfg = reduce_for_smoke(get_config(GQA_ARCH))
+    cfg = dataclasses.replace(cfg, param_dtype="float32", compute_dtype="float32")
+    params = init_params(0, cfg, device="cpu")
+    runs = {}
+    for d in (dev, torch.device("cpu")):
+        p = _to(params, d)
+        batches = _batches(cfg, 4, 32, d)
+        _, metrics, grads = value_and_grad(p, cfg, batches[0])
+        run = dict(grads=grads)
+        for name, opt in (("defaults", AdamWConfig()), ("lr1e-3", TRAIN_OPT)):
+            q, o = p, adamw_init(p, opt)
+            step = make_train_step(cfg, opt)
+            for i in range(2):
+                q, o, _ = step(q, o, batches[i % 2])
+            run[name] = {"params": q, "opt": o}
+        with torch.no_grad():
+            after = forward_train(run["defaults"]["params"], cfg, batches[0])[2]
+        run["counts"] = (metrics["expert_counts"].cpu(), after.cpu())
+        runs[d.type] = run
+    card, cpu = runs["cuda"], runs["cpu"]
+    if not all(torch.equal(a, b) for a, b in zip(card["counts"], cpu["counts"])):
+        fail(f"fp32 smoke train: card expert counts {card['counts']} != CPU's {cpu['counts']}")
+    grad_worst = _over(card["grads"], cpu["grads"])
+    if grad_worst[0][1][0] > 1:
+        fail(f"fp32 smoke train: card gradients off the CPU's; worst leaves (err / tol, "
+             f"elements over, elements): {grad_worst[:6]}")
+    worst = _over(card["defaults"], cpu["defaults"])
+    if worst[0][1][0] > 1:
+        fail(f"fp32 smoke train: card state off the CPU's; worst leaves (err / tol, elements "
+             f"over, elements): {worst[:6]}")
+    lr_worst = _over(card["lr1e-3"], cpu["lr1e-3"])
+    off_grad = _off_grad(card["lr1e-3"], cpu["lr1e-3"], cpu["grads"], lr_worst[0][0])
+    with tempfile.TemporaryDirectory(dir=Path(__file__).resolve().parent) as ckpt:
+        save(ckpt, 2, card["defaults"])
+        got = restore(ckpt, 2, tree_map(lambda t: torch.zeros_like(t, device="cpu"),
+                                         card["defaults"]))
+    restored = dict(leaves_with_path(got))
+    for path, leaf in leaves_with_path(card["defaults"]):
+        if not torch.equal(restored[path], leaf.cpu()):
+            fail(f"fp32 smoke train: checkpoint leaf {path} restored on the CPU differs")
+    print(json.dumps(dict(phase="train_smoke_parity", arch=cfg.name, steps=2,
+                          grad_err_over_tol=grad_worst[0][1][0], grad_worst_leaf=grad_worst[0][0],
+                          err_over_tol=worst[0][1][0], worst_leaf=worst[0][0],
+                          lr1e3_not_held=dict(worst_leaves=lr_worst[:3],
+                                              off_elements_grad_over_leaf_max=off_grad),
+                          identical_counts=True, checkpoint_restored_bitwise=True,
+                          seconds=time.time() - t0)), flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", action="store_true",
@@ -1094,6 +1450,12 @@ def main(argv=None) -> int:
     paths = [mha_entry(dev)]
     mamba_phase(dev)
     xlstm_phase(dev)
+    dx = grad_phase(dev)
+    train_paths = train_phase(dev, profile_out=args.profile_out if args.profile else None)
+    paths += train_paths
+    for row in dx.values():  # each dX product runs once a MoE layer a step
+        row["launches_per_step"] = train_paths[0]["launches"]["moe_gemm"] // (6 * TRAIN_STEPS)
+    train_smoke_parity(dev)
     gc.collect()
     torch.cuda.empty_cache()
     for arch, n_layers, mode, expect, forbid in SERVES:
@@ -1126,6 +1488,8 @@ def main(argv=None) -> int:
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=r["library_ms"],
         ))
+        if name == "moe_gemm":  # the dX products of the train step's backward
+            kernels[-1]["train_dx"] = dx
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -27,9 +27,11 @@
 //      transposed out of shared memory by ldmatrix.trans), the tokens the
 //      n = 8 side (up to four n tiles: 32 tokens). It writes
 //      h = bf16(silu(g) * u) [E, T, F].
-//   3. down: a CTA owns 64 output columns d of one slot (64 rows of the
-//      stored [D, F] down matrix) and sums h W2 over F the same way; a
-//      slot with no live row writes zeros and exits.
+//   3. down: a CTA owns 64 output columns d of one slot and sums h W2
+//      over F the same way; a slot with no live row writes zeros and
+//      exits. W2 is read in place in either layout: unit stride along F
+//      (a tier buffer's [D, F] down matrix, read as stored) or along D (a
+//      row-major [F, D] parameter, read transposed as W1 is).
 // Both passes may split a panel's reduction axis (D, F) over a
 // thread-block cluster of up to 8 CTAs (`mma_plan` in the wrapper: as
 // many as leave each CTA 16 stages; deepseek's gate|up pass, D = 5120,
@@ -42,9 +44,9 @@
 // it only before they read h. Tokens are staged a box at a time, so
 // shared memory does not bound T; a slot of more than 32 tokens runs the
 // three launches once per group of 32 (each group reads the weights
-// again, and skips the slots with no live row in it). The weights need
-// unit stride along F and 16-byte aligned strides; ragged panels and
-// reduction edges come from TMA's zero fill.
+// again, and skips the slots with no live row in it). W1 and W3 need unit
+// stride along F, W2 along F or D, and every stride 16-byte alignment;
+// ragged panels and reduction edges come from TMA's zero fill.
 //
 // Measured before this design (PERF.md, PR 14: the CUDA-core kernel's
 // phases timed at deepseek-v2's widths): the CUDA-core kernel below moved
@@ -414,11 +416,11 @@ __global__ void __launch_bounds__(kMmaThreads) gateup_kernel(
     }
 }
 
-// down: a CTA owns 64 output columns d of one slot (rows of the stored
-// [D, F] down matrix) and the F range of its cluster rank. A stage holds
-// the [64 d, 64 f] weight box and the [NT*8, 64 f] box of h. y holds the
-// slot's T_ rows ld rows apart.
-template <int NT>
+// down: a CTA owns 64 output columns d of one slot and the F range of its
+// cluster rank. A stage holds the [64 d, 64 f] weight box (kFD: the [64 f,
+// 64 d] box of a W2 stored [F, D]) and the [NT*8, 64 f] box of h. y holds
+// the slot's T_ rows ld rows apart.
+template <int NT, bool kFD>
 __global__ void __launch_bounds__(kMmaThreads) down_kernel(
     const __grid_constant__ CUtensorMap w2_map, const __grid_constant__ CUtensorMap h_map,
     bf16* __restrict__ y, const int* __restrict__ nlive, int T_, int D, int F, int ld) {
@@ -448,7 +450,10 @@ __global__ void __launch_bounds__(kMmaThreads) down_kernel(
   auto fetch_w = [&](int kc) {  // thread 0: the weight box of chunk kc
     const int s = (kc - kr.x) % kStages;
     hopper::mbar_arrive_expect_tx(&full[s], kStage);
-    hopper::tma_load_3d(ring + s * kStage, &w2_map, &full[s], kc * kKC, d0, e);
+    if (kFD)
+      hopper::tma_load_3d(ring + s * kStage, &w2_map, &full[s], d0, kc * kKC, e);
+    else
+      hopper::tma_load_3d(ring + s * kStage, &w2_map, &full[s], kc * kKC, d0, e);
   };
   auto fetch_h = [&](int kc) {  // thread 0: the h box of chunk kc
     const int s = (kc - kr.x) % kStages;
@@ -466,9 +471,13 @@ __global__ void __launch_bounds__(kMmaThreads) down_kernel(
   for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
     for (int i = 0; i < 4; ++i) y4[nt][i] = 0.f;
-  // A fragments read W [d, f] as stored: matrix mi covers d rows
-  // 8*(mi%2).. and f columns 8*(mi/2)..
-  const int a_row = 16 * warp + lane % 8 + 8 * ((lane / 8) % 2), a_chunk = (lane / 8) / 2;
+  // A fragments of W2ᵀ [d, f]. Stored [D, F]: read as stored, matrix mi
+  // covers d rows 8*(mi%2).. and f columns 8*(mi/2)... Stored [F, D] (kFD):
+  // read transposed as gate|up reads W1, f rows 8*(mi/2).. of the k step
+  // and d columns 8*(mi%2).. (chunk 2*warp + mi%2).
+  const int a_row = kFD ? lane % 8 + 8 * ((lane / 8) / 2)
+                        : 16 * warp + lane % 8 + 8 * ((lane / 8) % 2);
+  const int a_chunk = kFD ? 2 * warp + (lane / 8) % 2 : (lane / 8) / 2;
   for (int kc = kr.x; kc < kr.y; ++kc) {
     const int s = (kc - kr.x) % kStages;
     hopper::mbar_wait(&full[s], ((kc - kr.x) / kStages) & 1);
@@ -476,7 +485,10 @@ __global__ void __launch_bounds__(kMmaThreads) down_kernel(
 #pragma unroll
     for (int kk = 0; kk < kKC / 16; ++kk) {
       uint32_t a[4], b[NT][2];
-      ldsm_x4(a, st + swz128(a_row, 2 * kk + a_chunk));
+      if (kFD)
+        ldsm_x4_trans(a, st + swz128(16 * kk + a_row, a_chunk));
+      else
+        ldsm_x4(a, st + swz128(a_row, 2 * kk + a_chunk));
       load_b<NT>(b, st + kBox, kk, lane);
 #pragma unroll
       for (int nt = 0; nt < NT; ++nt) mma_bf16(y4[nt], a, b[nt]);
@@ -554,17 +566,20 @@ template <int NT>
 int launch_bf16(const bf16* x, const bf16* w1, const bf16* w3, const bf16* w2, bf16* h,
                 int* nlive, bf16* y, int E, int T_, int D, int F, int ld, int cs_gu, int cs_dn,
                 long long s1e, long long s1r, long long s3e, long long s3r, long long s2e,
-                long long s2d, cudaStream_t stream) {
+                long long s2r, bool w2_fd, cudaStream_t stream) {
   constexpr size_t gu_smem = kStages * (2 * kBox + NT * 8 * 128) + 1024;
   constexpr size_t dn_smem = kStages * (kBox + NT * 8 * 128) + 1024;
   static const int attr = set_smem(gateup_kernel<NT>, gu_smem) |
-                          set_smem(down_kernel<NT>, dn_smem);
+                          set_smem(down_kernel<NT, false>, dn_smem) |
+                          set_smem(down_kernel<NT, true>, dn_smem);
   if (attr != 0) return attr;
   CUtensorMap w1m, w3m, xm, w2m, hm;
   int err = map3(&w1m, w1, F, D, E, s1r * 2, s1e * 2, kKC);
   if (!err) err = map3(&w3m, w3, F, D, E, s3r * 2, s3e * 2, kKC);
   if (!err) err = map3(&xm, x, D, T_, E, D * 2ull, (uint64_t)ld * D * 2, NT * 8);
-  if (!err) err = map3(&w2m, w2, F, D, E, s2d * 2, s2e * 2, kPanel);
+  if (!err)
+    err = w2_fd ? map3(&w2m, w2, D, F, E, s2r * 2, s2e * 2, kKC)
+                : map3(&w2m, w2, F, D, E, s2r * 2, s2e * 2, kPanel);
   if (!err) err = map3(&hm, h, F, T_, E, F * 2ull, (uint64_t)ld * F * 2, NT * 8);
   if (err) return err;
   live_rows_kernel<<<E, kLiveThreads, 0, stream>>>(x, nlive, T_, D, ld);
@@ -573,10 +588,10 @@ int launch_bf16(const bf16* x, const bf16* w1, const bf16* w3, const bf16* w2, b
     err = launch(gateup_kernel<NT>, dim3((F + kPanel - 1) / kPanel * cs_gu, E),
                  dim3(kMmaThreads), cs_gu, gu_smem, stream, w1m, w3m, xm, h,
                  (const int*)nlive, T_, D, F, ld);
+  auto* down = w2_fd ? &down_kernel<NT, true> : &down_kernel<NT, false>;
   if (!err)
-    err = launch(down_kernel<NT>, dim3((D + kPanel - 1) / kPanel * cs_dn, E),
-                 dim3(kMmaThreads), cs_dn, dn_smem, stream, w2m, hm, y, (const int*)nlive, T_,
-                 D, F, ld);
+    err = launch(down, dim3((D + kPanel - 1) / kPanel * cs_dn, E), dim3(kMmaThreads), cs_dn,
+                 dn_smem, stream, w2m, hm, y, (const int*)nlive, T_, D, F, ld);
   return err;
 }
 
@@ -604,18 +619,21 @@ int expert_ffn_gemv_f32(const void* x, const void* w1, const void* w3, const voi
 
 // bf16. x, y [E, T, D] contiguous; h [E, T, F] and nlive [ceil(T / 32),
 // E] int32 scratch. W1/W3 element (e, d, f) at base + e*s_e + d*s_r + f; W2
-// element (e, f, d) at base + e*s2e + f + d*s2d. D and F multiples of 8,
-// every base and stride 16-byte aligned. cs_gu, cs_dn in {1, 2, 4, 8}:
-// the CTAs a 64-wide panel's reduction axis (D for gate|up, F for down) is
-// split over, summed within a cluster. Returns 0, the first failing
+// element (e, f, d) at base + e*s2e + f + d*s2r, or with w2_fd at base +
+// e*s2e + f*s2r + d. D and F multiples of 8, every base and stride 16-byte
+// aligned. cs_gu, cs_dn in {1, 2, 4, 8}: the CTAs a 64-wide panel's
+// reduction axis (D for gate|up, F for down) is split over, summed within a
+// cluster. `device` is the operands' device. Returns 0, the first failing
 // launch's cudaError_t, or hopper::kErrTensorMap + a CUresult.
 int expert_ffn_gemv_bf16(const void* x, const void* w1, const void* w3, const void* w2,
                          void* h, void* nlive, void* y, int E, int T_, int D, int F,
                          int cs_gu, int cs_dn, long long s1e, long long s1r, long long s3e,
-                         long long s3r, long long s2e, long long s2d, void* stream) {
+                         long long s3r, long long s2e, long long s2r, int w2_fd, int device,
+                         void* stream) {
   if (E == 0 || T_ == 0) return 0;
   if (cs_gu < 1 || cs_gu > kMaxCluster || cs_dn < 1 || cs_dn > kMaxCluster)
     return (int)cudaErrorInvalidValue;
+  if (const int e = hopper::bind_device(device)) return e;
   const bf16* xb = static_cast<const bf16*>(x);
   const bf16* a = static_cast<const bf16*>(w1);
   const bf16* b = static_cast<const bf16*>(w3);
@@ -629,7 +647,7 @@ int expert_ffn_gemv_bf16(const void* x, const void* w1, const void* w3, const vo
     auto* launch_group = nt == 1 ? launch_bf16<1> : nt == 2 ? launch_bf16<2> : launch_bf16<4>;
     const int err = launch_group(xb + (size_t)t0 * D, a, b, c, hb + (size_t)t0 * F, nl + g * E,
                                  yb + (size_t)t0 * D, E, tg, D, F, T_, cs_gu, cs_dn, s1e, s1r,
-                                 s3e, s3r, s2e, s2d, s);
+                                 s3e, s3r, s2e, s2r, w2_fd != 0, s);
     if (err) return err;
   }
   return 0;

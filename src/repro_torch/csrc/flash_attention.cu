@@ -411,13 +411,15 @@ size_t flash_attention_smem(int dh, int dtype) {
 int flash_attention_max_head_dim() { return 32 * kMaxColsPerLane; }
 
 // dtype: 0 = float32 (dh <= 128), 1 = bfloat16 (dh in {32, 64, 128}).
-// Returns 0, a cudaError_t, or hopper::kErrTensorMap + a CUresult.
+// `device` is the operands' device. Returns 0, a cudaError_t, or
+// hopper::kErrTensorMap + a CUresult.
 int flash_attention(const void* q, const void* k, const void* v, void* out, int BH,
-                    int sq, int sk, int dh, int causal, float scale, int dtype,
+                    int sq, int sk, int dh, int causal, float scale, int dtype, int device,
                     void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (BH == 0 || sq == 0) return 0;
   if (dtype == 0) return launch_f32(q, k, v, out, BH, sq, sk, dh, causal, scale, s);
+  if (const int e = hopper::bind_device(device)) return e;
   switch (dh) {
     case 32: return launch_bf16<32>(q, k, v, out, BH, sq, sk, causal, scale, s);
     case 64: return launch_bf16<64>(q, k, v, out, BH, sq, sk, causal, scale, s);

@@ -357,6 +357,15 @@ inline CUtensorMapSwizzle swizzle_mode(int sw_bytes) {
                           : CU_TENSOR_MAP_SWIZZLE_32B;
 }
 
+// cuTensorMapEncodeTiled needs a current context. A thread that has made no
+// runtime call yet may have none while the runtime already reports the
+// operands' device as its own (autograd's backward thread, when the caching
+// allocator serves its allocations: the encode fails with
+// CUDA_ERROR_INVALID_CONTEXT). Setting that device binds its primary
+// context to the thread. An entry point that encodes maps calls this once,
+// with its operands' device, before the first encode.
+inline int bind_device(int device) { return static_cast<int>(cudaSetDevice(device)); }
+
 // A tiled bf16 tensor map: `rank` dims innermost first, byte strides of
 // dims 1.., a box of `box` elements, zero fill out of bounds. Returns 0,
 // or kErrTensorMap + the CUresult of the encode (kErrTensorMap alone when

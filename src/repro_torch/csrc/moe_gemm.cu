@@ -277,12 +277,14 @@ int moe_gemm_f32(const void* x, const void* w, const void* tile_expert, void* ou
 // halves, E) when k_major == 1) and byte strides `w_strides` of dims
 // 1..3; output column n < n_half reads half 0, column n >= n_half half 1
 // at n - n_half. bn is 64 or 128; n_half a multiple of 64 when halves is
-// 2. Returns 0, a cudaError_t, or hopper::kErrTensorMap + a CUresult.
+// 2. `device` is the operands' device. Returns 0, a cudaError_t, or
+// hopper::kErrTensorMap + a CUresult.
 int moe_gemm_bf16(const void* x, const void* w, const void* tile_expert, void* out, int M,
                   int K, int N, int bm, int bn, int k_major,
                   const unsigned long long* w_dims, const unsigned long long* w_strides,
-                  int n_half, void* stream) {
+                  int n_half, int device, void* stream) {
   if (M == 0 || N == 0) return 0;
+  if (const int e = hopper::bind_device(device)) return e;
   const int block_m = bm % 128 == 0 ? 128 : 64;
   CUtensorMap x_map, w_map;
   const uint64_t x_dims[2] = {(uint64_t)K, (uint64_t)M};

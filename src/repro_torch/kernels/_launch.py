@@ -16,6 +16,12 @@ def ptr(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 
 
+def device_index(t: torch.Tensor) -> int:
+    """The index of the CUDA device a tensor lies on (a CUDA tensor's
+    device always carries it)."""
+    return t.device.index
+
+
 def stream(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
 

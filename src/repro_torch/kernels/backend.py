@@ -28,6 +28,7 @@ __all__ = [
     "resolve_backend",
     "set_kernel_tracer",
     "use_kernel",
+    "wants_grad",
 ]
 
 CHOICES = ("auto", "cuda", "ref")
@@ -65,6 +66,12 @@ def use_kernel(choice: str, t: torch.Tensor, *, op: str = "kernel") -> bool:
             f"{op}: backend='cuda' needs CUDA tensors, got one on {t.device}"
         )
     return False
+
+
+def wants_grad(*ts) -> bool:
+    """Whether autograd records a call on these tensors: a kernel route
+    then needs a gradient (moe_gemm has one; the expert GEMV raises)."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
 
 
 # --------------------------------------------------------------- tracing

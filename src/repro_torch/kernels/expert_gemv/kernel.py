@@ -12,7 +12,8 @@ kernel, one launch per group of `f32_group` tokens plus the reduction.
 `expert_ffn_gemv(..., backend=)` follows kernels/backend.py: a CUDA
 tensor launches the kernel (or raises), a CPU tensor runs
 `expert_ffn_gemv_ref`. `expert_ffn_gemv.launches` counts wrapper calls
-that launched the kernels.
+that launched the kernels. The kernel has no gradient, as the Pallas one
+has none: on the card, tensors that autograd would record raise.
 """
 from __future__ import annotations
 
@@ -22,7 +23,7 @@ import functools
 import torch
 
 from repro_torch.kernels import _launch as L
-from repro_torch.kernels.backend import kernel_span, use_kernel
+from repro_torch.kernels.backend import kernel_span, use_kernel, wants_grad
 from repro_torch.kernels.build import check, library
 from repro_torch.kernels.expert_gemv.ref import expert_ffn_gemv_ref
 
@@ -50,7 +51,7 @@ def _entry():
     f32.argtypes = [vp] * 6 + [i] * 6 + [ll] * 9 + [vp]
     bf16 = lib.expert_ffn_gemv_bf16
     bf16.restype = i
-    bf16.argtypes = [vp] * 7 + [i] * 6 + [ll] * 6 + [vp]
+    bf16.argtypes = [vp] * 7 + [i] * 6 + [ll] * 6 + [i, i, vp]
     return f32, bf16, smem
 
 
@@ -82,16 +83,26 @@ def mma_plan(d: int, f: int) -> tuple:
     return cluster(d), cluster(f)
 
 
+def w2_layout(w2) -> tuple:
+    """(fd, row stride) of W2 [E, F, D] as the down pass reads it: fd when
+    it is stored [F, D] with unit stride along D (a model's parameter),
+    else with unit stride along F (a tier buffer's transposed view); the
+    row stride is the other axis's."""
+    fd = w2.stride(1) != 1
+    return fd, w2.stride(1) if fd else w2.stride(2)
+
+
 def mma_addressable(x, w1, w3, w2) -> bool:
-    """The bf16 passes copy 16-byte runs along F: W1 / W3 [E, D, F] and W2
-    [E, F, D] need unit stride along F, and every other stride and base
-    a multiple of 16 bytes (D and F multiples of 8)."""
+    """The bf16 passes copy 16-byte runs: W1 / W3 [E, D, F] need unit
+    stride along F, W2 [E, F, D] along F or D, and every other stride and
+    base a multiple of 16 bytes (D and F multiples of 8)."""
     d, f = x.shape[2], w1.shape[2]
     if d % ALIGN or f % ALIGN:
         return False
-    if w1.stride(2) != 1 or w3.stride(2) != 1 or w2.stride(1) != 1:
+    fd, w2_row = w2_layout(w2)
+    if w1.stride(2) != 1 or w3.stride(2) != 1 or w2.stride(2 if fd else 1) != 1:
         return False
-    strides = (*w1.stride()[:2], *w3.stride()[:2], w2.stride(0), w2.stride(2))
+    strides = (*w1.stride()[:2], *w3.stride()[:2], w2.stride(0), w2_row)
     ptrs = (x, w1, w3, w2)
     return (all(s % ALIGN == 0 for s in strides)
             and all(t.data_ptr() % (2 * ALIGN) == 0 for t in ptrs))
@@ -129,16 +140,17 @@ def _launch_bf16(x, w1, w3, w2) -> torch.Tensor:
     f = w1.shape[2]
     _, fn, _ = _entry()
     L.require(mma_addressable(x, w1, w3, w2), OP,
-              "bf16 weights need unit stride along F and 16-byte aligned bases and "
+              "bf16 weights need unit stride along F (W2: F or D) and 16-byte aligned bases and "
               f"strides, D and F multiples of {ALIGN} (strides {w1.stride()}, "
               f"{w3.stride()}, {w2.stride()})")
     plan = mma_plan(d, f)
+    fd, w2_row = w2_layout(w2)
     y = torch.empty_like(x)
     h = torch.empty((e, t, f), dtype=x.dtype, device=x.device)
     nlive = torch.empty((-(-t // MMA_GROUP), e), dtype=torch.int32, device=x.device)
     err = fn(L.ptr(x), L.ptr(w1), L.ptr(w3), L.ptr(w2), L.ptr(h), L.ptr(nlive), L.ptr(y),
              e, t, d, f, *plan, w1.stride(0), w1.stride(1), w3.stride(0), w3.stride(1),
-             w2.stride(0), w2.stride(2), L.stream(x))
+             w2.stride(0), w2_row, int(fd), L.device_index(x), L.stream(x))
     check(err, OP)
     return y
 
@@ -153,9 +165,14 @@ def _launch(x, w1, w3, w2) -> torch.Tensor:
 
 def expert_ffn_gemv(x, w1, w3, w2, *, backend: str = "auto") -> torch.Tensor:
     """x [E, T, D] few tokens per expert; w1/w3 [E, D, F]; w2 [E, F, D]
-    (any strides in fp32; bf16 as `mma_addressable` says) -> [E, T, D]
-    in x's dtype."""
+    (any strides in fp32; bf16 as `mma_addressable` says: a tier buffer's
+    views and a model's row-major parameters are both read in place)
+    -> [E, T, D] in x's dtype."""
     if use_kernel(backend, x, op=OP):
+        if wants_grad(x, w1, w3, w2):
+            raise RuntimeError(
+                f"{OP}: the expert GEMV kernel has no gradient (nor has the reference's "
+                "Pallas kernel); call it under torch.no_grad() or on detached tensors")
         with kernel_span(OP, "cuda"):
             return _launch(x, w1, w3, w2)
     with kernel_span(OP, "ref"):

@@ -15,7 +15,9 @@ def cold_expert_ffn(x, w1, w3, w2, *, backend: str = "auto"):
     In fp32, F is zero-padded up to a multiple of the kernel's F panel
     when it does not divide (exact: silu(0) * 0 = 0 through the
     zero-padded down rows), so any expert width works. The bf16 kernel
-    reads ragged panels in place (TMA zero-fills them)."""
+    reads ragged panels in place (TMA zero-fills them), and W2 in place
+    in either layout: a tier buffer's transposed view or a row-major
+    [E, F, D] parameter (the flat MoE's decode step)."""
     f = w1.shape[-1]
     bf = panel_width(f)
     if x.dtype == torch.float32 and f % bf:

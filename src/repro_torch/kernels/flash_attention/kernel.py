@@ -38,7 +38,7 @@ def _entry():
     fn = lib.flash_attention
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [
-        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+        ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     return fn, smem, max_dh()
 
 
@@ -63,7 +63,7 @@ def _launch(q, k, v, causal: bool) -> torch.Tensor:
     L.require(smem <= L.MAX_SMEM, OP, f"head width {dh} needs {smem} B of shared memory")
     out = torch.empty_like(q)
     err = fn(L.ptr(q), L.ptr(k), L.ptr(v), L.ptr(out), bh, sq, sk, dh, int(causal),
-             dh ** -0.5, code, L.stream(q))
+             dh ** -0.5, code, L.device_index(q), L.stream(q))
     check(err, OP)
     flash_attention.launches += 1
     return out

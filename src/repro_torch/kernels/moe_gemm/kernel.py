@@ -9,6 +9,16 @@ the weight through a 4-D tensor map that `tma_weight_map` derives from
 its strides; fp32 runs the CUDA-core kernel (TF32 would break the fp32
 tolerance). Where the bf16 kernel cannot address an operand, the
 wrapper raises ValueError; it never reroutes.
+
+The kernel route is differentiable (`_MoEGemm`; the Pallas kernel has no
+gradient, so the reference trains only through its einsums). dX is the
+kernel's own product, dY times each tile's expert matrix transposed: the
+same kernel on a K-major view of the weight, no copy. dW = x_gᵀ dY_g per
+group is the product XLA computes for the einsums' gradient outside any
+Pallas kernel, so it stays `torch.bmm`, summed into expert rows in fp32.
+A pair of panels is joined into one [E, K, N] tensor first when a
+gradient is wanted (its transpose would pair along K, which the kernel
+does not read).
 """
 from __future__ import annotations
 
@@ -18,9 +28,9 @@ import functools
 import torch
 
 from repro_torch.kernels import _launch as L
-from repro_torch.kernels.backend import kernel_span, use_kernel
+from repro_torch.kernels.backend import kernel_span, use_kernel, wants_grad
 from repro_torch.kernels.build import check, library
-from repro_torch.kernels.moe_gemm.ref import moe_gemm_ref
+from repro_torch.kernels.moe_gemm.ref import join_panels, moe_gemm_ref
 
 OP = "moe_gemm"
 BOX = 64  # edge of the bf16 kernel's TMA boxes: one 128-byte swizzled row
@@ -37,7 +47,7 @@ def _entries():
     bf16 = lib.moe_gemm_bf16
     bf16.restype = i32
     bf16.argtypes = [ptr] * 4 + [i32] * 6 + [ctypes.POINTER(ctypes.c_ulonglong)] * 2 + [
-        i32, ptr]
+        i32, i32, ptr]
     return f32, bf16
 
 
@@ -120,11 +130,12 @@ def _launch_bf16(x, layout, tile_expert, bm: int, out) -> int:
     L.require(k * x.element_size() % L.TMA_ALIGN == 0 and x.data_ptr() % L.TMA_ALIGN == 0, OP,
               f"bf16 x needs a {L.TMA_ALIGN}-byte aligned base and row stride (K = {k})")
     block_m = 128 if bm % 128 == 0 else 64
-    bn = pick_bn(m // block_m, n, _n_sm(x.device.index or 0))
+    bn = pick_bn(m // block_m, n, _n_sm(L.device_index(x)))
     c_dims = (ctypes.c_ulonglong * 4)(*dims)
     c_strides = (ctypes.c_ulonglong * 3)(*strides)
     return _entries()[1](L.ptr(x), L.ptr(base), L.ptr(tile_expert), L.ptr(out), m, k, n, bm,
-                         bn, int(k_major), c_dims, c_strides, n_half, L.stream(x))
+                         bn, int(k_major), c_dims, c_strides, n_half, L.device_index(x),
+                         L.stream(x))
 
 
 def _launch(x, w, tile_expert, bm: int) -> torch.Tensor:
@@ -149,14 +160,52 @@ def _launch(x, w, tile_expert, bm: int) -> torch.Tensor:
     return out
 
 
+class _MoEGemm(torch.autograd.Function):
+    """The kernel launch under autograd: forward and dX on the kernel,
+    dW by `torch.bmm` per group of `rows` rows (a multiple of bm), summed
+    into expert `group_expert[g]` (group g's own expert when None)."""
+
+    @staticmethod
+    def forward(ctx, x, w, tile_expert, bm, rows, group_expert):
+        ctx.save_for_backward(x, w, tile_expert, group_expert)
+        ctx.bm, ctx.rows = bm, rows
+        return _launch(x, w, tile_expert, bm)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w, tile_expert, group_expert = ctx.saved_tensors
+        dy = dy.contiguous()
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = _launch(dy, w.transpose(1, 2), tile_expert, ctx.bm)
+        if ctx.needs_input_grad[1]:
+            (m, k), n = x.shape, dy.shape[1]
+            g = m // ctx.rows
+            per_group = torch.bmm(x.view(g, ctx.rows, k).transpose(1, 2),
+                                  dy.view(g, ctx.rows, n))
+            if group_expert is None:
+                dw = per_group
+            else:
+                dw = torch.zeros(w.shape, dtype=torch.float32, device=w.device)
+                dw = dw.index_add_(0, group_expert.long(), per_group.float()).to(w.dtype)
+        return dx, dw, None, None, None, None
+
+
 def moe_gemm(x: torch.Tensor, w, tile_expert: torch.Tensor, *, bm: int = 128,
-             backend: str = "auto") -> torch.Tensor:
+             backend: str = "auto", groups=None) -> torch.Tensor:
     """x [M, K] sorted by expert, every expert group padded to bm rows;
     w [E, K, N] or a pair of [E, K, N/2] panels; tile_expert [M // bm]
-    int32 -> [M, N] in x's dtype (fp32 sums)."""
+    int32 -> [M, N] in x's dtype (fp32 sums). `groups` = (rows,
+    group_expert) tells the weight gradient that x is M // rows groups
+    of `rows` rows, group g of expert group_expert[g] (None: expert g);
+    by default every bm-row tile is a group of expert tile_expert[m]."""
     if use_kernel(backend, x, op=OP):
         with kernel_span(OP, "cuda"):
-            return _launch(x, w, tile_expert, bm)
+            panels = w if isinstance(w, (tuple, list)) else (w,)
+            if not wants_grad(x, *panels):
+                return _launch(x, w, tile_expert, bm)
+            rows, group_expert = groups or (bm, tile_expert)
+            return _MoEGemm.apply(x, join_panels(w), tile_expert, bm, rows, group_expert)
     with kernel_span(OP, "ref"):
         return moe_gemm_ref(x, w, tile_expert, bm)
 

@@ -1,8 +1,9 @@
-"""Model assembly for serving (port of repro/models/model.py:
+"""Model assembly for training and serving (port of repro/models/model.py:
 `layer_signature` :41, `stack_plan` :58, `init_params` :107,
-`init_layer_cache` :147, `init_cache` :172, the attention, MoE and
-recurrent branches of `apply_layer` :195 (:301-336 for Mamba / mLSTM /
-sLSTM), `_logits` :400, `prefill` :462, `decode_step` :565,
+`init_layer_cache` :147, `init_cache` :172, the attention, MoE (tiered
+and flat, :362-377) and recurrent branches of `apply_layer` :195
+(:301-336 for Mamba / mLSTM / sLSTM) and its cacheless full mode,
+`_logits` :400, `forward_train` :407, `prefill` :462, `decode_step` :565,
 `decode_step_paged` :640, `prefill_paged` :730, `decode_verify` :824).
 
 Params keep the JAX tree layout: periodic layers are stacked under
@@ -19,6 +20,7 @@ from __future__ import annotations
 from typing import Callable, List, NamedTuple, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
@@ -228,6 +230,16 @@ def init_states(cfg: ModelConfig, batch: int, device=None) -> Params:
     return layer_tree(cfg, lambda sig, lead: init_layer_state(cfg, sig, batch, device, lead))
 
 
+def unbind_tree(tree, n: int) -> list:
+    """The `n` scan groups of a stacked subtree, one `torch.unbind` per
+    leaf: its backward stacks the groups' gradients in one pass, where
+    indexing group by group would add a full-size zero gradient per group."""
+    if isinstance(tree, dict):
+        parts = {k: unbind_tree(v, n) for k, v in tree.items()}
+        return [{k: part[g] for k, part in parts.items()} for g in range(n)]
+    return list(torch.unbind(tree, 0))
+
+
 def index_tree(tree, g: int):
     """Views of scan group `g` of a stacked subtree."""
     if isinstance(tree, dict):
@@ -243,11 +255,13 @@ def apply_layer(
     x: torch.Tensor,
     positions: torch.Tensor,
     *,
-    cache: Params,  # this layer's cache, written in place: an attention
-                    # layer's leaves keyed as MIXERS[mixer].cache_shapes
-                    # (block pools when `tables` is given, else ring
-                    # buffers [B, S, ...]); a recurrent layer's rows'
-                    # {"state": {...}} ([B, ...]) in either layout
+    cache: Params | None,  # this layer's cache, written in place: an
+                    # attention layer's leaves keyed as
+                    # MIXERS[mixer].cache_shapes (block pools when
+                    # `tables` is given, else ring buffers [B, S, ...]);
+                    # a recurrent layer's rows' {"state": {...}} ([B, ...])
+                    # in either layout. None: the cacheless full mode of
+                    # training, which writes nothing
     tables: torch.Tensor | None = None,  # [B, nb] int32 block tables
     pos: torch.Tensor | None = None,  # decode: [B] int32 positions
     past_len: torch.Tensor | None = None,  # chunk prefill: [B] int32
@@ -255,51 +269,59 @@ def apply_layer(
     tiered_state: Params | None = None,
     cold_capacity_frac: float = 0.25,
 ):
-    """One serving layer. Decode when `pos` is given (x [B, 1, D]),
-    full-sequence otherwise (x [B, S, D], `token_mask`): over the paged
-    pools (a chunk after `past_len` cached tokens) when `tables` is
-    given, else over the contiguous layout, where the tokens' entries land
-    at the head of the rows' ring buffers with pad entries zeroed (the
-    reference's `prefill.merge`). A recurrent layer decodes from its rows'
-    state and otherwise runs the masked forward from the init state (a
-    paged chunk included, as the reference's), and writes the new state
-    over the old. Returns (x, expert_counts [E] int32 or None)."""
+    """One layer. Decode when `pos` is given (x [B, 1, D]), full-sequence
+    otherwise (x [B, S, D], `token_mask`): over the paged pools (a chunk
+    after `past_len` cached tokens) when `tables` is given, else over the
+    contiguous layout, where the tokens' entries land at the head of the
+    rows' ring buffers with pad entries zeroed (the reference's
+    `prefill.merge`), or, with `cache=None`, over no cache at all. A
+    recurrent layer decodes from its rows' state and otherwise runs the
+    masked forward from the init state (a paged chunk included, as the
+    reference's), and writes the new state over the old. Returns (x,
+    aux loss (fp32 scalar; None without a flat MoE), expert_counts [E]
+    int32 or None)."""
     h = rmsnorm(p["norm1"], x, cfg.norm_eps)
     m = MIXERS[sig[0]]
     if m.init_state is not None:
         y, new = (m.decode(p["mixer"], cfg, h, cache["state"]) if pos is not None
                   else m.forward(p["mixer"], cfg, h, token_mask))
-        for key, val in new.items():
-            cache["state"][key].copy_(val)
-        return _ffn(cfg, sig, p, x + y, token_mask, tiered_state, cold_capacity_frac)
-    keys = list(m.cache_shapes(cfg, 0))
-    a, b = (cache[key] for key in keys)
-    if pos is not None and tables is not None:
-        y, _, _ = m.decode_paged(p["mixer"], cfg, h, a, b, tables, pos)
-    elif pos is not None:
-        y, _, _ = m.decode(p["mixer"], cfg, h, a, b, pos)
-    elif tables is not None:
-        y, _, _ = m.prefill_paged(p["mixer"], cfg, h, a, b, tables, past_len, positions,
-                                  token_mask)
+        if cache is not None:
+            for key, val in new.items():
+                cache["state"][key].copy_(val)
+    elif cache is None:
+        y, _ = m.forward(p["mixer"], cfg, h, positions, token_mask)
     else:
-        y, new = m.forward(p["mixer"], cfg, h, positions, token_mask)
-        s = x.shape[1]
-        for key, val in zip(keys, new):
-            if token_mask is not None:  # pad entries zeroed
-                val = val * token_mask[(...,) + (None,) * (val.ndim - 2)].to(val.dtype)
-            cache[key][:, :s] = val
-    return _ffn(cfg, sig, p, x + y, token_mask, tiered_state, cold_capacity_frac)
+        keys = list(m.cache_shapes(cfg, 0))
+        a, b = (cache[key] for key in keys)
+        if pos is not None and tables is not None:
+            y, _, _ = m.decode_paged(p["mixer"], cfg, h, a, b, tables, pos)
+        elif pos is not None:
+            y, _, _ = m.decode(p["mixer"], cfg, h, a, b, pos)
+        elif tables is not None:
+            y, _, _ = m.prefill_paged(p["mixer"], cfg, h, a, b, tables, past_len, positions,
+                                      token_mask)
+        else:
+            y, new = m.forward(p["mixer"], cfg, h, positions, token_mask)
+            s = x.shape[1]
+            for key, val in zip(keys, new):
+                if token_mask is not None:  # pad entries zeroed
+                    val = val * token_mask[(...,) + (None,) * (val.ndim - 2)].to(val.dtype)
+                cache[key][:, :s] = val
+    return _ffn(cfg, sig, p, x + y, token_mask, tiered_state, cold_capacity_frac,
+                decode=pos is not None)
 
 
-def _ffn(cfg, sig, p, x, token_mask, tiered_state, cold_capacity_frac):
-    """A layer's FFN half: (x, expert_counts [E] int32 or None)."""
+def _ffn(cfg, sig, p, x, token_mask, tiered_state, cold_capacity_frac, decode):
+    """A layer's FFN half: (x, aux loss or None, expert_counts [E] int32 or None).
+    Routed experts run through the TriMoE tiers when `tiered_state` is
+    given, else through the flat `moe_forward` (reference :362-377):
+    dropless in decode and under a token mask (capacity from the padded
+    token count would make padded and unpadded prefill diverge)."""
     ffn = sig[1]
-    counts = None
+    aux = counts = None
     if ffn != "none":
         h2 = rmsnorm(p["norm2"], x, cfg.norm_eps)
-        if ffn == "moe":
-            if tiered_state is None:
-                raise NotImplementedError("the flat moe_forward is a later slice")
+        if ffn == "moe" and tiered_state is not None:
             from repro_torch.serving.tiered_moe import tiered_moe_forward
 
             y_moe, counts = tiered_moe_forward(
@@ -307,9 +329,14 @@ def _ffn(cfg, sig, p, x, token_mask, tiered_state, cold_capacity_frac):
                 cold_capacity_frac=cold_capacity_frac, token_mask=token_mask,
             )
             x = x + y_moe
+        elif ffn == "moe":
+            out = moe_lib.moe_forward(p["ffn"], cfg, h2,
+                                      full_capacity=decode or token_mask is not None,
+                                      token_mask=token_mask)
+            x, aux, counts = x + out.y, out.aux_loss, out.expert_counts
         else:
             x = x + mlp(p["ffn"], h2)
-    return x, counts
+    return x, aux, counts
 
 
 def _logits(params: Params, cfg: ModelConfig, x: torch.Tensor):
@@ -317,6 +344,49 @@ def _logits(params: Params, cfg: ModelConfig, x: torch.Tensor):
     if cfg.tie_embeddings:
         return unembed(params["embed"], x)
     return lm_head(params["head"], x)
+
+
+def forward_train(params: Params, cfg: ModelConfig, batch, remat: bool = True):
+    """The training forward (reference :407): batch {"tokens": [B, S]
+    int}, no cache, every MoE layer through the flat `moe_forward` at
+    the config's capacity factor. Returns (logits [B, S, V], aux loss
+    (fp32 scalar, summed over layers), expert counts [n_groups * period,
+    E] int32: the scanned groups' layers only, zeros for a layer without
+    routed experts, as the reference returns them). With `remat`, each
+    layer group is activation-checkpointed (`torch.utils.checkpoint`,
+    non-reentrant): only its input is kept, and its forward, the MoE
+    kernels included, runs again in the backward pass (the reference
+    saves its matmul outputs without batch dims as well)."""
+    check_supported(cfg)
+    tokens = batch["tokens"]
+    unrolled_idx, n_groups, period = stack_plan(cfg)
+    x = embed(params["embed"], tokens)
+    positions = torch.arange(tokens.shape[1], dtype=torch.int32, device=x.device)[None, :]
+    e = cfg.moe.n_experts if cfg.moe is not None else 1
+    no_moe = torch.zeros((e,), dtype=torch.int32, device=x.device)
+
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for li in unrolled_idx:
+        x, aux, _ = apply_layer(cfg, layer_signature(cfg, li), params[f"layer{li}"], x,
+                                positions, cache=None)
+        aux_total = aux_total if aux is None else aux_total + aux
+
+    def group(x, aux_sum, p):
+        counts = []
+        for j, sig in enumerate(period):
+            x, aux, c = apply_layer(cfg, sig, p[f"slot{j}"], x, positions, cache=None)
+            aux_sum = aux_sum if aux is None else aux_sum + aux
+            counts.append(no_moe if c is None else c)
+        return x, aux_sum, torch.stack(counts)
+
+    counts_all = []
+    for p in unbind_tree(params["stack"], n_groups):
+        if remat:
+            x, aux_total, counts = checkpoint(group, x, aux_total, p, use_reentrant=False)
+        else:
+            x, aux_total, counts = group(x, aux_total, p)
+        counts_all.append(counts)
+    return _logits(params, cfg, x), aux_total, torch.cat(counts_all)
 
 
 def _layers(params: Params, cfg: ModelConfig, cache: Params, tiered: Params | None,
@@ -367,8 +437,8 @@ def _walk(params, cfg, x, positions, cache, tiered, cold_capacity_frac, states=N
     no_moe = torch.zeros((e,), dtype=torch.int32, device=x.device)
     counts_all = []
     for sig, p, c, ts in _layers(params, cfg, cache, tiered, states):
-        x, counts = apply_layer(cfg, sig, p, x, positions, cache=c, tiered_state=ts,
-                                cold_capacity_frac=cold_capacity_frac, **layer_kw)
+        x, _, counts = apply_layer(cfg, sig, p, x, positions, cache=c, tiered_state=ts,
+                                   cold_capacity_frac=cold_capacity_frac, **layer_kw)
         counts_all.append(no_moe if counts is None else counts)
     return x, torch.stack(counts_all), cache if states is None else states
 

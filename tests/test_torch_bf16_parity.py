@@ -305,7 +305,7 @@ def layer_by_layer(st, rec):
             paged_past_len=jnp.asarray(past))
         tpool = to_torch(jax.tree.map(np.asarray, pools[name]))
         tpool.update(tm.init_layer_state(tcfg, half, W))  # a recurrent layer's rows
-        xm_t, _ = tm.apply_layer(
+        xm_t, _, _ = tm.apply_layer(
             tcfg, half, to_torch(jp), to_torch(x), torch.tensor(positions), cache=tpool,
             tables=torch.tensor(tables), past_len=torch.tensor(past),
             token_mask=torch.tensor(mask))
@@ -327,7 +327,7 @@ def layer_by_layer(st, rec):
             cache=pools[name], pos=jnp.asarray(lens), paged_tables=jnp.asarray(tables),
             token_mask=jnp.asarray(live))
         tpool = to_torch(jax.tree.map(np.asarray, pools[name]))
-        xm_t, _ = tm.apply_layer(
+        xm_t, _, _ = tm.apply_layer(
             tcfg, half, to_torch(jp), to_torch(x), torch.tensor(lens[:, None]), cache=tpool,
             tables=torch.tensor(tables), pos=torch.tensor(lens), token_mask=torch.tensor(live))
         r = _hold(f"{label} mixer half", xm_t, xm_j, K_MIXER[sig[0]], live)

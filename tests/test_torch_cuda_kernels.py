@@ -12,7 +12,10 @@ and summed in fp32 (one bf16 rounding of q and P would miss 1e-5 by a
 factor of hundreds, tests/test_torch_mla_split.py); the flash kernel rounds P and its output to bf16, held
 to `rounding_bound`, which scales with each output. The bf16 grouped
 GEMM (tensor cores) is held to `_gemm_bound`: fp32 sums of exact bf16
-products in another order, then one bf16 rounding of the output.
+products in another order, then one bf16 rounding of the output. The
+gradient of the GEMM's kernel route (forward and dX on the kernel, dW by
+bmm) is held to the plain route's autograd: fp32 at 1e-4, and the bf16
+SwiGLU FFN's output and gradients per element to `grad_rounding_bound`.
 
 Skips where there is no CUDA device. Imports nothing of JAX, so it also
 runs on the machine with the card, which has none:
@@ -30,8 +33,8 @@ from repro_torch.kernels.expert_gemv import (
 )
 from repro_torch.kernels.expert_gemv.ref import expert_ffn_gemv_ref
 from repro_torch.kernels.flash_attention import attention_ref, flash_attention, rounding_bound
-from repro_torch.kernels.moe_gemm import moe_gemm
-from repro_torch.kernels.moe_gemm.ref import join_panels, moe_gemm_ref
+from repro_torch.kernels.moe_gemm import grouped_expert_ffn, moe_gemm
+from repro_torch.kernels.moe_gemm.ref import grad_rounding_bound, join_panels, moe_gemm_ref
 from repro_torch.kernels.paged_attention import (
     gqa_rounding_bound,
     paged_decode_gqa,
@@ -240,7 +243,8 @@ def test_expert_gemv_bf16_refuses_what_it_cannot_address(cuda_device):
     dev = cuda_device
     x = torch.ones(2, 4, 64, dtype=torch.bfloat16, device=dev)
     w = torch.ones(2, 64, 32, dtype=torch.bfloat16, device=dev)
-    w2 = torch.ones(2, 32, 64, dtype=torch.bfloat16, device=dev)  # F not contiguous
+    # W2 [E, F, D] with unit stride along neither F nor D
+    w2 = torch.ones(2, 32, 128, dtype=torch.bfloat16, device=dev)[:, :, ::2]
     with pytest.raises(ValueError, match="unit stride"):
         expert_ffn_gemv(x, w, w, w2, backend="cuda")
     w_odd = torch.ones(2, 64, 36, dtype=torch.bfloat16, device=dev)  # F off the granule
@@ -551,3 +555,159 @@ def test_flash_bf16_kernel_over_key_tiles(cuda_device, dh, causal, sq, sk):
     with pytest.raises(ValueError, match="head width"):
         flash_attention(q[..., :48].contiguous(), k[..., :48].contiguous(),
                         v[..., :48].contiguous(), causal=causal, backend="cuda")
+
+
+def _with_grads(fn, inputs, dy):
+    """fn's output and the gradients of <output, dy> with respect to
+    each input (fresh leaves)."""
+    leaves = [t.detach().clone().requires_grad_() for t in inputs]
+    out = fn(*leaves)
+    out.backward(dy)
+    return [out.detach()] + [t.grad for t in leaves]
+
+
+@pytest.mark.parametrize("groups", ["tiles", "identity", "shared"])
+def test_moe_gemm_gradient_matches_plain(cuda_device, groups):
+    """fp32 forward, dX and dW of the kernel route against the plain
+    route's autograd, with the weight gradient's groups as the GEMM's
+    tiles (the default), one group per expert, or two groups per expert
+    (the grouped dispatch's [B*E] groups). Forward and dX launch the
+    kernel: two launches per call and its backward."""
+    dev = cuda_device
+    rng = np.random.default_rng(11)
+    e, rows, k, n = 3, 256, 96, 80
+    ge = {"tiles": None, "identity": None, "shared": [0, 1, 2, 0, 1, 2]}[groups]
+    n_groups = e if ge is None else len(ge)
+    group_expert = None if ge is None else _t(ge, dev, torch.int32)
+    te = (torch.arange(e, dtype=torch.int32, device=dev) if ge is None
+          else group_expert).repeat_interleave(rows // 128)
+    kw = {} if groups == "tiles" else dict(groups=(rows, group_expert))
+    x = _t(rng.normal(size=(n_groups * rows, k)), dev)
+    w = _t(rng.normal(size=(e, k, n)), dev)
+    dy = _t(rng.normal(size=(n_groups * rows, n)), dev)
+    before = moe_gemm.launches
+    got = _with_grads(lambda a, b: moe_gemm(a, b, te, backend="cuda", **kw), (x, w), dy)
+    torch.cuda.synchronize()
+    assert moe_gemm.launches - before == 2
+    want = _with_grads(lambda a, b: moe_gemm(a, b, te, backend="ref"), (x, w), dy)
+    for name, g, ref in zip(("out", "dx", "dw"), got, want):
+        torch.testing.assert_close(g, ref, atol=1e-4, rtol=1e-4, msg=name)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n_rows", [1, 2])
+def test_grouped_expert_ffn_gradient_matches_plain(cuda_device, dtype, n_rows):
+    """The SwiGLU FFN over [n_rows * E] dispatch buffers (C 200, padded to
+    256) under autograd: output, dh, dW_gate, dW_up, dW_down of the
+    kernel route against the plain route's; separate gate and up weights
+    join into one [E, D, 2F] panel whose transpose the dX launch reads.
+    fp32 at 1e-4; bf16 per element to `grad_rounding_bound`."""
+    dev = cuda_device
+    gen = torch.Generator(device="cpu").manual_seed(12)
+    e, c, d, f = 4, 200, 128, 128
+    h = torch.randn(n_rows * e, c, d, generator=gen).to(dev, dtype)
+    ws = [(torch.randn(*shape, generator=gen) * shape[1] ** -0.5).to(dev, dtype)
+          for shape in ((e, d, f), (e, d, f), (e, f, d))]
+    dy = (torch.randn(n_rows * e, c, d, generator=gen) * c ** -0.5).to(dev, dtype)
+    ge = None if n_rows == 1 else torch.arange(e, dtype=torch.int32, device=dev).repeat(n_rows)
+    got = _with_grads(lambda *a: grouped_expert_ffn(*a, ge, backend="cuda"), (h, *ws), dy)
+    want = _with_grads(lambda *a: grouped_expert_ffn(*a, ge, backend="ref"), (h, *ws), dy)
+    for name, g, ref in zip(("out", "dh", "dw_gate", "dw_up", "dw_down"), got, want):
+        assert g.dtype == dtype and torch.isfinite(g.float()).all(), name
+        if dtype == torch.float32:
+            torch.testing.assert_close(g, ref, atol=1e-4, rtol=1e-4, msg=name)
+        else:
+            err = (g.float() - ref.float()).abs()
+            assert (err <= grad_rounding_bound(ref)).all(), (name, float(err.max()))
+
+
+def test_moe_gemm_gradient_joins_a_panel_pair(cuda_device):
+    """A tier buffer's gate|up pair under autograd: the kernel route joins
+    the two panels, and both halves get their gradient."""
+    dev = cuda_device
+    rng = np.random.default_rng(13)
+    te = _t([0, 1], dev, torch.int32)
+    x = _t(rng.normal(size=(256, 64)), dev)
+    buf = _t(rng.normal(size=(2, 3, 64, 48)), dev).requires_grad_()
+    dy = _t(rng.normal(size=(256, 96)), dev)
+    grads = []
+    for backend in ("cuda", "ref"):
+        buf.grad = None
+        moe_gemm(x, (buf[:, 0], buf[:, 1]), te, backend=backend).backward(dy)
+        grads.append(buf.grad.clone())
+    torch.testing.assert_close(grads[0], grads[1], atol=1e-4, rtol=1e-4)
+    assert grads[0][:, 2].abs().max() == 0 and grads[0][:, :2].abs().max() > 0
+
+
+def test_expert_gemv_refuses_autograd(cuda_device):
+    """The GEMV has no gradient (nor has the reference's Pallas kernel):
+    on the card, tensors autograd would record raise; under no_grad it
+    runs."""
+    dev = cuda_device
+    rng = np.random.default_rng(14)
+    x = _t(rng.normal(size=(2, 3, 64)), dev)
+    w1, w3 = (_t(rng.normal(size=(2, 64, 64)), dev) for _ in range(2))
+    w2 = _t(rng.normal(size=(2, 64, 64)), dev).requires_grad_()
+    with pytest.raises(RuntimeError, match="no gradient"):
+        cold_expert_ffn(x, w1, w3, w2, backend="cuda")
+    with torch.no_grad():
+        assert torch.isfinite(cold_expert_ffn(x, w1, w3, w2, backend="cuda")).all()
+
+
+@pytest.mark.parametrize("e,t,d,f", [
+    (4, 3, 256, 128),
+    (32, 4, 1024, 512),   # granite's flat decode step: all 32 experts as slots, cap = B
+    (3, 5, 200, 136),     # D and F off the 64-wide box: TMA's zero fill on both edges
+    (2, 40, 1024, 512),   # two token groups
+])
+def test_expert_gemv_bf16_takes_a_row_major_down_matrix(cuda_device, e, t, d, f):
+    """The flat MoE's decode step hands the GEMV its [E, F, D] row-major
+    w_down parameter, which the down pass reads in place (transposed out
+    of shared memory); the result is held to `gemv_rounding_bound` like a
+    tier buffer's, and equals, bitwise, the same weights read through a
+    tier buffer's layout (unit stride along F): the same products summed
+    in the same order."""
+    dev = cuda_device
+    gen = torch.Generator(device="cpu").manual_seed(15 + t)
+    x = torch.randn(e, t, d, generator=gen).to(dev, torch.bfloat16)
+    w1, w3 = ((torch.randn(e, d, f, generator=gen) * d ** -0.5).to(dev, torch.bfloat16)
+              for _ in range(2))
+    w2 = (torch.randn(e, f, d, generator=gen) * f ** -0.5).to(dev, torch.bfloat16)
+    got = cold_expert_ffn(x, w1, w3, w2, backend="cuda")
+    want = expert_ffn_gemv_ref(x, w1, w3, w2)
+    assert ((got.float() - want.float()).abs() <= gemv_rounding_bound(x, w1, w3, w2)).all()
+    tier_view = w2.transpose(1, 2).contiguous().transpose(1, 2)
+    assert torch.equal(expert_ffn_gemv(x, w1, w3, tier_view, backend="cuda"), got)
+
+
+@pytest.mark.parametrize("kernel", ["moe_gemm", "expert_ffn_gemv", "flash_attention"])
+def test_moe_gemm_bf16_launches_from_a_fresh_thread(cuda_device, kernel):
+    """The backward pass runs on autograd's own thread, which may have made
+    no CUDA runtime call (the caching allocator serves it): each bf16
+    kernel that encodes TMA tensor maps binds its operands' device first,
+    so the encode finds a context there."""
+    import threading
+
+    dev = cuda_device
+    gen = torch.Generator(device="cpu").manual_seed(16)
+
+    def bf16(*shape):
+        return (torch.randn(*shape, generator=gen) * shape[-1] ** -0.5).to(dev, torch.bfloat16)
+
+    if kernel == "moe_gemm":
+        args = (bf16(256, 128), bf16(2, 256, 128).transpose(1, 2),
+                torch.tensor([0, 1], dtype=torch.int32, device=dev))
+        fn = moe_gemm
+    elif kernel == "expert_ffn_gemv":
+        args = (bf16(4, 3, 256), bf16(4, 256, 128), bf16(4, 256, 128), bf16(4, 128, 256))
+        fn = expert_ffn_gemv
+    else:
+        args = (bf16(2, 128, 64), bf16(2, 128, 64), bf16(2, 128, 64))
+        fn = flash_attention
+    want = fn(*args, backend="cuda")  # warms the allocator's cache
+    torch.cuda.synchronize()
+    out = {}
+    th = threading.Thread(target=lambda: out.setdefault("y", fn(*args, backend="cuda")))
+    th.start()
+    th.join()
+    assert "y" in out and torch.equal(out["y"], want)

@@ -40,5 +40,10 @@ def test_port_imports_no_jax_and_nothing_of_repro():
                 "repro_torch.kernels.flash_attention.ref",
                 "repro_torch.kernels.paged_attention.kernel",
                 "repro_torch.models.attention", "repro_torch.serving.kv_cache",
-                "repro_torch.models.mamba", "repro_torch.models.xlstm"):
+                "repro_torch.models.mamba", "repro_torch.models.xlstm",
+                "repro_torch.models.moe", "repro_torch.kernels.moe_gemm.ops",
+                "repro_torch.training.optimizer", "repro_torch.training.train_step",
+                "repro_torch.data.pipeline", "repro_torch.checkpoint.checkpoint",
+                "repro_torch.distributed.fault_tolerance", "repro_torch.launch.train",
+                "repro_torch.tree"):
         assert mod in res["modules"]

@@ -22,7 +22,7 @@ from repro.kernels.paged_attention import paged_prefill_gqa as jax_paged_prefill
 from repro_torch.kernels import backend
 from repro_torch.kernels.backend import use_kernel
 from repro_torch.kernels.expert_gemv import cold_expert_ffn, gemv_rounding_bound
-from repro_torch.kernels.expert_gemv.kernel import mma_addressable, mma_plan
+from repro_torch.kernels.expert_gemv.kernel import mma_addressable, mma_plan, w2_layout
 from repro_torch.kernels.moe_gemm import grouped_expert_ffn, moe_gemm
 from repro_torch.kernels.moe_gemm.ref import moe_gemm_ref
 from repro_torch.kernels.paged_attention import (
@@ -225,13 +225,20 @@ def test_gemv_mma_plan_keeps_16_stages_a_cta(d, f, want):
 
 def test_gemv_mma_addressable():
     """The bf16 passes read tier-buffer views in place (F contiguous),
-    F off the 64-wide panel included; a row-major [E, F, D] down matrix,
-    or D or F off the 16-byte granule, is refused."""
+    F off the 64-wide panel included, and a row-major [E, F, D] down
+    matrix (D contiguous: the flat MoE's parameter); a down matrix with
+    unit stride along neither, or D or F off the 16-byte granule, is
+    refused."""
     buf = torch.randn(3, 3, 64, 40, dtype=torch.bfloat16)
     x = torch.randn(3, 2, 64, dtype=torch.bfloat16)
     views = (buf[:, 0], buf[:, 1], buf[:, 2].transpose(1, 2))
     assert mma_addressable(x, *views)
-    assert not mma_addressable(x, views[0], views[1], views[2].contiguous())
+    assert w2_layout(views[2]) == (False, 40)
+    row_major = views[2].contiguous()
+    assert mma_addressable(x, views[0], views[1], row_major)
+    assert w2_layout(row_major) == (True, 64)
+    strided = torch.randn(3, 40, 128, dtype=torch.bfloat16)[..., ::2]
+    assert not mma_addressable(x, views[0], views[1], strided)
     assert not mma_addressable(x[..., :60].contiguous(), views[0][:, :60],
                                views[1][:, :60], views[2][..., :60])
     assert not mma_addressable(x, views[0][..., :36], views[1][..., :36],
