@@ -29,8 +29,14 @@ Phases, each fatal on failure:
      layer a step and no other kernel), then generate from it without
      tiers (moe_gemm on the prefill, the GEMV on the decode steps); two
      fp32 smoke train steps on the card and the CPU (state within 1e-5,
-     equal expert counts) and a checkpoint of the card's state restored
-     on the CPU bitwise;
+     equal expert counts; the lr 1e-3 state of the kernels and of the
+     plain route reported) and a checkpoint of the card's state restored
+     on the CPU bitwise; serve seamless-m4t-large-v2 (encoder-decoder) at
+     full width and depth at the model level (the encoder over 4 x 1024
+     frames, a masked prefill storing the cross K/V, 16 decode steps; no
+     kernel launched; fp32 smoke logits on the card within 1e-5 of the
+     CPU's) and train it for 6 steps of 4 x 256 tokens with frames
+     (finite, falling loss; no kernel launched);
   4. serve granite-moe-1b-a400m (GQA) at full width and depth, then
      deepseek-v2-236b (MLA, dense layer 0, shared experts) at full width
      with its depth cut to 3 layers (bf16, seeded random weights),
@@ -93,7 +99,7 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
     rounding_bound,
 )
 from repro_torch.checkpoint import restore, save  # noqa: E402
-from repro_torch.data.pipeline import SyntheticCorpus  # noqa: E402
+from repro_torch.data.pipeline import SyntheticCorpus, add_frames  # noqa: E402
 from repro_torch.kernels.moe_gemm import grouped_expert_ffn, moe_gemm  # noqa: E402
 from repro_torch.kernels.moe_gemm.kernel import _launch as gemm_launch  # noqa: E402
 from repro_torch.kernels.moe_gemm.ref import grad_rounding_bound, moe_gemm_ref  # noqa: E402
@@ -144,6 +150,9 @@ JAMBA_ARCH = "jamba-v0.1-52b"
 # Mamba elsewhere, MoE at 1 / 3 / 5 / 7); 16 layers would not fit the card
 JAMBA_LAYERS = 8
 XLSTM_ARCH = "xlstm-125m"
+ENCDEC_ARCH = "seamless-m4t-large-v2"  # served and trained at full width and depth
+SEAMLESS_PATH, SEAMLESS_TRAIN_PATH = "seamless", "seamless_train"
+SEAMLESS_TRAIN_B, SEAMLESS_TRAIN_S, SEAMLESS_TRAIN_STEPS = 4, 256, 6
 # loop arguments by arch: jamba's tiers as explicit sizes (4 hot slots;
 # the cold buffer pads to 16 slots: ~35 GB of tier buffers at 8 layers)
 ARCH_LOOP_KW = {JAMBA_ARCH: dict(sizes=TierSizes(4, 5, 7))}
@@ -1357,8 +1366,11 @@ def train_smoke_parity(dev) -> None:
     step's gradient is where its elements are off (relative to the
     leaf's largest): Adam's first update is g / (|g| + eps), so an
     element whose gradient is near 0 may move by up to 2 lr for a
-    rounding-sized change of it. Then the card's state saved as a
-    checkpoint and restored on the CPU equals it bitwise."""
+    rounding-sized change of it. The same lr 1e-3 run on the card with
+    `moe_backend="ref"` (the plain PyTorch route, no kernel) is reported
+    beside it: if its farthest leaves are the kernels' own, the kernels
+    are not what moves them. Then the card's state saved as a checkpoint
+    and restored on the CPU equals it bitwise."""
     t0 = time.time()
     cfg = reduce_for_smoke(get_config(GQA_ARCH))
     cfg = dataclasses.replace(cfg, param_dtype="float32", compute_dtype="float32")
@@ -1369,9 +1381,13 @@ def train_smoke_parity(dev) -> None:
         batches = _batches(cfg, 4, 32, d)
         _, metrics, grads = value_and_grad(p, cfg, batches[0])
         run = dict(grads=grads)
-        for name, opt in (("defaults", AdamWConfig()), ("lr1e-3", TRAIN_OPT)):
+        runs_of = [("defaults", cfg, AdamWConfig()), ("lr1e-3", cfg, TRAIN_OPT)]
+        if d.type == "cuda":
+            runs_of.append(("lr1e-3 plain", dataclasses.replace(cfg, moe_backend="ref"),
+                            TRAIN_OPT))
+        for name, c, opt in runs_of:
             q, o = p, adamw_init(p, opt)
-            step = make_train_step(cfg, opt)
+            step = make_train_step(c, opt)
             for i in range(2):
                 q, o, _ = step(q, o, batches[i % 2])
             run[name] = {"params": q, "opt": o}
@@ -1392,6 +1408,9 @@ def train_smoke_parity(dev) -> None:
              f"over, elements): {worst[:6]}")
     lr_worst = _over(card["lr1e-3"], cpu["lr1e-3"])
     off_grad = _off_grad(card["lr1e-3"], cpu["lr1e-3"], cpu["grads"], lr_worst[0][0])
+    plain_worst = _over(card["lr1e-3 plain"], cpu["lr1e-3"])
+    plain_off_grad = _off_grad(card["lr1e-3 plain"], cpu["lr1e-3"], cpu["grads"],
+                               plain_worst[0][0])
     with tempfile.TemporaryDirectory(dir=Path(__file__).resolve().parent) as ckpt:
         save(ckpt, 2, card["defaults"])
         got = restore(ckpt, 2, tree_map(lambda t: torch.zeros_like(t, device="cpu"),
@@ -1405,8 +1424,180 @@ def train_smoke_parity(dev) -> None:
                           err_over_tol=worst[0][1][0], worst_leaf=worst[0][0],
                           lr1e3_not_held=dict(worst_leaves=lr_worst[:3],
                                               off_elements_grad_over_leaf_max=off_grad),
+                          lr1e3_plain_route_not_held=dict(
+                              worst_leaves=plain_worst[:3],
+                              off_elements_grad_over_leaf_max=plain_off_grad),
                           identical_counts=True, checkpoint_restored_bitwise=True,
                           seconds=time.time() - t0)), flush=True)
+
+
+# ------------------------------------------------------ encoder-decoder
+def _frames(cfg, b: int, seed: int, dtype, dev) -> torch.Tensor:
+    """Seeded encoder frames [b, F, D], 0.02 N(0, 1) as `add_frames`
+    makes them, in `dtype` (the params': the model refuses a mix)."""
+    gen = torch.Generator().manual_seed(seed)
+    f = torch.randn((b, cfg.encdec.frontend_frames, cfg.d_model), generator=gen) * 0.02
+    return f.to(device=dev, dtype=dtype)
+
+
+def _encdec_generate(params, cfg, toks, lens, frames, steps: int):
+    """Masked prefill of right-padded rows over the encoder's frames, then
+    `steps` greedy decode steps at each row's own position. Returns (the
+    logits of every step, stacked [steps + 1, B, V], the cache, the
+    prefill's seconds, each decode step's seconds), each timed to a
+    device synchronisation."""
+    s = toks.shape[1]
+    mask = torch.arange(s, device=toks.device)[None, :] < lens[:, None]
+    t0 = time.time()
+    logits, cache = prefill(params, cfg, toks, cache_len=s + steps, token_mask=mask,
+                            frames=frames)
+    torch.cuda.synchronize()
+    prefill_s = time.time() - t0
+    out, pos, step_s = [logits], lens.to(torch.int32), []
+    for _ in range(steps):
+        t0 = time.time()
+        nxt = out[-1].argmax(-1).to(torch.int32)[:, None]
+        logits, cache, _ = decode_step(params, cfg, nxt, cache, pos)
+        out.append(logits)
+        pos = pos + 1
+        torch.cuda.synchronize()
+        step_s.append(time.time() - t0)
+    return torch.stack(out), cache, prefill_s, step_s
+
+
+def seamless_phase(dev) -> dict:
+    """seamless-m4t-large-v2 at full width and depth (24 encoder and 24
+    decoder layers, d_model 1024, 16 heads, d_ff 8192, vocab 256206),
+    bf16 weights from seed 0, at the model level (the reference's loop
+    serves routed-MoE models only): the encoder over frames [4, 1024,
+    1024], a masked prefill of 4 right-padded rows of 64 slots (64, 40, 33
+    and 57 real tokens) storing every decoder layer's cross K/V, then 16
+    greedy decode steps reading them, with the launch counters reset just
+    before: none of the five kernels may launch (the reference's encoder
+    and cross attention are plain jnp). Reported: the relative error of
+    prefill(64) + one decode step against `forward_train` at position 64
+    (the reference's own property, tests/test_models.py, which holds it
+    to 0.03 at smoke size). Then the fp32 smoke config on the card and
+    on the CPU from the same weights and frames: `forward_train` logits
+    and every generate step's logits within 1e-5 (abs + rel), equal
+    tokens."""
+    t_phase = time.time()
+    cfg = get_config(ENCDEC_ARCH)
+    torch.cuda.reset_peak_memory_stats(dev)
+    params = init_params(0, cfg, device=dev)
+    dt = params["embed"]["table"].dtype
+    frames = _frames(cfg, 4, 7, dt, dev)
+    gen = torch.Generator().manual_seed(8)
+    lens = torch.tensor([64, 40, 33, 57], device=dev)
+    toks = torch.randint(0, cfg.vocab_size, (4, 64), generator=gen).to(dev)
+    torch.cuda.synchronize()
+    setup_s = time.time() - t_phase
+    setup_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    reset_counters()
+    with torch.no_grad():
+        out, cache, prefill_s, step_s = _encdec_generate(params, cfg, toks, lens, frames, 16)
+        launches = read_counters()
+        # the reference's property: prefill(S) + decode(token S) vs the full forward
+        l2, c2 = prefill(params, cfg, toks, cache_len=65, frames=frames)
+        nxt = l2.argmax(-1).to(torch.int32)[:, None]
+        step, _, _ = decode_step(params, cfg, nxt, c2, 64)
+        full, _, _ = forward_train(params, cfg, {"tokens": torch.cat([toks, nxt], 1),
+                                                 "frames": frames})
+        ref = full[:, 64].float()
+        rel = float((step.float() - ref).abs().max() / (ref.abs().max() + 1e-9))
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    if any(launches.values()):
+        fail(f"{ENCDEC_ARCH}: a kernel launched on the encoder-decoder path: {launches}")
+    if out.shape != (17, 4, cfg.vocab_size) or not torch.isfinite(out.float()).all():
+        fail(f"{ENCDEC_ARCH}: logits of shape {tuple(out.shape)}, or not finite")
+    if cache["stack"]["slot0"]["ck"].shape != (cfg.n_layers, 4, 1024, cfg.n_kv_heads,
+                                               cfg.resolved_head_dim):
+        fail(f"{ENCDEC_ARCH}: cross K/V cache of shape "
+             f"{tuple(cache['stack']['slot0']['ck'].shape)}")
+    del params, cache, c2, full, out
+    # fp32 smoke: the card against the CPU, same weights and inputs
+    scfg = dataclasses.replace(reduce_for_smoke(cfg), param_dtype="float32",
+                               compute_dtype="float32")
+    sp = init_params(0, scfg, device="cpu")
+    stoks = torch.randint(0, scfg.vocab_size, (4, 16), generator=gen)
+    slens = torch.tensor([16, 9, 12, 5])
+    sframes = _frames(scfg, 4, 9, torch.float32, "cpu")
+    with torch.no_grad():
+        got = [_encdec_generate(_to(sp, dev), scfg, stoks.to(dev), slens.to(dev),
+                                sframes.to(dev), 8)[0].cpu(),
+               forward_train(_to(sp, dev), scfg, {"tokens": stoks.to(dev),
+                                                  "frames": sframes.to(dev)})[0].cpu()]
+        want = [_encdec_generate(sp, scfg, stoks, slens, sframes, 8)[0],
+                forward_train(sp, scfg, {"tokens": stoks, "frames": sframes})[0]]
+    worst = max(float(((g - w).abs() / (1e-5 + 1e-5 * w.abs())).max())
+                for g, w in zip(got, want))
+    if not torch.equal(got[0].argmax(-1), want[0].argmax(-1)) or worst > 1:
+        fail(f"{ENCDEC_ARCH} fp32 smoke: card logits off the CPU's by {worst:.3f} of 1e-5, "
+             f"or other tokens")
+    print(json.dumps(dict(
+        phase="seamless", path=SEAMLESS_PATH, arch=ENCDEC_ARCH, layers=cfg.n_layers,
+        encoder_layers=cfg.encdec.n_encoder_layers, d_model=cfg.d_model,
+        frames=cfg.encdec.frontend_frames, dtype=cfg.param_dtype, rows=4, decode_steps=16,
+        setup_s=setup_s, setup_peak_gb=setup_gb, prefill_s=prefill_s, decode_s=sum(step_s),
+        decode_step_s=step_s, median_decode_step_s=sorted(step_s)[len(step_s) // 2],
+        peak_mem_gb=peak_gb, decode_vs_forward_rel_err=rel, launches=launches,
+        smoke_fp32_err_over_tol=worst, identical_smoke_tokens=True,
+        seconds=time.time() - t_phase)), flush=True)
+    return dict(path=SEAMLESS_PATH, launches=launches)
+
+
+def seamless_train_phase(dev) -> dict:
+    """seamless-m4t-large-v2 at full width and depth trained for
+    SEAMLESS_TRAIN_STEPS steps of 4 x 256 tokens from `SyntheticCorpus`
+    (batches i % 2) with `add_frames`' frames (fp32, cast to the params'
+    bf16 as launch/train.py casts them), AdamW as the train phase runs it
+    (lr 1e-3, 2 warm-up steps), each decoder layer group and encoder
+    layer checkpointed, the launch counters reset just before: every
+    loss finite, the last below the first, no kernel launched. Step time:
+    the median after the first 2 steps."""
+    t_phase = time.time()
+    cfg = get_config(ENCDEC_ARCH)
+    torch.cuda.reset_peak_memory_stats(dev)
+    params, opt = init_train_state(0, cfg, TRAIN_OPT, device=dev)
+    dt = params["embed"]["table"].dtype
+    corpus = SyntheticCorpus(cfg.vocab_size, seed=0)
+    batches = []
+    for i in range(2):
+        b = add_frames(corpus.batch(i, SEAMLESS_TRAIN_B, SEAMLESS_TRAIN_S), cfg)
+        b = {k: torch.as_tensor(v, device=dev) for k, v in b.items()}
+        b["frames"] = b["frames"].to(dt)
+        batches.append(b)
+    step = make_train_step(cfg, TRAIN_OPT)
+    torch.cuda.synchronize()
+    setup_s = time.time() - t_phase
+    reset_counters()
+    losses, secs = [], []
+    for i in range(SEAMLESS_TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        params, opt, metrics = step(params, opt, batches[i % 2])
+        losses.append(float(metrics["loss"]))  # synchronises
+        secs.append(time.time() - t0)
+    launches = read_counters()
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    if not all(math.isfinite(v) for v in losses) or not losses[-1] < losses[0]:
+        fail(f"{SEAMLESS_TRAIN_PATH}: losses {losses} are not finite and falling")
+    if any(launches.values()):
+        fail(f"{SEAMLESS_TRAIN_PATH}: a kernel launched on the encoder-decoder path: "
+             f"{launches}")
+    timed = sorted(secs[2:])
+    step_s = timed[len(timed) // 2]
+    print(json.dumps(dict(
+        phase="seamless_train", path=SEAMLESS_TRAIN_PATH, arch=ENCDEC_ARCH,
+        layers=cfg.n_layers, encoder_layers=cfg.encdec.n_encoder_layers,
+        d_model=cfg.d_model, dtype=cfg.param_dtype, batch=SEAMLESS_TRAIN_B,
+        seq=SEAMLESS_TRAIN_S, frames=cfg.encdec.frontend_frames, steps=SEAMLESS_TRAIN_STEPS,
+        losses=losses, step_s=secs, median_step_s=step_s,
+        tokens_per_s=SEAMLESS_TRAIN_B * SEAMLESS_TRAIN_S / step_s,
+        frames_per_s=SEAMLESS_TRAIN_B * cfg.encdec.frontend_frames / step_s,
+        peak_mem_gb=peak_gb, setup_s=setup_s, launches=launches,
+        seconds=time.time() - t_phase)), flush=True)
+    return dict(path=SEAMLESS_TRAIN_PATH, launches=launches)
 
 
 def main(argv=None) -> int:
@@ -1458,6 +1649,10 @@ def main(argv=None) -> int:
     train_smoke_parity(dev)
     gc.collect()
     torch.cuda.empty_cache()
+    for phase in (seamless_phase, seamless_train_phase):
+        paths.append(phase(dev))
+        gc.collect()
+        torch.cuda.empty_cache()
     for arch, n_layers, mode, expect, forbid in SERVES:
         paths.append(serve_full(dev, arch, n_layers, mode, expect, forbid,
                                 profile_out=args.profile_out if args.profile else None,

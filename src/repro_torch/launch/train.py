@@ -3,7 +3,9 @@ repro/launch/train.py): seeded random init, the deterministic data
 pipeline, AdamW, async checkpointing with auto-resume, a straggler
 watchdog and a preemption handler. Runs on the GPU unless `--device cpu`
 is given. The reference's device mesh and sharded state are the
-distributed slice's.
+distributed slice's. An encoder-decoder model's frames (`add_frames`,
+fp32) are cast to the params' dtype: repro/launch/train.py passes them
+as they are, and its scanned decoder then raises a TypeError at bf16.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch granite-moe-1b-a400m \\
       --smoke --steps 10 --device cpu
@@ -23,6 +25,7 @@ from repro_torch.distributed.fault_tolerance import (
     StepWatchdog,
     install_preemption_handler,
 )
+from repro_torch.models.layers import torch_dtype
 from repro_torch.models.model import resolve_device
 from repro_torch.training.optimizer import AdamWConfig
 from repro_torch.training.train_step import init_train_state, make_train_step
@@ -74,6 +77,8 @@ def main(argv=None):
     for step in range(start, args.steps):
         batch = add_frames(corpus.batch(step, args.batch, args.seq), cfg)
         batch = {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
+        if "frames" in batch:  # the frontend stub's fp32 frames, in the params' dtype
+            batch["frames"] = batch["frames"].to(torch_dtype(cfg.param_dtype))
         t0 = time.time()
         params, opt_state, metrics = step_fn(params, opt_state, batch)
         loss = float(metrics["loss"])  # synchronises with the device

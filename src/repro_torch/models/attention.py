@@ -1,9 +1,9 @@
-"""GQA and MLA attention for serving (port of repro/models/attention.py:
-`init_gqa` :38, `init_mla` :56, `_grouped_attention` :75, `gqa_forward`
-:180, `gqa_decode` :211, `mla_forward` :242, `mla_decode` :292,
-`_paged_write` :364, `paged_scatter` :374, `gqa_decode_paged` :390,
-`mla_decode_paged` :438, `gqa_prefill_paged` :495, `mla_prefill_paged`
-:552).
+"""GQA and MLA attention (port of repro/models/attention.py: `init_gqa`
+:38, `init_mla` :56, `_grouped_attention` :75, `gqa_forward` :180 (with
+cross attention's `kv_override` and the encoder's causal=False),
+`gqa_decode` :211, `mla_forward` :242, `mla_decode` :292, `_paged_write`
+:364, `paged_scatter` :374, `gqa_decode_paged` :390, `mla_decode_paged`
+:438, `gqa_prefill_paged` :495, `mla_prefill_paged` :552).
 
 Two cache layouts. The contiguous one ("slots") holds a ring buffer of
 static length S per row: `gqa_forward` / `mla_forward` run whole
@@ -141,13 +141,23 @@ def _grouped_attention(q, k, v, *, causal: bool = False, valid=None,
 
 
 # ---------------------------------------------- contiguous (slots) layout
-def gqa_forward(p: Params, cfg, x, positions, token_mask=None):
-    """Full-sequence causal GQA (prefill). x [B, S, D]; positions [B or 1,
+def gqa_forward(p: Params, cfg, x, positions, token_mask=None, *, kv_override=None,
+                causal=True):
+    """Full-sequence GQA (prefill, training, an encoder's self-attention
+    with causal=False, cross attention). x [B, S, D]; positions [B or 1,
     S]; token_mask [B, S] real tokens (pad keys masked; outputs at pad
-    queries are unspecified). Returns (out [B, S, D], (k, v)) with the
-    tokens' k / v [B, S, Kv, hd] for the cache."""
-    q, k, v = _qkv(p, x, positions, cfg.rope_theta)
-    out = _grouped_attention(q, k, v, causal=True, valid=token_mask)
+    queries are unspecified). With `kv_override` (k, v) [B, Sk, Kv, hd]
+    only q is projected (its bias added) and nothing is roped: cross
+    attention over an encoder's K/V. Returns (out [B, S, D], (k, v)) with
+    the tokens' k / v [B, S, Kv, hd] for the cache."""
+    if kv_override is None:
+        q, k, v = _qkv(p, x, positions, cfg.rope_theta)
+    else:
+        k, v = kv_override
+        q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+        if "bq" in p:
+            q = q + p["bq"]
+    out = _grouped_attention(q, k, v, causal=causal, valid=token_mask)
     return torch.einsum("bshk,hkd->bsd", out, p["wo"]), (k, v)
 
 

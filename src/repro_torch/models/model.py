@@ -1,10 +1,19 @@
 """Model assembly for training and serving (port of repro/models/model.py:
-`layer_signature` :41, `stack_plan` :58, `init_params` :107,
-`init_layer_cache` :147, `init_cache` :172, the attention, MoE (tiered
-and flat, :362-377) and recurrent branches of `apply_layer` :195
-(:301-336 for Mamba / mLSTM / sLSTM) and its cacheless full mode,
+`layer_signature` :41, `stack_plan` :58, `init_layer` :87 (cross
+attention :101-103), `init_params` :107 (the encoder :131-142),
+`init_layer_cache` :147 (cross K/V :165-168), `init_cache` :172, the
+attention, cross-attention (:341-348), MoE (tiered and flat, :362-377) and
+recurrent branches of `apply_layer` :195 (:301-336 for Mamba / mLSTM /
+sLSTM) and its cacheless full mode, `_run_encoder` :380, `_cross_kv` :394,
 `_logits` :400, `forward_train` :407, `prefill` :462, `decode_step` :565,
 `decode_step_paged` :640, `prefill_paged` :730, `decode_verify` :824).
+
+Encoder-decoder models (seamless-m4t) run the contiguous functions only,
+as in the reference, whose paged prefill and verify assert `encdec is
+None`: `forward_train` and `prefill` take the encoder's input frames
+[B, F, D], every decoder layer attends over its own projection of the
+encoder output (`ck` / `cv` [B, F, Kv, hd], no RoPE, no key mask), which
+`prefill` stores in the cache and `decode_step` reads from it.
 
 Params keep the JAX tree layout: periodic layers are stacked under
 params["stack"]["slot<j>"] with the scan-group dim first. Where JAX
@@ -115,11 +124,33 @@ MIXERS = {  # the mixers the port serves
 }
 
 
-def check_supported(cfg: ModelConfig) -> None:
-    """The port serves every decoder-only config; encoder-decoder models
-    are a later slice."""
+def check_decoder_only(cfg: ModelConfig, what: str) -> None:
+    """The paged layout, `decode_verify` and the serving loop refuse
+    encoder-decoder models, as the reference's asserts do (model.py:767,
+    :852; serving/paged_kv.py:293): a paged row holds no cross K/V and the
+    loop carries no frames. The contiguous functions run them."""
     if cfg.encdec is not None:
-        raise NotImplementedError("encoder-decoder models are not ported yet")
+        raise NotImplementedError(f"{what} does not support encoder-decoder models")
+
+
+def has_cross(cfg: ModelConfig) -> bool:
+    """Whether every decoder layer attends over the encoder's output."""
+    return cfg.encdec is not None and cfg.encdec.cross_attention
+
+
+def check_frames(params: Params, cfg: ModelConfig, frames) -> None:
+    """Frames must come in the params' dtype. The reference runs its
+    encoder and decoder layers under `lax.scan`, whose carry keeps its
+    input dtype: bf16 frames under fp32 params (the encoder's residual
+    promotes) or fp32 frames under bf16 params (the decoder's residual
+    promotes at the first cross attention) raise a TypeError there, so
+    they do here rather than run a mix the reference never computes."""
+    if frames is None:
+        raise ValueError(f"{cfg.name} is an encoder-decoder model: pass its frames")
+    dt = params["embed"]["table"].dtype
+    if frames.dtype != dt:
+        raise TypeError(f"frames are {frames.dtype}, the params {dt}: an encoder-decoder "
+                        f"model takes frames in the params' dtype")
 
 
 def is_recurrent(cfg: ModelConfig) -> bool:
@@ -130,7 +161,7 @@ def is_recurrent(cfg: ModelConfig) -> bool:
 
 
 # ------------------------------------------------------------ layer init
-def init_layer(gen, cfg: ModelConfig, sig: Sig, lead=()) -> Params:
+def init_layer(gen, cfg: ModelConfig, sig: Sig, lead=(), cross: bool = False) -> Params:
     mixer, ffn = sig
     dt = torch_dtype(cfg.param_dtype)
     dev = gen.device
@@ -144,6 +175,9 @@ def init_layer(gen, cfg: ModelConfig, sig: Sig, lead=()) -> Params:
             p["ffn"] = moe_lib.init_moe(gen, cfg, lead)
         else:
             p["ffn"] = init_mlp(gen, cfg.d_model, cfg.d_ff, dt, lead)
+    if cross:
+        p["norm_cross"] = init_rmsnorm(cfg.d_model, dt, dev, lead)
+        p["cross"] = attn.init_gqa(gen, cfg, lead)
     return p
 
 
@@ -162,21 +196,28 @@ def resolve_device(device) -> torch.device:
 def init_params(seed: int, cfg: ModelConfig, device=None) -> Params:
     """Seeded random params in the JAX tree layout, drawn on `device`
     (default: the GPU) from a `torch.Generator`."""
-    check_supported(cfg)
     device = resolve_device(device)
     gen = torch.Generator(device=device).manual_seed(seed)
     unrolled_idx, n_groups, period = stack_plan(cfg)
     dt = torch_dtype(cfg.param_dtype)
+    cross = has_cross(cfg)
     params: Params = {"embed": init_embedding(gen, cfg.vocab_size, cfg.d_model, dt)}
     for li in unrolled_idx:
-        params[f"layer{li}"] = init_layer(gen, cfg, layer_signature(cfg, li))
+        params[f"layer{li}"] = init_layer(gen, cfg, layer_signature(cfg, li), cross=cross)
     params["stack"] = {
-        f"slot{j}": init_layer(gen, cfg, sig, lead=(n_groups,))
+        f"slot{j}": init_layer(gen, cfg, sig, lead=(n_groups,), cross=cross)
         for j, sig in enumerate(period)
     }
     params["final_norm"] = init_rmsnorm(cfg.d_model, dt, device)
     if not cfg.tie_embeddings:
         params["head"] = init_lm_head(gen, cfg.d_model, cfg.vocab_size, dt)
+    if cfg.encdec is not None:
+        params["encoder"] = {
+            # every encoder layer is ("attn", "dense") (reference :132)
+            "stack": {"slot0": init_layer(gen, cfg, ("attn", "dense"),
+                                          lead=(cfg.encdec.n_encoder_layers,))},
+            "final_norm": init_rmsnorm(cfg.d_model, dt, device),
+        }
     return params
 
 
@@ -207,19 +248,26 @@ def init_layer_cache(cfg: ModelConfig, sig: Sig, batch: int, seq: int, device=No
                      lead=()) -> Params:
     """One layer's contiguous cache: zeroed ring buffers [*lead, batch,
     seq, ...] per leaf of an attention mixer's `cache_shapes`, or a
-    recurrent mixer's init state."""
+    recurrent mixer's init state; an encoder-decoder layer's cross K/V
+    (`ck` / `cv` [*lead, batch, frames, Kv, hd]) besides."""
     m = MIXERS[sig[0]]
-    if m.cache_shapes is None:
-        return init_layer_state(cfg, sig, batch, device, lead)
     dt = torch_dtype(cfg.param_dtype)
-    return {k: torch.zeros((*lead, batch, *shape), dtype=dt, device=device)
-            for k, shape in m.cache_shapes(cfg, seq).items()}
+    if m.cache_shapes is None:
+        c = init_layer_state(cfg, sig, batch, device, lead)
+    else:
+        c = {k: torch.zeros((*lead, batch, *shape), dtype=dt, device=device)
+             for k, shape in m.cache_shapes(cfg, seq).items()}
+    if has_cross(cfg):
+        kv = (*lead, batch, cfg.encdec.frontend_frames, cfg.n_kv_heads,
+              cfg.resolved_head_dim)
+        c["ck"] = torch.zeros(kv, dtype=dt, device=device)
+        c["cv"] = torch.zeros(kv, dtype=dt, device=device)
+    return c
 
 
 def init_cache(cfg: ModelConfig, batch: int, seq: int, device=None) -> Params:
     """The contiguous decode cache: "layer<i>" leaves [batch, ...], "stack"
     leaves [n_groups, batch, ...]."""
-    check_supported(cfg)
     return layer_tree(cfg, lambda sig, lead: init_layer_cache(cfg, sig, batch, seq, device,
                                                               lead))
 
@@ -268,6 +316,7 @@ def apply_layer(
     token_mask: torch.Tensor | None = None,  # [B, S] valid tokens
     tiered_state: Params | None = None,
     cold_capacity_frac: float = 0.25,
+    cross_kv: Tuple[torch.Tensor, torch.Tensor] | None = None,  # training's (ck, cv)
 ):
     """One layer. Decode when `pos` is given (x [B, 1, D]), full-sequence
     otherwise (x [B, S, D], `token_mask`): over the paged pools (a chunk
@@ -277,9 +326,11 @@ def apply_layer(
     `prefill.merge`), or, with `cache=None`, over no cache at all. A
     recurrent layer decodes from its rows' state and otherwise runs the
     masked forward from the init state (a paged chunk included, as the
-    reference's), and writes the new state over the old. Returns (x,
-    aux loss (fp32 scalar; None without a flat MoE), expert_counts [E]
-    int32 or None)."""
+    reference's), and writes the new state over the old. A layer with
+    cross attention then attends, non-causally and with no key mask, over
+    the encoder's K/V: the cache's `ck` / `cv`, or `cross_kv` in the
+    cacheless mode. Returns (x, aux loss (fp32 scalar; None without a
+    flat MoE), expert_counts [E] int32 or None)."""
     h = rmsnorm(p["norm1"], x, cfg.norm_eps)
     m = MIXERS[sig[0]]
     if m.init_state is not None:
@@ -307,7 +358,14 @@ def apply_layer(
                 if token_mask is not None:  # pad entries zeroed
                     val = val * token_mask[(...,) + (None,) * (val.ndim - 2)].to(val.dtype)
                 cache[key][:, :s] = val
-    return _ffn(cfg, sig, p, x + y, token_mask, tiered_state, cold_capacity_frac,
+    x = x + y
+    if "cross" in p:
+        kv = cross_kv if cache is None else (cache["ck"], cache["cv"])
+        hc = rmsnorm(p["norm_cross"], x, cfg.norm_eps)
+        yc, _ = attn.gqa_forward(p["cross"], cfg, hc, positions, kv_override=kv,
+                                 causal=False)
+        x = x + yc
+    return _ffn(cfg, sig, p, x, token_mask, tiered_state, cold_capacity_frac,
                 decode=pos is not None)
 
 
@@ -339,6 +397,42 @@ def _ffn(cfg, sig, p, x, token_mask, tiered_state, cold_capacity_frac, decode):
     return x, aux, counts
 
 
+def _encoder_layer(cfg: ModelConfig, p: Params, x: torch.Tensor, positions: torch.Tensor):
+    """One encoder layer: non-causal self-attention (RoPE at the frames'
+    positions), then the dense FFN (the reference's `apply_layer` with
+    causal=False and no cache)."""
+    h = rmsnorm(p["norm1"], x, cfg.norm_eps)
+    y, _ = attn.gqa_forward(p["mixer"], cfg, h, positions, causal=False)
+    x = x + y
+    return x + mlp(p["ffn"], rmsnorm(p["norm2"], x, cfg.norm_eps))
+
+
+def _run_encoder(params: Params, cfg: ModelConfig, frames: torch.Tensor,
+                 remat: bool = False) -> torch.Tensor:
+    """The encoder stack over frames [B, F, D], then its final norm
+    (reference :380). With `remat` each layer is activation-checkpointed,
+    as `forward_train` checkpoints the decoder's groups: the same values,
+    a layer's input kept instead of its score tensors."""
+    check_frames(params, cfg, frames)
+    enc = params["encoder"]
+    positions = torch.arange(frames.shape[1], dtype=torch.int32, device=frames.device)[None, :]
+    x = frames
+    for p in unbind_tree(enc["stack"]["slot0"], cfg.encdec.n_encoder_layers):
+        if remat:
+            x = checkpoint(_encoder_layer, cfg, p, x, positions, use_reentrant=False)
+        else:
+            x = _encoder_layer(cfg, p, x, positions)
+    return rmsnorm(enc["final_norm"], x, cfg.norm_eps)
+
+
+def _cross_kv(layer_p: Params, enc_out: torch.Tensor):
+    """A decoder layer's cross K/V [B, F, Kv, hd] from the encoder output:
+    no bias, no RoPE (reference :394)."""
+    k = torch.einsum("bsd,dhk->bshk", enc_out, layer_p["cross"]["wk"])
+    v = torch.einsum("bsd,dhk->bshk", enc_out, layer_p["cross"]["wv"])
+    return k, v
+
+
 def _logits(params: Params, cfg: ModelConfig, x: torch.Tensor):
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     if cfg.tie_embeddings:
@@ -348,7 +442,8 @@ def _logits(params: Params, cfg: ModelConfig, x: torch.Tensor):
 
 def forward_train(params: Params, cfg: ModelConfig, batch, remat: bool = True):
     """The training forward (reference :407): batch {"tokens": [B, S]
-    int}, no cache, every MoE layer through the flat `moe_forward` at
+    int, and an encoder-decoder model's "frames" [B, F, D] in the params'
+    dtype}, no cache, every MoE layer through the flat `moe_forward` at
     the config's capacity factor. Returns (logits [B, S, V], aux loss
     (fp32 scalar, summed over layers), expert counts [n_groups * period,
     E] int32: the scanned groups' layers only, zeros for a layer without
@@ -356,8 +451,8 @@ def forward_train(params: Params, cfg: ModelConfig, batch, remat: bool = True):
     layer group is activation-checkpointed (`torch.utils.checkpoint`,
     non-reentrant): only its input is kept, and its forward, the MoE
     kernels included, runs again in the backward pass (the reference
-    saves its matmul outputs without batch dims as well)."""
-    check_supported(cfg)
+    saves its matmul outputs without batch dims as well); a layer group's
+    cross K/V are taken inside it, so the recompute rebuilds them."""
     tokens = batch["tokens"]
     unrolled_idx, n_groups, period = stack_plan(cfg)
     x = embed(params["embed"], tokens)
@@ -365,16 +460,23 @@ def forward_train(params: Params, cfg: ModelConfig, batch, remat: bool = True):
     e = cfg.moe.n_experts if cfg.moe is not None else 1
     no_moe = torch.zeros((e,), dtype=torch.int32, device=x.device)
 
+    enc_out = None
+    if cfg.encdec is not None:
+        enc_out = _run_encoder(params, cfg, batch.get("frames"), remat)
+
+    def layer(sig, lp, x, enc_out):
+        cross_kv = None if enc_out is None else _cross_kv(lp, enc_out)
+        return apply_layer(cfg, sig, lp, x, positions, cache=None, cross_kv=cross_kv)
+
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for li in unrolled_idx:
-        x, aux, _ = apply_layer(cfg, layer_signature(cfg, li), params[f"layer{li}"], x,
-                                positions, cache=None)
+        x, aux, _ = layer(layer_signature(cfg, li), params[f"layer{li}"], x, enc_out)
         aux_total = aux_total if aux is None else aux_total + aux
 
-    def group(x, aux_sum, p):
+    def group(x, aux_sum, p, enc_out):
         counts = []
         for j, sig in enumerate(period):
-            x, aux, c = apply_layer(cfg, sig, p[f"slot{j}"], x, positions, cache=None)
+            x, aux, c = layer(sig, p[f"slot{j}"], x, enc_out)
             aux_sum = aux_sum if aux is None else aux_sum + aux
             counts.append(no_moe if c is None else c)
         return x, aux_sum, torch.stack(counts)
@@ -382,9 +484,10 @@ def forward_train(params: Params, cfg: ModelConfig, batch, remat: bool = True):
     counts_all = []
     for p in unbind_tree(params["stack"], n_groups):
         if remat:
-            x, aux_total, counts = checkpoint(group, x, aux_total, p, use_reentrant=False)
+            x, aux_total, counts = checkpoint(group, x, aux_total, p, enc_out,
+                                              use_reentrant=False)
         else:
-            x, aux_total, counts = group(x, aux_total, p)
+            x, aux_total, counts = group(x, aux_total, p, enc_out)
         counts_all.append(counts)
     return _logits(params, cfg, x), aux_total, torch.cat(counts_all)
 
@@ -462,6 +565,7 @@ def prefill(
     tiered: Params | None = None,
     cold_capacity_frac: float = 0.25,
     token_mask: torch.Tensor | None = None,  # [B, S] bool real tokens
+    frames: torch.Tensor | None = None,  # [B, F, D]: an encoder-decoder model's input
 ):
     """Full-sequence prefill building a fresh contiguous cache of
     `cache_len` (default S) slots per row. Without `token_mask` every row
@@ -470,9 +574,17 @@ def prefill(
     pad cache entries are zeroed, and the logits are each row's last real
     token's (an all-pad row yields row position 0: callers drop such
     rows). MoE layers run through the tiered runtime when `tiered` is
-    given. Returns (logits [B, V], cache)."""
+    given. An encoder-decoder model runs its encoder over `frames` first
+    and stores each decoder layer's cross K/V in the cache (the reference
+    puts `_cross_kv`'s arrays in place of the zeros, :525, :543).
+    Returns (logits [B, V], cache)."""
     b, s = tokens.shape
     cache = init_cache(cfg, b, cache_len or s, device=tokens.device)
+    if cfg.encdec is not None:
+        enc_out = _run_encoder(params, cfg, frames)
+        for _, lp, c, _ in _layers(params, cfg, cache, None):
+            for key, val in zip(("ck", "cv"), _cross_kv(lp, enc_out)):
+                c[key].copy_(val)
     positions = torch.arange(s, dtype=torch.int32, device=tokens.device)[None, :]
     x, _, cache = _walk(params, cfg, embed(params["embed"], tokens), positions, cache,
                         tiered, cold_capacity_frac, token_mask=token_mask)
@@ -518,6 +630,7 @@ def decode_step_paged(
     a layer without routed experts, as the reference's
     `decode_step_paged` returns them. Dead rows' states advance too, as
     the reference's do (admission prefill overwrites them)."""
+    check_decoder_only(cfg, "the paged layout")
     logits, counts, states = _decode(params, cfg, tokens, pools, tables, pos, tiered,
                                      cold_capacity_frac, token_mask, states)
     return logits, pools, states, counts
@@ -554,6 +667,7 @@ def prefill_paged(
     need an attention-only arch, which the loop's `chunked` gate ensures.
     Returns (last_real_token_logits [W, V], pools written in place, the
     rows' recurrent states [W, ...])."""
+    check_decoder_only(cfg, "paged prefill")
     x, _, states = _chunk(params, cfg, tokens, pools, tables, past_len, token_mask, tiered,
                           cold_capacity_frac)
     return _logits(params, cfg, _last_real(x, token_mask))[:, 0], pools, states
@@ -583,6 +697,7 @@ def decode_verify(
     A recurrent arch raises: a chunk would restart its layers from the
     init state, not the rows' (the reference passes `cache={}` there,
     model.py:857-867, behind the loop's spec gate)."""
+    check_decoder_only(cfg, "paged verify")
     if is_recurrent(cfg):
         raise ValueError(
             "decode_verify requires an attention-only arch: a verify chunk "

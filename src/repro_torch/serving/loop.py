@@ -26,7 +26,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.policy import SchedulerPolicy, resolve_policy
 from repro_torch.models.layers import Params
-from repro_torch.models.model import check_supported, resolve_device
+from repro_torch.models.model import check_decoder_only, resolve_device
 from repro_torch.obs import resolve_obs
 from repro_torch.obs.metrics import RegistryStats, pct
 from repro_torch.serving.batching import BucketTable, Request, ZigzagBatcher
@@ -261,7 +261,7 @@ class ServingLoop:
     ):
         assert cfg.moe is not None, "ServingLoop drives the TriMoE MoE path"
         assert kv_layout in ("paged", "slots"), kv_layout
-        check_supported(cfg)
+        check_decoder_only(cfg, "the serving loop")
         self.device = resolve_device(device)
         if params["embed"]["table"].device != self.device:
             raise ValueError(

@@ -44,7 +44,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import torch_dtype
 from repro_torch.models.model import (
     MIXERS,
-    check_supported,
+    check_decoder_only,
     init_states,
     is_recurrent,
     layer_tree,
@@ -69,7 +69,7 @@ def init_paged_cache(cfg: ModelConfig, n_slots: int, n_blocks: int, block_size: 
     state, one row per slot, at its real init values (xLSTM's m at -inf),
     in the same "layer<i>" / "stack" layout, so the slot gather / scatter
     helpers apply to it unchanged."""
-    check_supported(cfg)
+    check_decoder_only(cfg, "the paged layout")
     dt = torch_dtype(cfg.param_dtype)
 
     def pools_of(sig, lead):

@@ -45,5 +45,27 @@ def test_port_imports_no_jax_and_nothing_of_repro():
                 "repro_torch.training.optimizer", "repro_torch.training.train_step",
                 "repro_torch.data.pipeline", "repro_torch.checkpoint.checkpoint",
                 "repro_torch.distributed.fault_tolerance", "repro_torch.launch.train",
-                "repro_torch.tree"):
+                "repro_torch.tree", "repro_torch.core.scheduler",
+                "repro_torch.core.relayout", "repro_torch.core.simulator"):
         assert mod in res["modules"]
+
+
+EXAMPLE = r"""
+import json, runpy, sys
+sys.argv = ["simulate_paper_torch.py", "--batch", "64", "--steps", "1"]
+runpy.run_path("examples/simulate_paper_torch.py", run_name="__main__")
+loaded = sorted(m for m in sys.modules
+                if m == "jax" or m.startswith("jax.") or m == "repro" or m.startswith("repro."))
+print(json.dumps({"forbidden": loaded}))
+"""
+
+
+def test_simulate_paper_example_imports_no_jax_and_nothing_of_repro():
+    """The port-side example runs (a short cell) on `repro_torch` alone."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", EXAMPLE], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    lines = out.stdout.strip().splitlines()
+    assert json.loads(lines[-1])["forbidden"] == []
+    assert any("TriMoE decode speedup vs best baseline" in line for line in lines)
