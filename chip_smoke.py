@@ -36,7 +36,13 @@ Phases, each fatal on failure:
      frames, a masked prefill storing the cross K/V, 16 decode steps; no
      kernel launched; fp32 smoke logits on the card within 1e-5 of the
      CPU's) and train it for 6 steps of 4 x 256 tokens with frames
-     (finite, falling loss; no kernel launched);
+     (finite, falling loss; no kernel launched); the distributed layer
+     on a (1, 1) NCCL mesh (world size 1): granite at full width and depth,
+     4 steps through the mesh train step, its state bitwise equal to the
+     unsharded step's (both under deterministic algorithms), moe_gemm 6
+     launches a MoE layer a step, the params restored with shardings,
+     `compressed_psum` over NCCL, and one MoE layer's grouped dispatch with
+     the MoE hints against the plain route;
   4. serve granite-moe-1b-a400m (GQA) at full width and depth, then
      deepseek-v2-236b (MLA, dense layer 0, shared experts) at full width
      with its depth cut to 3 layers (bf16, seeded random weights),
@@ -161,6 +167,14 @@ TRAIN_PATH = "train"  # granite-moe-1b-a400m trained at full width and depth
 GENERATE_PATH = "train/generate"  # then prefill + decode of the flat MoE model
 TRAIN_B, TRAIN_S, TRAIN_STEPS = 8, 512, 8
 TRAIN_OPT = AdamWConfig(lr=1e-3, warmup_steps=2)
+DIST_PATH = "distributed"  # the mesh train step of granite on a (1, 1) NCCL mesh
+DIST_GROUPED_PATH = "distributed/grouped"  # one MoE layer's grouped dispatch, hints on
+DIST_STEPS = 4
+# bf16 roundings of a MoE layer's output: 4 in an expert's FFN, the
+# router weight's product, and 8 in the bf16 combine of top-k = 8
+LAYER_ROUNDINGS = 13
+GROUPED_GU = "grouped dispatch gate|up 256x160x1024x1024 (8 rows x 32 experts)"
+GROUPED_DOWN = "grouped dispatch down 256x160x512x1024 (8 rows x 32 experts)"
 # source -> the tensor-core instruction its bf16 path must compile to
 TENSOR_CORE_KERNELS = {"moe_gemm": "HGMMA", "flash_attention": "HGMMA",
                        "paged_attention": "HGMMA", "paged_attention_mla": "HGMMA",
@@ -369,6 +383,38 @@ def moe_gemm_case(dtype, *, n_slots, rows, d, f, pair, dev, gen, calls=32, flat=
     )
 
 
+def grouped_case(dtype, *, b, e, cap, d, f, pair, dev, gen, calls=8):
+    """The grouped dispatch's expert FFN at granite's train width under the
+    MoE hints on a (1, 1) mesh: b rows x e local experts as groups of `cap`
+    rows (padded to 128) over the model's own [e, d, f] parameters, group g
+    reading expert g % e through the GEMM's group -> expert indirection
+    (gate|up over the [e, d, 2f] panel `grouped_expert_ffn` joins, down over
+    the row-major [e, f, d] parameter). Library: torch.bmm with the groups
+    regrouped by expert ([e, b * cap_pad, k], copied beforehand), which
+    reads each expert's weights once as the kernel does. The bound counts
+    the real rows."""
+    bm = 128
+    k, n = (d, 2 * f) if pair else (f, d)
+    c_pad = -(-cap // bm) * bm
+    w = (torch.randn(e, k, n, generator=gen) * k ** -0.5).to(dev, dtype)
+    x = torch.zeros(b * e, c_pad, k, dtype=dtype, device=dev)
+    x[:, :cap] = torch.randn(b * e, cap, k, generator=gen).to(dev, dtype)
+    te = torch.arange(e, dtype=torch.int32, device=dev).repeat(b).repeat_interleave(c_pad // bm)
+    by_expert = x.view(b, e, c_pad, k).transpose(0, 1).reshape(e, b * c_pad, k).contiguous()
+    x = x.reshape(b * e * c_pad, k)
+    real = b * e * cap
+    isz = x.element_size()
+    return dict(
+        args=(x, w, te), lib_args=(by_expert, w),
+        kernel=lambda *a: moe_gemm(*a, backend="cuda"),
+        plain=lambda *a: moe_gemm(*a, backend="ref"),
+        library=torch.bmm,
+        held=(x.numel() + w.numel()) * isz,
+        bound=bound_ms((real * k + e * k * n + real * n) * isz, 2.0 * real * k * n, dtype),
+        calls=calls,
+    )
+
+
 def gemv_case(dtype, *, n_slots, t, dev, gen, d=1024, f=512, live=None, calls=32,
               flat=False):
     """One tier of a decode step: n_slots experts, t tokens each, read as
@@ -571,6 +617,13 @@ KERNEL_CASES = [  # (kernel, label, case, kwargs); the first per kernel is its J
      dict(n_slots=32, rows=128, d=1024, f=512, pair=False, flat=True)),
     ("expert_ffn_gemv", "flat decode 32 slots T=4 row-major W2", gemv_case,
      dict(n_slots=32, t=4, flat=True)),
+    # the distributed phase's grouped dispatch under the MoE hints: granite
+    # at its train batch (8 rows x 512 tokens, capacity 160 a row and
+    # expert), the 8 x 32 groups over the rank's 32 experts of a (1, 1) mesh
+    ("moe_gemm", GROUPED_GU, grouped_case,
+     dict(b=TRAIN_B, e=32, cap=160, d=1024, f=512, pair=True)),
+    ("moe_gemm", GROUPED_DOWN, grouped_case,
+     dict(b=TRAIN_B, e=32, cap=160, d=1024, f=512, pair=False)),
     ("paged_prefill_mla", "decode B=4 H=128 r=512 nb=18", mla_case,
      dict(b=4, c=1, past=[40, 51, 60, 71])),
     ("paged_prefill_mla", "prefill B=4 C=32 H=128 r=512 nb=18", mla_case,
@@ -637,14 +690,15 @@ def run_case(name, label, make, dtype, kw, dev, gen) -> dict:
 
 def kernel_phases(dev) -> dict:
     gen = torch.Generator().manual_seed(0)
-    rows = {}
+    rows, by_label = {}, {}
     for name, label, make, kw in KERNEL_CASES:
         for dtype in (torch.bfloat16, torch.float32):
             line = run_case(name, label, make, dtype, kw, dev, gen)
             print(json.dumps(line), flush=True)
-            if dtype == torch.bfloat16 and name not in rows:
-                rows[name] = line
-    return rows
+            if dtype == torch.bfloat16:
+                rows.setdefault(name, line)
+                by_label[label] = line
+    return rows, by_label
 
 
 # ------------------------------------------------------------- serving
@@ -1431,6 +1485,195 @@ def train_smoke_parity(dev) -> None:
                           seconds=time.time() - t0)), flush=True)
 
 
+# ---------------------------------------------------------- distributed
+def _to_host(tree):
+    return tree_map(lambda t: t.detach().to("cpu"), tree)
+
+
+def distributed_phase(dev) -> list:
+    """The distributed layer on one card: NCCL at world size 1 (an
+    in-process HashStore, no network), the debug mesh (1, 1) of
+    launch/mesh.py. granite at published width and full depth trains
+    DIST_STEPS steps of the train phase's batches and seed through the
+    mesh train step (params and moments stored as DTensors, the kernels
+    fed their local tensors), with the launch counters reset just before:
+    loss and every param and moment leaf held to the unsharded step's
+    (run first, its state then moved to the host) within 1e-6 relative
+    (bitwise expected: the kernels see the same tensors), moe_gemm 6
+    launches a MoE layer a step and no other kernel. Both run under
+    PyTorch's deterministic algorithms (the unsharded step runs twice to
+    show its own spread, reported). The mesh state's
+    params are saved and restored with `shardings=` bitwise; a raw NCCL
+    all-reduce and `compressed_psum` in each method run on a CUDA tensor,
+    equal to the quantize round trip. Then one granite MoE layer at the
+    train batch through the grouped dispatch with the MoE hints on (its
+    32 experts the rank's E/m), counters reset just before, against the
+    plain route (bf16 and fp32). Returns the two paths' launch counts."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.distributed.collectives import (
+        compressed_psum, int8_dequantize, int8_quantize)
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models.moe import init_moe, moe_forward, set_moe_sharding_hints
+    from repro_torch.models.layers import make_generator
+    from repro_torch.training import shard_train_state
+
+    t_phase = time.time()
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1,
+                            device_id=dev)
+    mesh = make_debug_mesh(device_type="cuda")
+    if tuple(mesh.shape) != (1, 1):
+        fail(f"{DIST_PATH}: the debug mesh of one card is {tuple(mesh.shape)}, not (1, 1)")
+    cfg = get_config(GQA_ARCH)
+    n_moe = sum(cfg.uses_moe_layer(i) for i in range(cfg.n_layers))
+    batches = _batches(cfg, TRAIN_B, TRAIN_S, dev)
+
+    # bf16 index_add (the MoE's combine, index_select's backward) adds in
+    # atomics' order on the card, so two runs of one step differ in their
+    # roundings: the phase runs PyTorch's deterministic implementations
+    deterministic = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+
+    def unsharded():
+        """DIST_STEPS unsharded steps: (losses, the state on the host, median s)."""
+        params, opt = init_train_state(0, cfg, TRAIN_OPT, device=dev)
+        step = make_train_step(cfg, TRAIN_OPT)
+        out, secs = [], []
+        for i in range(DIST_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            params, opt, metrics = step(params, opt, batches[i % 2])
+            out.append(float(metrics["loss"]))
+            secs.append(time.time() - t0)
+        state = _to_host({"params": params, "opt": opt})
+        del params, opt, metrics
+        gc.collect()
+        torch.cuda.empty_cache()
+        return out, state, sorted(secs[1:])[len(secs[1:]) // 2]
+
+    # the unsharded step twice (its run-to-run spread), the state waiting on the host
+    ref_losses, ref, ref_step_s = unsharded()
+    rep_losses, rep, _ = unsharded()
+    repeat_bitwise = rep_losses == ref_losses and all(
+        torch.equal(a, b) for (_, a), (_, b) in zip(leaves_with_path(ref), leaves_with_path(rep)))
+    del rep
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    params, opt = init_train_state(0, cfg, TRAIN_OPT, device=dev)
+    params, opt = shard_train_state(params, opt, mesh, cfg)
+    step = make_train_step(cfg, TRAIN_OPT, mesh=mesh)
+    torch.cuda.synchronize()
+    reset_counters()
+    losses, secs = [], []
+    for i in range(DIST_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        params, opt, metrics = step(params, opt, batches[i % 2])
+        losses.append(float(metrics["loss"]))  # synchronises
+        secs.append(time.time() - t0)
+    launches = read_counters()
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    torch.use_deterministic_algorithms(deterministic)
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(losses, ref_losses))
+    if loss_rel > 1e-6:
+        fail(f"{DIST_PATH}: mesh losses {losses} off the unsharded step's {ref_losses} "
+             f"(its repeat: {rep_losses}, bitwise {repeat_bitwise})")
+    if launches["moe_gemm"] != 6 * n_moe * DIST_STEPS:
+        fail(f"{DIST_PATH}: moe_gemm launched {launches['moe_gemm']} times, not 6 per MoE "
+             f"layer and step: {launches}")
+    off = {k: v for k, v in launches.items() if k != "moe_gemm" and v}
+    if off:
+        fail(f"{DIST_PATH}: kernels off the training path launched: {off}")
+    state = {"params": params, "opt": opt}
+    want = dict(leaves_with_path(ref))
+    worst, bitwise = 0.0, True
+    for path, leaf in leaves_with_path(state):
+        if not isinstance(leaf, DTensor):
+            fail(f"{DIST_PATH}: state leaf {path} is not a DTensor")
+        got, w = leaf.to_local(), want[path].to(dev)
+        bitwise = bitwise and torch.equal(got, w)
+        rel = float((got.float() - w.float()).abs().max() / w.float().abs().max().clamp_min(1e-30))
+        worst = max(worst, rel)
+    if worst > 1e-6:
+        fail(f"{DIST_PATH}: the mesh state is {worst:.3e} (relative) off the unsharded step's")
+    del ref, want
+
+    # the mesh params saved whole and restored onto the mesh
+    specs = shd.tree_pspecs(params, mesh, cfg)
+    with tempfile.TemporaryDirectory(dir=Path(__file__).resolve().parent) as ckpt:
+        save(ckpt, DIST_STEPS, params)
+        got = restore(ckpt, DIST_STEPS, params, shd.named_shardings(mesh, specs))
+    for (path, a), (_, b) in zip(leaves_with_path(got), leaves_with_path(params)):
+        if not torch.equal(a.to_local(), b.to_local()) or a.placements != b.placements:
+            fail(f"{DIST_PATH}: restored leaf {path} differs")
+    del got, params, opt, state
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # NCCL on a CUDA tensor: a raw all-reduce, and each compressed method
+    gen = torch.Generator().manual_seed(11)
+    x = torch.randn(4096, 257, generator=gen).to(dev)
+    y = x.clone()
+    dist.all_reduce(y)
+    if not torch.equal(y, x):
+        fail(f"{DIST_PATH}: a world-size-1 NCCL all-reduce changed its input")
+    group = dist.group.WORLD
+    checks = {"int8": int8_dequantize(*int8_quantize(x)),
+              "bf16": x.to(torch.bfloat16).float(), "none": x}
+    for method, w in checks.items():
+        if not torch.equal(compressed_psum(x, group, method), w):
+            fail(f"{DIST_PATH}: compressed_psum({method}) differs from its round trip")
+
+    # one granite MoE layer through the grouped dispatch, hints on
+    layer = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        c = dataclasses.replace(cfg, param_dtype=str(dtype)[6:])
+        p = init_moe(make_generator(12, dev), c)
+        xin = torch.randn(TRAIN_B, TRAIN_S, cfg.d_model, generator=gen).to(dev, dtype)
+        set_moe_sharding_hints(enable=True)
+        with shd.use_mesh(mesh), torch.no_grad():
+            if dtype == torch.bfloat16:
+                reset_counters()
+            t0 = time.time()
+            out = moe_forward(p, c, xin, grouped=True)
+            torch.cuda.synchronize()
+            if dtype == torch.bfloat16:
+                grouped_s = time.time() - t0
+                grouped_launches = read_counters()
+            plain = moe_forward(p, c, xin, grouped=True, backend="ref")
+        set_moe_sharding_hints(enable=False)
+        # bf16: each expert's output within the FFN's roundings (gate|up,
+        # SiLU * up, down), then the weighting and the bf16 combine over
+        # top-k = 8 assignments, all at the size of the row's RMS
+        tol = (grad_rounding_bound(plain.y, LAYER_ROUNDINGS) if dtype == torch.bfloat16
+               else None)
+        max_abs, _, over = compare(f"{DIST_GROUPED_PATH} layer", out.y, plain.y, dtype, tol)
+        if not torch.equal(out.expert_counts, plain.expert_counts):
+            fail(f"{DIST_GROUPED_PATH}: expert counts differ from the plain route's")
+        layer[str(dtype)[6:]] = dict(max_abs_err=max_abs, err_over_tol=over)
+    if grouped_launches["moe_gemm"] != 2 or sum(grouped_launches.values()) != 2:
+        fail(f"{DIST_GROUPED_PATH}: launches {grouped_launches}, not moe_gemm's 2 "
+             f"(gate|up, down)")
+    dist.destroy_process_group()
+    step_s = sorted(secs[1:])[len(secs[1:]) // 2]
+    print(json.dumps(dict(
+        phase="distributed", path=DIST_PATH, arch=GQA_ARCH, mesh=[1, 1], backend="nccl",
+        layers=cfg.n_layers, batch=TRAIN_B, seq=TRAIN_S, steps=DIST_STEPS, losses=losses,
+        step_s=secs, median_step_s=step_s, tokens_per_s=TRAIN_B * TRAIN_S / step_s,
+        peak_mem_gb=peak_gb, launches=launches,
+        moe_gemm_launches_per_step=launches["moe_gemm"] / DIST_STEPS,
+        unsharded_losses=ref_losses, unsharded_median_step_s=ref_step_s,
+        unsharded_repeat_bitwise=repeat_bitwise, deterministic_algorithms=True,
+        loss_max_rel_err=loss_rel,
+        state_max_rel_err=worst, state_bitwise=bitwise, params_restored_bitwise=True,
+        compressed_psum=list(checks), grouped_layer=layer, grouped_layer_s=grouped_s,
+        grouped_launches=grouped_launches, seconds=time.time() - t_phase)), flush=True)
+    return [dict(path=DIST_PATH, launches=launches),
+            dict(path=DIST_GROUPED_PATH, launches=grouped_launches)]
+
+
 # ------------------------------------------------------ encoder-decoder
 def _frames(cfg, b: int, seed: int, dtype, dev) -> torch.Tensor:
     """Seeded encoder frames [b, F, D], 0.02 N(0, 1) as `add_frames`
@@ -1637,7 +1880,7 @@ def main(argv=None) -> int:
         if mma[name][op] == 0:
             fail(f"{name}: no {op} (tensor-core) instruction in its SASS")
 
-    rows = kernel_phases(dev)
+    rows, by_label = kernel_phases(dev)
     paths = [mha_entry(dev)]
     mamba_phase(dev)
     xlstm_phase(dev)
@@ -1647,6 +1890,9 @@ def main(argv=None) -> int:
     for row in dx.values():  # each dX product runs once a MoE layer a step
         row["launches_per_step"] = train_paths[0]["launches"]["moe_gemm"] // (6 * TRAIN_STEPS)
     train_smoke_parity(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    paths += distributed_phase(dev)
     gc.collect()
     torch.cuda.empty_cache()
     for phase in (seamless_phase, seamless_train_phase):
@@ -1685,6 +1931,14 @@ def main(argv=None) -> int:
         ))
         if name == "moe_gemm":  # the dX products of the train step's backward
             kernels[-1]["train_dx"] = dx
+            # the grouped dispatch's two GEMMs under the MoE hints, each
+            # launched once by the distributed/grouped path's layer
+            kernels[-1]["grouped_dispatch"] = {
+                label: dict(launches=by_path[DIST_GROUPED_PATH][name] // 2,
+                            **{k: by_label[label][k] for k in (
+                                "max_abs_err", "kernel_ms", "plain_ms", "bound_ms",
+                                "bound_by", "library_ms")})
+                for label in (GROUPED_GU, GROUPED_DOWN)}
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -10,7 +10,12 @@ either package restores the other's checkpoints. Writes go to
 mid-write never corrupts the latest checkpoint. `AsyncCheckpointer`
 makes the host copies on the caller's thread and writes them on a
 background thread, so the train loop never blocks on the filesystem.
-Restoring onto a new device mesh is the distributed slice's.
+
+A state stored as DTensors on a device mesh is saved whole: every rank
+gathers each leaf (a collective, so every rank calls `save`) and rank 0
+writes. `restore(..., shardings=)` places each leaf on a mesh, which may
+differ from the one it was saved from (an elastic restart): every rank
+reads the file and keeps its own chunk.
 """
 from __future__ import annotations
 
@@ -22,8 +27,9 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from repro_torch.tree import leaves_with_path, tree_map, unflatten
+from repro_torch.tree import leaves_with_path, unflatten
 
 Params = Any
 _SEP = "|"
@@ -37,25 +43,42 @@ def _host(leaf) -> np.ndarray:
     """A leaf as a host numpy array; bf16 as fp32 (a lossless superset)."""
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach()
+        if hasattr(t, "full_tensor"):  # a DTensor: gathered whole
+            t = t.full_tensor()
         return (t.float() if t.dtype == torch.bfloat16 else t).cpu().numpy()
     return np.asarray(leaf)
 
 
+def _writes() -> bool:
+    """Whether this process writes checkpoints: rank 0, or a lone process."""
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
 def save(ckpt_dir: str, step: int, tree: Params, manifest: Optional[dict] = None) -> str:
+    """Write checkpoint `step`. Under a process group every rank calls it
+    and returns once rank 0 has committed the write."""
+    final = os.path.join(ckpt_dir, f"step_{step:08d}")
+    arrays = {_key(path): _host(leaf) for path, leaf in leaves_with_path(tree)}
+    if _writes():
+        _write(ckpt_dir, step, arrays, manifest)
+    if dist.is_initialized():
+        dist.barrier()
+    return final
+
+
+def _write(ckpt_dir: str, step: int, arrays: dict, manifest: Optional[dict]) -> None:
     os.makedirs(ckpt_dir, exist_ok=True)
     tmp = os.path.join(ckpt_dir, f"tmp.{step}")
     final = os.path.join(ckpt_dir, f"step_{step:08d}")
     if os.path.exists(tmp):
         shutil.rmtree(tmp)
     os.makedirs(tmp)
-    arrays = {_key(path): _host(leaf) for path, leaf in leaves_with_path(tree)}
     np.savez(os.path.join(tmp, "state.npz"), **arrays)
     with open(os.path.join(tmp, "manifest.json"), "w") as f:
         json.dump({"step": step, **(manifest or {})}, f)
     if os.path.exists(final):
         shutil.rmtree(final)
     os.rename(tmp, final)  # atomic commit
-    return final
 
 
 class AsyncCheckpointer:
@@ -69,10 +92,12 @@ class AsyncCheckpointer:
 
     def save_async(self, step: int, tree: Params, manifest: Optional[dict] = None):
         self.wait()
-        host_tree = tree_map(_host, tree)
+        arrays = {_key(path): _host(leaf) for path, leaf in leaves_with_path(tree)}
+        if not _writes():
+            return
 
         def work():
-            save(self.ckpt_dir, step, host_tree, manifest)
+            _write(self.ckpt_dir, step, arrays, manifest)
             self._gc()
 
         self._thread = threading.Thread(target=work, daemon=True)
@@ -107,12 +132,17 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
     return steps[-1] if steps else None
 
 
-def restore(ckpt_dir: str, step: int, like: Params) -> Params:
+def restore(ckpt_dir: str, step: int, like: Params, shardings=None) -> Params:
     """The tree of `like`'s structure from checkpoint `step`, each leaf
-    in the dtype and on the device of `like`'s leaf there."""
+    in the dtype and on the device of `like`'s leaf there. `shardings`
+    (a tree of `distributed.sharding.NamedSharding`) places each leaf on
+    its mesh as a DTensor instead."""
     data = np.load(os.path.join(ckpt_dir, f"step_{step:08d}", "state.npz"))
+    places = dict(leaves_with_path(shardings)) if shardings is not None else {}
     flat = []
     for path, leaf in leaves_with_path(like):
-        arr = torch.from_numpy(np.asarray(data[_key(path)]))
-        flat.append(arr.to(device=leaf.device, dtype=leaf.dtype))
+        arr = torch.from_numpy(np.asarray(data[_key(path)])).to(dtype=leaf.dtype)
+        flat.append(places[path].place(arr) if shardings is not None
+                    else arr.to(device=leaf.device))
     return unflatten(like, flat)
+

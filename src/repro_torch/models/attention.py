@@ -11,8 +11,11 @@ sequences (prefill) and return the tokens' cache entries, `gqa_decode` /
 `mla_decode` write one token per row at `pos % S` (in place) and attend
 over the row's valid slots. These are plain PyTorch, as the reference's
 are plain jnp (they reach no Pallas kernel); `_grouped_attention` is the
-reference's query-chunked exact softmax. The sequence-parallel branch of
-the reference waits for the distributed slice.
+reference's query-chunked exact softmax. Under `set_sequence_parallel`
+(reference :29-34, :145-177) full-sequence causal self-attention splits
+its query rows over a mesh dim: each rank attends its S/m rows over the
+whole K/V and the rows are gathered again, and MLA then runs absorbed
+(:267), attending over the latents.
 
 K/V (GQA) and the MLA latents live in shared block pools [N+1, bs, ...]
 whose last block is the write trash: pad rows and dead rows write there,
@@ -33,6 +36,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.distributed import sharding as shd
+from repro_torch.distributed.collectives import copy_to_group, gather_dim
 from repro_torch.kernels.paged_attention import (
     paged_decode_gqa,
     paged_decode_mla,
@@ -42,6 +47,17 @@ from repro_torch.kernels.paged_attention import (
 from repro_torch.models.layers import Params, apply_rope, dense_init, torch_dtype
 
 NEG_INF = -1e30
+
+# sequence-parallel attention: (mesh, axis, dp axes) | None
+_SEQ_PARALLEL = None
+
+
+def set_sequence_parallel(mesh, axis: str = "model", dp=("data",)):
+    """Split full-sequence causal self-attention's query rows over the mesh
+    dim `axis` (None turns it off). `dp` names the axes the batch rows are
+    split over; each rank already holds its own rows here."""
+    global _SEQ_PARALLEL
+    _SEQ_PARALLEL = (mesh, axis, dp) if mesh is not None else None
 
 
 def init_gqa(gen: torch.Generator, cfg, lead=()) -> Params:
@@ -104,16 +120,22 @@ def _qkv(p: Params, x: torch.Tensor, positions: torch.Tensor, theta: float):
 
 # ------------------------------------------------- grouped core attention
 def _grouped_attention(q, k, v, *, causal: bool = False, valid=None,
-                       q_chunk: int = 1024):
+                       q_chunk: int = 1024, q_offset=None):
     """q [B, Sq, H, hd]; k / v [B, Sk, Kv, hd_{k,v}] -> [B, Sq, H, hd_v].
 
     Exact softmax per query row, over query chunks of `q_chunk` rows so the
     score tensor never exceeds one chunk. Causal: query i sits at absolute
-    position i + (Sk - Sq). `valid`: optional [Sk] or [B, Sk] bool of usable
-    keys (pad keys of a masked prefill, a decode ring's filled slots).
-    Scores are taken in the inputs' dtype and then scaled in fp32; the
-    softmax is fp32 and cast to v's dtype for the value product, as in
+    position i + (Sk - Sq), or q_offset + i when `q_offset` is given (a
+    sequence-parallel shard). `valid`: optional [Sk] or [B, Sk] bool of
+    usable keys (pad keys of a masked prefill, a decode ring's filled
+    slots). Scores are taken in the inputs' dtype and then scaled in fp32;
+    the softmax is fp32 and cast to v's dtype for the value product, as in
     the reference."""
+    if (_SEQ_PARALLEL is not None and causal and q_offset is None and valid is None
+            and q.shape[1] == k.shape[1]):
+        sp = _seq_parallel_attention(q, k, v, q_chunk=q_chunk)
+        if sp is not None:
+            return sp
     b, sq, h, hdk = q.shape
     sk, kvh = k.shape[1], k.shape[2]
     qg = q.reshape(b, sq, kvh, h // kvh, hdk)
@@ -128,7 +150,8 @@ def _grouped_attention(q, k, v, *, causal: bool = False, valid=None,
         s = torch.einsum("bckgd,bskd->bckgs", qc, k).float() * scale
         mask = None
         if causal:
-            qpos = start + torch.arange(qc.shape[1], device=q.device) + (sk - sq)
+            base = q_offset if q_offset is not None else (sk - sq)
+            qpos = start + torch.arange(qc.shape[1], device=q.device) + base
             mask = (kpos[None, :] <= qpos[:, None])[None]  # [1, C, Sk]
         if vmask is not None:
             mask = vmask if mask is None else (mask & vmask)
@@ -138,6 +161,24 @@ def _grouped_attention(q, k, v, *, causal: bool = False, valid=None,
         outs.append(torch.einsum("bckgs,bskd->bckgd", p.to(v.dtype), v))
     out = outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
     return out.reshape(b, sq, h, -1)
+
+
+def _seq_parallel_attention(q, k, v, *, q_chunk: int):
+    """Causal self-attention with the query rows split over the mesh dim:
+    this rank's S/m rows against the whole K/V, then the rows gathered
+    in rank order. Each rank's rows give a part of q's, k's and v's
+    gradients, which the backward sums over the dim. None when S does
+    not divide (the caller runs the replicated path)."""
+    mesh, axis, _ = _SEQ_PARALLEL
+    group, m, idx = shd.axis_group(mesh, axis)
+    sq = q.shape[1]
+    if sq % m:
+        return None
+    n = sq // m
+    q, k, v = (copy_to_group(t, group) for t in (q, k, v))
+    out = _grouped_attention(q[:, idx * n:(idx + 1) * n], k, v, causal=True,
+                             q_chunk=min(q_chunk, n), q_offset=idx * n)
+    return gather_dim(out, group, 1)
 
 
 # ---------------------------------------------- contiguous (slots) layout
@@ -194,6 +235,20 @@ def mla_forward(p: Params, cfg, x, positions, token_mask=None):
     kv_a = torch.einsum("bsd,dr->bsr", x, p["wkv_a"])
     ckv, krope = kv_a.split([m.kv_lora_rank, m.qk_rope_head_dim], dim=-1)
     krope = apply_rope(krope[:, :, None, :], positions, cfg.rope_theta)  # [B, S, 1, rd]
+    if _SEQ_PARALLEL is not None:
+        # absorbed: attend over the latent (r + rd wide) instead of the
+        # expanded per-head K/V (reference :267)
+        wk_b, wv_b = p["wkv_b"].split([m.qk_nope_head_dim, m.v_head_dim], dim=-1)
+        q_lat = torch.einsum("bshk,rhk->bshr", q_nope, wk_b)
+        q_eff = torch.cat([q_lat, q_rope], dim=-1)  # [B, S, H, r + rd]
+        k_eff = torch.cat([ckv[:, :, None, :], krope], dim=-1)
+        # _grouped_attention scales by (r + rd)^-0.5; correct it to d_qk^-0.5
+        d_qk = m.qk_nope_head_dim + m.qk_rope_head_dim
+        q_eff = q_eff * ((m.kv_lora_rank + m.qk_rope_head_dim) / d_qk) ** 0.5
+        o_lat = _grouped_attention(q_eff, k_eff, ckv[:, :, None, :], causal=True,
+                                   valid=token_mask)  # [B, S, H, r]
+        out = torch.einsum("bshr,rhk->bshk", o_lat, wv_b)
+        return torch.einsum("bshk,hkd->bsd", out, p["wo"]), (ckv, krope[:, :, 0, :])
     kvb = torch.einsum("bsr,rhk->bshk", ckv, p["wkv_b"])
     k_nope, v = kvb.split([m.qk_nope_head_dim, m.v_head_dim], dim=-1)
     k = torch.cat([k_nope, krope.expand(*k_nope.shape[:3], m.qk_rope_head_dim)], dim=-1)

@@ -23,6 +23,23 @@ def torch_dtype(name: str) -> torch.dtype:
     return DTYPES[name]
 
 
+class _MetaGenerator(torch.Generator):
+    """A CPU generator whose draws land on the meta device (which has no
+    generator of its own): shapes and dtypes only, nothing allocated."""
+
+    @property
+    def device(self):
+        return torch.device("meta")
+
+
+def make_generator(seed: int, device) -> torch.Generator:
+    """The seeded generator the initializers draw from on `device`."""
+    device = torch.device(device)
+    if device.type == "meta":
+        return _MetaGenerator().manual_seed(seed)
+    return torch.Generator(device=device).manual_seed(seed)
+
+
 def dense_init(gen: torch.Generator, shape: Sequence[int], dtype: torch.dtype,
                scale: Optional[float] = None, lead: Sequence[int] = ()):
     fan_in = shape[0] if len(shape) > 1 else 1

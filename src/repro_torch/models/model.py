@@ -44,6 +44,7 @@ from repro_torch.models.layers import (
     init_mlp,
     init_rmsnorm,
     lm_head,
+    make_generator,
     mlp,
     rmsnorm,
     torch_dtype,
@@ -195,9 +196,10 @@ def resolve_device(device) -> torch.device:
 
 def init_params(seed: int, cfg: ModelConfig, device=None) -> Params:
     """Seeded random params in the JAX tree layout, drawn on `device`
-    (default: the GPU) from a `torch.Generator`."""
+    (default: the GPU) from a `torch.Generator`; on the meta device
+    (shapes and dtypes only) from a CPU one."""
     device = resolve_device(device)
-    gen = torch.Generator(device=device).manual_seed(seed)
+    gen = make_generator(seed, device)
     unrolled_idx, n_groups, period = stack_plan(cfg)
     dt = torch_dtype(cfg.param_dtype)
     cross = has_cross(cfg)
@@ -407,8 +409,12 @@ def _encoder_layer(cfg: ModelConfig, p: Params, x: torch.Tensor, positions: torc
     return x + mlp(p["ffn"], rmsnorm(p["norm2"], x, cfg.norm_eps))
 
 
+def _no_gather(tree, prefix, stacked=False):
+    return tree
+
+
 def _run_encoder(params: Params, cfg: ModelConfig, frames: torch.Tensor,
-                 remat: bool = False) -> torch.Tensor:
+                 remat: bool = False, gather=_no_gather) -> torch.Tensor:
     """The encoder stack over frames [B, F, D], then its final norm
     (reference :380). With `remat` each layer is activation-checkpointed,
     as `forward_train` checkpoints the decoder's groups: the same values,
@@ -417,12 +423,13 @@ def _run_encoder(params: Params, cfg: ModelConfig, frames: torch.Tensor,
     enc = params["encoder"]
     positions = torch.arange(frames.shape[1], dtype=torch.int32, device=frames.device)[None, :]
     x = frames
+
+    def layer(p, x):
+        return _encoder_layer(cfg, gather(p, ("encoder", "stack", "slot0"), True), x, positions)
+
     for p in unbind_tree(enc["stack"]["slot0"], cfg.encdec.n_encoder_layers):
-        if remat:
-            x = checkpoint(_encoder_layer, cfg, p, x, positions, use_reentrant=False)
-        else:
-            x = _encoder_layer(cfg, p, x, positions)
-    return rmsnorm(enc["final_norm"], x, cfg.norm_eps)
+        x = checkpoint(layer, p, x, use_reentrant=False) if remat else layer(p, x)
+    return rmsnorm(gather(enc["final_norm"], ("encoder", "final_norm")), x, cfg.norm_eps)
 
 
 def _cross_kv(layer_p: Params, enc_out: torch.Tensor):
@@ -440,7 +447,8 @@ def _logits(params: Params, cfg: ModelConfig, x: torch.Tensor):
     return lm_head(params["head"], x)
 
 
-def forward_train(params: Params, cfg: ModelConfig, batch, remat: bool = True):
+def forward_train(params: Params, cfg: ModelConfig, batch, remat: bool = True,
+                  gather=_no_gather):
     """The training forward (reference :407): batch {"tokens": [B, S]
     int, and an encoder-decoder model's "frames" [B, F, D] in the params'
     dtype}, no cache, every MoE layer through the flat `moe_forward` at
@@ -452,17 +460,23 @@ def forward_train(params: Params, cfg: ModelConfig, batch, remat: bool = True):
     non-reentrant): only its input is kept, and its forward, the MoE
     kernels included, runs again in the backward pass (the reference
     saves its matmul outputs without batch dims as well); a layer group's
-    cross K/V are taken inside it, so the recompute rebuilds them."""
+    cross K/V are taken inside it, so the recompute rebuilds them.
+
+    `gather(subtree, path, stacked=False)` turns the stored params of the
+    subtree at `path` (one scan group's slice of it when `stacked`) into
+    the tensors a layer computes with, just before their use: the mesh
+    train step gathers its shards there, so a layer group's weights are
+    gathered inside its checkpoint and gathered again for the recompute."""
     tokens = batch["tokens"]
     unrolled_idx, n_groups, period = stack_plan(cfg)
-    x = embed(params["embed"], tokens)
+    x = embed(gather(params["embed"], ("embed",)), tokens)
     positions = torch.arange(tokens.shape[1], dtype=torch.int32, device=x.device)[None, :]
     e = cfg.moe.n_experts if cfg.moe is not None else 1
     no_moe = torch.zeros((e,), dtype=torch.int32, device=x.device)
 
     enc_out = None
     if cfg.encdec is not None:
-        enc_out = _run_encoder(params, cfg, batch.get("frames"), remat)
+        enc_out = _run_encoder(params, cfg, batch.get("frames"), remat, gather)
 
     def layer(sig, lp, x, enc_out):
         cross_kv = None if enc_out is None else _cross_kv(lp, enc_out)
@@ -470,10 +484,12 @@ def forward_train(params: Params, cfg: ModelConfig, batch, remat: bool = True):
 
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for li in unrolled_idx:
-        x, aux, _ = layer(layer_signature(cfg, li), params[f"layer{li}"], x, enc_out)
+        lp = gather(params[f"layer{li}"], (f"layer{li}",))
+        x, aux, _ = layer(layer_signature(cfg, li), lp, x, enc_out)
         aux_total = aux_total if aux is None else aux_total + aux
 
     def group(x, aux_sum, p, enc_out):
+        p = gather(p, ("stack",), True)
         counts = []
         for j, sig in enumerate(period):
             x, aux, c = layer(sig, p[f"slot{j}"], x, enc_out)
@@ -489,7 +505,10 @@ def forward_train(params: Params, cfg: ModelConfig, batch, remat: bool = True):
         else:
             x, aux_total, counts = group(x, aux_total, p, enc_out)
         counts_all.append(counts)
-    return _logits(params, cfg, x), aux_total, torch.cat(counts_all)
+    out = {k: gather(params[k], (k,)) for k in ("final_norm", "head") if k in params}
+    if cfg.tie_embeddings:
+        out["embed"] = gather(params["embed"], ("embed",))
+    return _logits(out, cfg, x), aux_total, torch.cat(counts_all)
 
 
 def _layers(params: Params, cfg: ModelConfig, cache: Params, tiered: Params | None,

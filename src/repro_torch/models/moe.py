@@ -12,9 +12,20 @@ expert, weight-read bound) go to the batched expert GEMV
 (kernels/moe_gemm). Either resolves CUDA kernel vs plain version
 through kernels/backend.py with `cfg.moe_backend`.
 
-The reference's `set_moe_sharding_hints` / `_hint` pin the grouped
-dispatch's buffers to a device mesh; on one device they do nothing, so
-they are left to the distributed slice.
+On a device mesh (`distributed.sharding.use_mesh`) the batch rows are
+split over the DP axes and each layer computes what the reference's one
+program computes on the whole batch: the global dispatch ranks each
+shard's assignments after those of the shards before it (an all-gather
+of the per-expert counts) against the capacity of all the tokens, the
+expert counts are summed over the shards, and the aux loss is the whole
+batch's on every shard, its gradient each shard's own part. With
+`set_moe_sharding_hints` (the reference's layout constraint (dp, ep,
+None, None) on the grouped buffers, :45-58) and the routed expert weights
+given as this rank's E/m experts, each "model" rank runs the expert FFN
+over its own experts' buffers (the grouped dispatch: [B*E/m] groups
+through the GEMM's group -> expert rows) and the partial outputs are
+summed over "model". Without a mesh the hints do nothing, as in the
+reference.
 
 Returns per-expert token counts beside the output: the load signal
 the TriMoE predictor and scheduler (core/) consume.
@@ -26,6 +37,13 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import sharding as shd
+from repro_torch.distributed.collectives import (
+    all_gather_stack,
+    all_reduce,
+    copy_to_group,
+    reduce_from_group,
+)
 from repro_torch.kernels.backend import resolve_backend
 from repro_torch.kernels.expert_gemv import cold_expert_ffn
 from repro_torch.kernels.moe_gemm import grouped_expert_ffn
@@ -36,6 +54,42 @@ class MoEOutput(NamedTuple):
     y: torch.Tensor  # [B, S, D]
     aux_loss: torch.Tensor  # scalar load-balance loss (fp32)
     expert_counts: torch.Tensor  # [E] int32 tokens routed per expert
+
+
+# the grouped dispatch's expert-parallel layout: (dp axes, ep axis) | None
+_SHARDING_HINTS = None
+
+
+def set_moe_sharding_hints(dp=("data",), ep="model", enable=True):
+    global _SHARDING_HINTS
+    _SHARDING_HINTS = ((dp if isinstance(dp, tuple) else (dp,)), ep) if enable else None
+
+
+def _dp():
+    """(group, size, row-shard index) of the active mesh's DP axes, or
+    None without a mesh or with one shard."""
+    mesh = shd.active_mesh()
+    if mesh is None:
+        return None
+    dp = shd.dp_group(mesh)
+    return None if dp[1] == 1 else dp
+
+
+def _experts(p, e: int):
+    """None when `p` holds all E routed experts; (first expert, count,
+    "model" group) when it holds this rank's E/m (expert parallelism,
+    which needs the hints and an active mesh)."""
+    n_local = p["w_gate"].shape[-3]
+    if n_local == e:
+        return None
+    mesh = shd.active_mesh()
+    if _SHARDING_HINTS is None or mesh is None:
+        raise ValueError(f"the routed expert weights hold {n_local} of {e} experts: expert "
+                         f"parallelism needs set_moe_sharding_hints and an active mesh")
+    group, m, idx = shd.axis_group(mesh, _SHARDING_HINTS[1])
+    if n_local * m != e:
+        raise ValueError(f"{n_local} local experts x {m} ranks != {e} experts")
+    return idx * n_local, n_local, group
 
 
 def init_moe(gen: torch.Generator, cfg, lead=()) -> Params:
@@ -113,14 +167,27 @@ def _capacity(n: int, k: int, e: int, cf: float) -> int:
     return min(n, max(k, int(n * k * cf / e + 0.5)))
 
 
-def _aux_and_counts(mo, probs, a_exp, live, n_tokens: int, token_mask):
+def _aux_and_counts(mo, probs, a_exp, live, n_tokens: int, token_mask, dp=None):
     """Switch-style load-balance loss and expert counts [E] int32 over the
     flat assignments `a_exp` ([n_tokens * k]); with `live` (the
-    assignments' token mask) only live tokens count."""
+    assignments' token mask) only live tokens count. Over `dp` shards the
+    counts and token totals are summed, and the loss is the whole batch's
+    (it is linear in each shard's sum of probs), its gradient this
+    shard's own part."""
     e, k = mo.n_experts, mo.top_k
     probs = probs.reshape(-1, e)
     ones = torch.ones_like(a_exp, dtype=torch.int32) if live is None else live.to(torch.int32)
     counts = torch.zeros(e, dtype=torch.int32, device=probs.device).index_add_(0, a_exp, ones)
+    if dp is not None:
+        counts = all_reduce(counts, dp[0])
+        if live is None:
+            n, psum = float(n_tokens * dp[1]), probs.sum(0)
+        else:
+            tm = token_mask.reshape(-1)
+            n = torch.clamp(all_reduce(tm.sum().float(), dp[0]), min=1.0)
+            psum = (probs * tm[:, None]).sum(0)
+        part = mo.router_aux_coef * e * torch.sum(counts.float() / (n * k) * (psum / n))
+        return part + (all_reduce(part.detach(), dp[0]) - part.detach()), counts
     if live is None:
         frac_tokens = counts.float() / (n_tokens * k)
         frac_probs = probs.mean(0)
@@ -138,8 +205,10 @@ def _moe_forward_global(p, cfg, x, capacity_factor, full_capacity, token_mask=No
     e, k = mo.n_experts, mo.top_k
     b, s, d = x.shape
     t = b * s
+    dp = _dp()
+    n_all = t if dp is None else t * dp[1]  # the tokens sorted together
     cf = capacity_factor if capacity_factor is not None else mo.capacity_factor
-    cap = t if full_capacity else _capacity(t, k, e, cf)
+    cap = n_all if full_capacity else _capacity(n_all, k, e, cf)
 
     flat = x.reshape(t, d)
     probs, w, idx = router_topk(flat.float() @ p["router"], k)
@@ -152,22 +221,49 @@ def _moe_forward_global(p, cfg, x, capacity_factor, full_capacity, token_mask=No
     order = torch.argsort(a_key, stable=True)
     se, st, sw = a_key[order], a_tok[order], w.reshape(-1)[order]
     pos = torch.arange(t * k, device=x.device) - torch.searchsorted(se, se)
-    keep = (pos < cap) & (se < e)
-    slot = torch.where(keep, se * cap + pos, e * cap)  # the overflow row is dropped
+    rows = cap  # buffer rows per expert
+    if dp is None:
+        keep = (pos < cap) & (se < e)
+    else:
+        # the global sort puts the shards before this one first
+        before = all_gather_stack(torch.bincount(a_key, minlength=e + 1), dp[0])[:dp[2]]
+        keep = (pos + before.sum(0)[se] < cap) & (se < e)
+        rows = min(cap, t)  # a shard holds at most t assignments per expert
+    slot = torch.where(keep, se * rows + pos, e * rows)  # the overflow row is dropped
 
+    ep = _experts(p, e)
+    if ep is not None:  # each rank's experts give a part of these gradients
+        flat, sw = copy_to_group(flat, ep[2]), copy_to_group(sw, ep[2])
     # index_select, not x[idx]: its backward is one index_add, where fancy
     # indexing's sorts the indices first (a third of a train step's device time)
-    buf = x.new_zeros(e * cap + 1, d).index_put((slot,), flat.index_select(0, st))
-    h = buf[: e * cap].reshape(e, cap, d)
-    o = expert_ffn(h, p["w_gate"], p["w_up"], p["w_down"], backend=kind, decode=(s == 1))
-    obuf = torch.cat([o.reshape(e * cap, d), o.new_zeros(1, d)])
+    buf = x.new_zeros(e * rows + 1, d).index_put((slot,), flat.index_select(0, st))
+    h = buf[: e * rows].reshape(e, rows, d)
+    if ep is None:
+        o = expert_ffn(h, p["w_gate"], p["w_up"], p["w_down"], backend=kind, decode=(s == 1))
+    else:
+        lo, n_local, _ = ep
+        o = _pad_experts(expert_ffn(h[lo:lo + n_local], p["w_gate"], p["w_up"], p["w_down"],
+                                    backend=kind, decode=(s == 1)), lo, e, 0)
+    obuf = torch.cat([o.reshape(e * rows, d), o.new_zeros(1, d)])
 
     contrib = obuf.index_select(0, slot) * (sw * keep)[:, None].to(o.dtype)
     y = x.new_zeros(t, d).index_add(0, st, contrib).reshape(b, s, d)
+    if ep is not None:
+        y = reduce_from_group(y, ep[2])
     if mo.n_shared:
         y = y + shared_ffn(p["shared"], x)
-    aux, counts = _aux_and_counts(mo, probs, a_exp, live, t, token_mask)
+    aux, counts = _aux_and_counts(mo, probs, a_exp, live, t, token_mask, dp)
     return MoEOutput(y, aux, counts)
+
+
+def _pad_experts(o: torch.Tensor, lo: int, e: int, dim: int) -> torch.Tensor:
+    """Local experts' outputs placed among zeros for the other experts
+    (along `dim`), so the combine reads every expert's buffer rows."""
+    shape = list(o.shape)
+    shape[dim] = lo
+    head = o.new_zeros(shape)
+    shape[dim] = e - lo - o.shape[dim]
+    return torch.cat([head, o, o.new_zeros(shape)], dim)
 
 
 def _moe_forward_grouped(p, cfg, x, capacity_factor, full_capacity=False,
@@ -197,19 +293,34 @@ def _moe_forward_grouped(p, cfg, x, capacity_factor, full_capacity=False,
     slot = torch.where(keep, se * cap + pos, e * cap)  # [B, S*k]
 
     rows = torch.arange(b, device=x.device)[:, None]
-    xk = torch.gather(x, 1, st[..., None].expand(-1, -1, d))  # [B, S*k, D]
+    ep = _experts(p, e)
+    xs = x
+    if ep is not None:  # each rank's experts give a part of these gradients
+        xs, sw = copy_to_group(x, ep[2]), copy_to_group(sw, ep[2])
+    xk = torch.gather(xs, 1, st[..., None].expand(-1, -1, d))  # [B, S*k, D]
     buf = x.new_zeros(b, e * cap + 1, d).index_put((rows, slot), xk)
-    h = buf[:, : e * cap].reshape(b * e, cap, d)
-    ge = torch.arange(e, dtype=torch.int32, device=x.device).repeat(b)
-    o = expert_ffn(h, p["w_gate"], p["w_up"], p["w_down"], backend=kind, group_expert=ge)
+    if ep is None:
+        h = buf[:, : e * cap].reshape(b * e, cap, d)
+        ge = torch.arange(e, dtype=torch.int32, device=x.device).repeat(b)
+        o = expert_ffn(h, p["w_gate"], p["w_up"], p["w_down"], backend=kind, group_expert=ge)
+    else:  # this rank's E/m experts of every row: [B*E/m] groups
+        lo, n_local, _ = ep
+        h = buf[:, : e * cap].reshape(b, e, cap, d)[:, lo:lo + n_local]
+        ge = torch.arange(n_local, dtype=torch.int32, device=x.device).repeat(b)
+        o = expert_ffn(h.reshape(b * n_local, cap, d), p["w_gate"], p["w_up"], p["w_down"],
+                       backend=kind, group_expert=ge)
+        o = _pad_experts(o.reshape(b, n_local, cap, d), lo, e, 1)
 
     obuf = torch.cat([o.reshape(b, e * cap, d), o.new_zeros(b, 1, d)], dim=1)
     contrib = torch.gather(obuf, 1, slot[..., None].expand(-1, -1, d))
     contrib = contrib * (sw * keep)[..., None].to(o.dtype)
     y = x.new_zeros(b * s, d).index_add(0, (st + rows * s).reshape(-1),
                                         contrib.reshape(-1, d)).reshape(b, s, d)
+    if ep is not None:
+        y = reduce_from_group(y, ep[2])
     if mo.n_shared:
         y = y + shared_ffn(p["shared"], x)
     flat_live = None if live is None else live.reshape(-1)
-    aux, counts = _aux_and_counts(mo, probs, a_exp.reshape(-1), flat_live, b * s, token_mask)
+    aux, counts = _aux_and_counts(mo, probs, a_exp.reshape(-1), flat_live, b * s, token_mask,
+                                  _dp())
     return MoEOutput(y, aux, counts)

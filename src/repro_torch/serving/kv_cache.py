@@ -1,5 +1,5 @@
 """Contiguous KV cache of the serving engine (port of
-repro/serving/kv_cache.py: `cache_bytes` :34, `gather_slots` :47,
+repro/serving/kv_cache.py: `cache_spec` :29, `cache_bytes` :34, `gather_slots` :47,
 `scatter_slots` :56, `reset_slots` :70, `SlotKVCache` :90).
 
 The model's contiguous cache (`models.model.init_cache`) holds, per slot,
@@ -21,14 +21,19 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models.model import init_cache
 
 
+def cache_spec(cfg: ModelConfig, batch: int, seq: int):
+    """The decode cache's tree on the meta device: every leaf's shape and
+    dtype, nothing allocated (the reference's `eval_shape`, :29)."""
+    return init_cache(cfg, batch, seq, device="meta")
+
+
 def cache_bytes(cfg: ModelConfig, batch: int, seq: int) -> int:
     """Bytes of a contiguous cache of `batch` rows of `seq` tokens: every
     leaf of `init_cache` at its own dtype (the reference counts its
-    `eval_shape`), built on the meta device, which allocates nothing.
-    Attention layers hold ring buffers, recurrent layers their state (the
-    SSM and xLSTM states fp32 under bf16 params)."""
+    `eval_shape`). Attention layers hold ring buffers, recurrent layers
+    their state (the SSM and xLSTM states fp32 under bf16 params)."""
     return sum(leaf.numel() * leaf.element_size()
-               for leaf in tree_leaves(init_cache(cfg, batch, seq, device="meta")))
+               for leaf in tree_leaves(cache_spec(cfg, batch, seq)))
 
 
 def _map(tree, fn):

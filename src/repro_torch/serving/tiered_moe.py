@@ -15,6 +15,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.hardware import TPU_V5E
 from repro_torch.models.layers import Params, dense_init, torch_dtype
@@ -66,13 +67,16 @@ def validate_tier_sizes(cfg, sizes: TierSizes) -> TierSizes:
     return sizes
 
 
-def tier_sizes(cfg, n_chips: int = 1, hbm_budget_frac: float = 0.15,
+def tier_sizes(cfg, n_chips: Optional[int] = None, hbm_budget_frac: float = 0.15,
                reclaimed_kv_bytes: int = 0) -> TierSizes:
     """Size the tiers as the reference does (same TPU_V5E HBM budget, so
     the split equals the JAX package's): the replicated hot buffer fits
     its HBM budget plus the KV bytes the paged cache reclaimed, warm is
-    ~30% of the experts, everything else is cold. `n_chips` is passed
-    explicitly (the reference reads jax.device_count())."""
+    ~30% of the experts, everything else is cold. `n_chips` (the devices
+    the warm and cold tiers spread over) defaults to the process group's
+    world size, or 1 without one (the reference reads jax.device_count())."""
+    if n_chips is None:
+        n_chips = dist.get_world_size() if dist.is_initialized() else 1
     if n_chips < 1:
         raise ValueError(f"n_chips must be >= 1, got {n_chips}")
     mo = cfg.moe

@@ -4,10 +4,13 @@ from repro_torch.training.train_step import (
     init_train_state,
     loss_fn,
     make_train_step,
+    mesh_value_and_grad,
+    shard_train_state,
     value_and_grad,
 )
 
 __all__ = [
     "AdamWConfig", "adamw_init", "adamw_update", "cross_entropy",
-    "init_train_state", "loss_fn", "make_train_step", "value_and_grad",
+    "init_train_state", "loss_fn", "make_train_step", "mesh_value_and_grad",
+    "shard_train_state", "value_and_grad",
 ]

@@ -8,6 +8,8 @@ functional like the reference's: it returns new parameter and state
 trees and leaves its inputs as they were. Every step quantity (the
 warm-up, beta ** step, the clip factor) is an fp32 tensor, so it rounds
 as JAX's does, and the global norm sums its leaves in JAX's leaf order.
+On a mesh (training/train_step.py) the update runs on each rank's
+shards, with the norm and the int8 scale taken over the whole leaves.
 """
 from __future__ import annotations
 
@@ -15,7 +17,9 @@ from dataclasses import dataclass
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
+from repro_torch.distributed.collectives import all_reduce
 from repro_torch.tree import leaves, tree_map
 
 Params = Any
@@ -54,19 +58,28 @@ def _schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
     return cfg.lr * warm
 
 
-def global_norm(tree) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(leaf.float())) for leaf in leaves(tree)))
+def global_norm(tree, replicas=None, group=None) -> torch.Tensor:
+    """sqrt of the sum of squares of every leaf. Over the shards of a
+    mesh (`replicas`: a tree of how many ranks hold each element of each
+    leaf, `group`: every rank of the mesh) each element counts once."""
+    if replicas is None:
+        return torch.sqrt(sum(torch.sum(torch.square(leaf.float())) for leaf in leaves(tree)))
+    total = sum(torch.sum(torch.square(leaf.float())) / r
+                for leaf, r in zip(leaves(tree), leaves(replicas)))
+    return torch.sqrt(all_reduce(total, group))
 
 
-def compress_grad(g: torch.Tensor, method: str, ef: Optional[torch.Tensor]):
+def compress_grad(g: torch.Tensor, method: str, ef: Optional[torch.Tensor], group=None):
     """The lossy wire format of the cross-host reduce. Returns
     (decompressed grad, new error residual). int8 rounds half to even,
-    as `jnp.round` does."""
+    as `jnp.round` does; its scale is the largest |g| of the whole leaf,
+    taken over `group` when the leaf is sharded."""
     if method == "bf16":
         return g.to(torch.bfloat16).float(), ef
     if method == "int8_ef":
         gf = g.float() + (ef if ef is not None else 0.0)
-        scale = torch.clamp(torch.max(torch.abs(gf)), min=1e-12) / 127.0
+        amax = all_reduce(torch.max(torch.abs(gf)), group, op=dist.ReduceOp.MAX)
+        scale = torch.clamp(amax, min=1e-12) / 127.0
         q = torch.clamp(torch.round(gf / scale), -127, 127)
         deq = q * scale
         return deq, gf - deq
@@ -75,10 +88,15 @@ def compress_grad(g: torch.Tensor, method: str, ef: Optional[torch.Tensor]):
 
 @torch.no_grad()
 def adamw_update(params: Params, grads: Params, state: Dict[str, Any],
-                 cfg: AdamWConfig = AdamWConfig()) -> Tuple[Params, Dict[str, Any]]:
+                 cfg: AdamWConfig = AdamWConfig(), *, replicas=None,
+                 group=None) -> Tuple[Params, Dict[str, Any]]:
+    """One AdamW step. On a mesh the leaves are this rank's shards:
+    `replicas` and `group` (see `global_norm`) make the clip norm and the
+    int8 scale those of the whole leaves."""
     step = state["step"] + 1
     lr = _schedule(cfg, step)
-    clip = torch.clamp(cfg.grad_clip / torch.clamp(global_norm(grads), min=1e-12), max=1.0)
+    gnorm = global_norm(grads, replicas, group)
+    clip = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-12), max=1.0)
     t = step.float()
     f32 = dict(dtype=torch.float32, device=t.device)
     bias1 = 1 - torch.tensor(cfg.beta1, **f32) ** t
@@ -86,7 +104,7 @@ def adamw_update(params: Params, grads: Params, state: Dict[str, Any],
     efs = state.get("ef")
 
     def upd(p, g, m, v, ef=None):
-        g, new_ef = compress_grad(g.float() * clip, cfg.compression, ef)
+        g, new_ef = compress_grad(g.float() * clip, cfg.compression, ef, group)
         m = cfg.beta1 * m + (1 - cfg.beta1) * g
         v = cfg.beta2 * v + (1 - cfg.beta2) * g * g
         mh = m / bias1

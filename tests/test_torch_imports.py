@@ -46,7 +46,9 @@ def test_port_imports_no_jax_and_nothing_of_repro():
                 "repro_torch.data.pipeline", "repro_torch.checkpoint.checkpoint",
                 "repro_torch.distributed.fault_tolerance", "repro_torch.launch.train",
                 "repro_torch.tree", "repro_torch.core.scheduler",
-                "repro_torch.core.relayout", "repro_torch.core.simulator"):
+                "repro_torch.core.relayout", "repro_torch.core.simulator",
+                "repro_torch.distributed.sharding", "repro_torch.distributed.collectives",
+                "repro_torch.launch.mesh", "repro_torch.launch.dryrun"):
         assert mod in res["modules"]
 
 
