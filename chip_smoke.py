@@ -4,6 +4,10 @@
   python3 chip_smoke.py --profile  # also a torch.profiler window of each serve
                                    # (full tables: --profile-out PATH, one file
                                    # per model, named PATH's stem-<arch>)
+  python3 chip_smoke.py --only kernels,dense --cases dense
+                                   # some phases alone (names in PHASES), the
+                                   # kernel rows whose label holds a word of
+                                   # --cases; no `kernels` line
 
 Phases, each fatal on failure:
   1. build the five CUDA kernels from src/repro_torch/csrc (nvcc, sm_90a)
@@ -42,7 +46,15 @@ Phases, each fatal on failure:
      unsharded step's (both under deterministic algorithms), moe_gemm 6
      launches a MoE layer a step, the params restored with shardings,
      `compressed_psum` over NCCL, and one MoE layer's grouped dispatch with
-     the MoE hints against the plain route;
+     the MoE hints against the plain route; the dense family:
+     granite-20b (MQA: 48 query heads over 1 KV head, hd 128) at published
+     width with its depth cut to 44 layers, 4 right-padded rows through
+     `prefill_paged` and 16 greedy `decode_step_paged` steps (the paged GQA
+     kernel, exactly one launch a layer per call, no other kernel), then
+     through `prefill` / `decode_step` (plain attention, no kernel):
+     finite logits, the routes' token agreement and logit gap reported;
+     and the five dense archs' fp32 smoke configs at their published G
+     (3, 3, 5, 8, 48), card against CPU within 1e-5 with equal tokens;
   4. serve granite-moe-1b-a400m (GQA) at full width and depth, then
      deepseek-v2-236b (MLA, dense layer 0, shared experts) at full width
      with its depth cut to 3 layers (bf16, seeded random weights),
@@ -67,19 +79,33 @@ Phases, each fatal on failure:
      must give the default mode's tokens and accept drafts; replay a
      skewed, bursty request trace (`replay_requests`) on both: it must
      drain with equal tokens; and jamba's smoke config in its paged
-     default and slots modes.
-`--profile` also profiles 2 train steps. Prints one JSON line per phase
-(each with its seconds), the `kernels` JSON line (moe_gemm's with its
-train-step dX rows), the card's name and power limit, and last the `ok` JSON line.
+     default and slots modes;
+  6. the port's entry points, each run as `python <script>` runs it (its
+     `__main__` block, in this process) on the card with the launch
+     counters reset just before: tools/export_trace_torch.py at its
+     defaults into profile_out/ (every `kernel.<op>` span with backend
+     "cuda"), then its `--check`; and the three examples (quickstart_torch,
+     serve_moe_offload_torch, train_small_moe_torch at the JAX example's
+     200 steps), each exit 0; each must launch the kernels of its path
+     (ENTRY_KERNELS) and no other. Their smoke-width shapes are kernel rows
+     of phase 2 ("smoke ...").
+`--profile` also profiles 2 train steps and granite-20b's decode. Prints
+one JSON line per phase (each with its seconds), the `kernels` JSON line
+(moe_gemm's with its train-step dX rows, paged_prefill_gqa's with the
+dense family's rows, three kernels' with their smoke-width rows), the
+card's name and power limit, and last the `ok` JSON line.
 Imports nothing of JAX: the machine with the card has none.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import gc
+import io
 import json
 import math
+import runpy
 import subprocess
 import sys
 import tempfile
@@ -163,6 +189,22 @@ SEAMLESS_TRAIN_B, SEAMLESS_TRAIN_S, SEAMLESS_TRAIN_STEPS = 4, 256, 6
 # the cold buffer pads to 16 slots: ~35 GB of tier buffers at 8 layers)
 ARCH_LOOP_KW = {JAMBA_ARCH: dict(sizes=TierSizes(4, 5, 7))}
 MHA_PATH = "mha"
+DENSE_ARCH = "granite-20b"  # 48 query heads over 1 KV head (MQA), hd 128
+# granite-20b depth cut 52 -> 44: `dense_init` draws each stacked leaf in
+# fp32 before the bf16 cast, so init peaks at the params plus the last FFN
+# leaf's fp32 draw, ~1.69 GB a layer (32 layers: 55.00 GB on an H100). At 52
+# that is ~88 GB, over the card's 85; 44 (~75 GB) is the deepest that
+# leaves ~10 GB for the run and the allocator (46 would leave ~6)
+DENSE_LAYERS = 44
+DENSE_PATH = "dense"
+DENSE_STEPS = 16
+# the dense rows whose shapes the dense phase runs, and which of its calls
+# (prefill first, then the decode steps) launch them: the decode step
+# (the phase's tables are 20 blocks, its pasts 33 to 79) and the bucket
+DENSE_DECODE = "dense decode B=4 Kv=1 G=48 hd=128 nb=18"
+DENSE_BUCKET = "dense prefill B=4 C=64 Kv=1 G=48 hd=128 nb=20"
+DENSE_ROW_CALLS = {DENSE_DECODE: slice(1, None), DENSE_BUCKET: slice(0, 1)}
+DENSE_ARCHS = ("llama3.2-3b", "phi4-mini-3.8b", "qwen2.5-32b", "chameleon-34b", DENSE_ARCH)
 TRAIN_PATH = "train"  # granite-moe-1b-a400m trained at full width and depth
 GENERATE_PATH = "train/generate"  # then prefill + decode of the flat MoE model
 TRAIN_B, TRAIN_S, TRAIN_STEPS = 8, 512, 8
@@ -562,6 +604,48 @@ KERNEL_CASES = [  # (kernel, label, case, kwargs); the first per kernel is its J
      dict(b=4, c=1, nb=1024, past=[3900, 4000, 4050, 4095])),
     ("paged_prefill_gqa", "decode B=4 nb=1024 short rows", attention_case,
      dict(b=4, c=1, nb=1024, past=[40, 51, 60, 63])),
+    # the dense family's (Kv, G) pairs at hd 128: llama3.2-3b and
+    # phi4-mini (8, 3), qwen2.5-32b (8, 5), chameleon-34b (8, 8),
+    # granite-20b (1, 48: MQA), a decode step over 18 blocks; chunks of
+    # 32 for (8, 5) and (1, 48); granite-20b's 64-token bucket as the
+    # dense phase feeds it (3072 query rows a KV head, its 20-block tables)
+    ("paged_prefill_gqa", "dense decode B=4 Kv=8 G=3 hd=128 nb=18", attention_case,
+     dict(b=4, c=1, nb=18, past=[40, 51, 60, 71], kv=8, g=3, hd=128)),
+    ("paged_prefill_gqa", "dense decode B=4 Kv=8 G=5 hd=128 nb=18", attention_case,
+     dict(b=4, c=1, nb=18, past=[40, 51, 60, 71], kv=8, g=5, hd=128)),
+    ("paged_prefill_gqa", "dense decode B=4 Kv=8 G=8 hd=128 nb=18", attention_case,
+     dict(b=4, c=1, nb=18, past=[40, 51, 60, 71], kv=8, g=8, hd=128)),
+    ("paged_prefill_gqa", DENSE_DECODE, attention_case,
+     dict(b=4, c=1, nb=18, past=[40, 51, 60, 71], kv=1, g=48, hd=128)),
+    ("paged_prefill_gqa", "dense prefill B=4 C=32 Kv=8 G=5 hd=128 nb=18", attention_case,
+     dict(b=4, c=32, nb=18, past=[0, 16, 24, 40], kv=8, g=5, hd=128)),
+    ("paged_prefill_gqa", "dense prefill B=4 C=32 Kv=1 G=48 hd=128 nb=18", attention_case,
+     dict(b=4, c=32, nb=18, past=[0, 16, 24, 40], kv=1, g=48, hd=128)),
+    ("paged_prefill_gqa", DENSE_BUCKET, attention_case,
+     dict(b=4, c=64, nb=20, past=[0, 0, 0, 0], lens=[64, 40, 33, 57], kv=1, g=48, hd=128)),
+    # the smoke-width serves of the entry points (granite-moe's smoke
+    # config: 4 heads over 4 KV heads, hd 16, d_model 64, 8 experts of
+    # d_expert 32, top-2; bf16): a decode step of a group of 2 over its
+    # 8-block table, a 16-token prefill chunk; the prefill's grouped expert
+    # FFN over 16 slots of 128 rows (gate|up joined, down row-major) and
+    # the train example's 8 experts of 256 rows; the decode's cold (16
+    # slots) and hot (2 slots) GEMV tiers at 2 tokens a slot
+    ("paged_prefill_gqa", "smoke decode B=2 Kv=4 G=1 hd=16 nb=8", attention_case,
+     dict(b=2, c=1, nb=8, past=[13, 30], kv=4, g=1, hd=16)),
+    ("paged_prefill_gqa", "smoke prefill B=4 C=16 Kv=4 G=1 hd=16 nb=4", attention_case,
+     dict(b=4, c=16, nb=4, past=[0, 0, 0, 0], lens=[16, 12, 8, 16], kv=4, g=1, hd=16)),
+    ("moe_gemm", "smoke gate|up 16x128x64x64 joined", moe_gemm_case,
+     dict(n_slots=16, rows=8, d=64, f=32, pair=True, flat=True)),
+    ("moe_gemm", "smoke down 16x128x32x64 row-major", moe_gemm_case,
+     dict(n_slots=16, rows=8, d=64, f=32, pair=False, flat=True)),
+    ("moe_gemm", "smoke train gate|up 8x256x64x64 joined", moe_gemm_case,
+     dict(n_slots=8, rows=160, d=64, f=32, pair=True, flat=True)),
+    ("moe_gemm", "smoke train down 8x256x32x64 row-major", moe_gemm_case,
+     dict(n_slots=8, rows=160, d=64, f=32, pair=False, flat=True)),
+    ("expert_ffn_gemv", "smoke cold 16 slots T=2 D=64 F=32", gemv_case,
+     dict(n_slots=16, t=2, d=64, f=32)),
+    ("expert_ffn_gemv", "smoke hot 2 slots T=2 D=64 F=32", gemv_case,
+     dict(n_slots=2, t=2, d=64, f=32)),
     ("moe_gemm", "gate|up hot 8x128x1024x1024", moe_gemm_case,
      dict(n_slots=8, rows=128, d=1024, f=512, pair=True)),
     ("moe_gemm", "down hot 8x128x512x1024", moe_gemm_case,
@@ -645,6 +729,11 @@ KERNEL_CASES = [  # (kernel, label, case, kwargs); the first per kernel is its J
 ]
 
 
+DENSE_LABELS = [label for _, label, _, _ in KERNEL_CASES if label.startswith("dense ")]
+SMOKE_LABELS = [(name, label) for name, label, _, _ in KERNEL_CASES
+                if label.startswith("smoke ")]
+
+
 def run_case(name, label, make, dtype, kw, dev, gen) -> dict:
     """Hold the kernel against its plain version on one input set, then
     time kernel, plain version and library call on the device (CUDA-graph
@@ -688,10 +777,15 @@ def run_case(name, label, make, dtype, kw, dev, gen) -> dict:
     )
 
 
-def kernel_phases(dev) -> dict:
+def kernel_phases(dev, words=None) -> dict:
+    """Every row of KERNEL_CASES in bf16 and fp32 (with `words`, only the
+    rows whose label holds one of them); returns each kernel's first bf16
+    row and the bf16 rows by label."""
     gen = torch.Generator().manual_seed(0)
     rows, by_label = {}, {}
     for name, label, make, kw in KERNEL_CASES:
+        if words and not any(w in label for w in words):
+            continue
         for dtype in (torch.bfloat16, torch.float32):
             line = run_case(name, label, make, dtype, kw, dev, gen)
             print(json.dumps(line), flush=True)
@@ -1057,11 +1151,18 @@ def replay_parity(dev, arch: str) -> None:
                           seconds=time.time() - t0)), flush=True)
 
 
-def _recurrent_tokens(params, cfg, toks, lens, steps: int, paged: bool):
+def _recurrent_tokens(params, cfg, toks, lens, steps: int, paged: bool, calls=None):
     """Prefill right-padded rows, then `steps` greedy decode steps, through
     the contiguous model functions or the paged ones (the rows' recurrent
     states beside the pools). Returns the logits of every step, stacked
-    [steps + 1, B, V]."""
+    [steps + 1, B, V]. `calls`, a list, gets (the host clock after a
+    device synchronisation, the launch counters) after the prefill and
+    after each decode step."""
+    def done():
+        if calls is not None:
+            torch.cuda.synchronize()
+            calls.append((time.time(), read_counters()))
+
     dev = toks.device
     b, s = toks.shape
     mask = torch.arange(s, device=dev)[None, :] < lens[:, None]
@@ -1073,6 +1174,7 @@ def _recurrent_tokens(params, cfg, toks, lens, steps: int, paged: bool):
                                           torch.zeros(b, dtype=torch.int32, device=dev), mask)
     else:
         logits, cache = prefill(params, cfg, toks, cache_len=s + steps, token_mask=mask)
+    done()
     out, pos = [logits], lens.to(torch.int32)
     for _ in range(steps):
         nxt = out[-1].argmax(-1).to(torch.int32)[:, None]
@@ -1081,6 +1183,7 @@ def _recurrent_tokens(params, cfg, toks, lens, steps: int, paged: bool):
                                                      pos)
         else:
             logits, cache, _ = decode_step(params, cfg, nxt, cache, pos)
+        done()
         out.append(logits)
         pos = pos + 1
     return torch.stack(out)
@@ -1177,6 +1280,252 @@ def mamba_phase(dev) -> None:
     print(json.dumps(dict(phase="mamba", arch=JAMBA_ARCH, d_model=cfg.d_model, d_inner=di,
                           d_state=n, rows=4, bucket=64, **out,
                           seconds=time.time() - t_phase)), flush=True)
+
+
+# ---------------------------------------------------------- dense family
+def keep_groups(smoke, pub):
+    """`smoke`, the smoke reduction of the published config `pub` of a
+    dense arch, made fp32 and given back the published G (query heads a
+    KV head): KV heads cut to at most 2, query heads G times as many,
+    head width 16, the published rope_theta (the smoke reduction resets
+    it); qkv_bias and tied embeddings stay as published. Works on either
+    package's configs, so the CPU tests build the reference's alike."""
+    kv = min(2, pub.n_kv_heads)
+    return dataclasses.replace(smoke, n_heads=pub.n_heads // pub.n_kv_heads * kv,
+                               n_kv_heads=kv, head_dim=16, rope_theta=pub.rope_theta,
+                               param_dtype="float32", compute_dtype="float32")
+
+
+def profile_dense(params, cfg, toks, lens, out: Path) -> None:
+    """torch.profiler over granite-20b's prefill and 8 decode steps (the
+    dense phase's inputs, after a warm-up), through the paged route and
+    then the plain one: wall and device-busy time, the top ops by device
+    and by host time (full tables to `out`)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    tables = []
+    for paged in (True, False):
+        _recurrent_tokens(params, cfg, toks, lens, 2, paged)  # warm-up
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.time()
+            _recurrent_tokens(params, cfg, toks, lens, 8, paged)
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+        dev_us = sum(e.time_range.elapsed_us() for e in prof.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA)
+        route = "paged" if paged else "contiguous"
+        print(json.dumps(dict(phase="dense_profile", route=route, calls="prefill + 8 steps",
+                              wall_s=wall, device_busy_s=dev_us / 1e6)), flush=True)
+        avg = prof.key_averages()
+        for key in ("cuda_time_total", "self_cpu_time_total"):
+            table = avg.table(sort_by=key, row_limit=25)
+            tables.append(f"== {route}, by {key}\n{table}")
+            print("\n".join(table.splitlines()[:16]), flush=True)
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.write_text("\n\n".join(tables))
+
+
+def dense_phase(dev, profile_out=None) -> dict:
+    """granite-20b (dense, MQA: 48 query heads over 1 KV head, hd 128) at
+    published width (d_model 6144, d_ff 24576, vocab 49152) with its depth
+    cut to DENSE_LAYERS, bf16 weights from seed 0: 4 right-padded rows (64,
+    40, 33 and 57 real tokens) through `prefill_paged` and 16 greedy
+    `decode_step_paged` steps (the paged GQA kernel: exactly one launch a
+    layer per call, and no other kernel), then the same through `prefill`
+    / `decode_step` (plain attention: no kernel). Finite logits are held;
+    the two routes' token agreement and largest logit gap are reported
+    (bf16: they round differently). Then each dense arch's fp32 smoke
+    config with its published G (`keep_groups`), card against CPU from
+    the same weights, through both routes: logits within 1e-5 (abs + rel)
+    and equal tokens. With `profile_out`, also `profile_dense` into
+    <its stem>-granite-20b.txt."""
+    t_phase = time.time()
+    cfg = get_config(DENSE_ARCH)
+    print(f"{DENSE_ARCH}: depth cut {cfg.n_layers} -> {DENSE_LAYERS} layers, every width as "
+          f"published", flush=True)
+    cfg = dataclasses.replace(cfg, n_layers=DENSE_LAYERS)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.time()
+    params = init_params(0, cfg, device=dev)
+    torch.cuda.synchronize()
+    init_s, init_peak_gb = time.time() - t0, torch.cuda.max_memory_allocated(dev) / 1e9
+    gen = torch.Generator().manual_seed(8)
+    lens = torch.tensor([64, 40, 33, 57], device=dev)
+    toks = torch.randint(0, cfg.vocab_size, (4, 64), generator=gen).to(dev)
+    for paged in (True, False):  # warm-up: cuBLAS handles, the allocator
+        _recurrent_tokens(params, cfg, toks, lens, 1, paged)
+    logits, times, launches, per_call = {}, {}, {}, {}
+    for paged in (True, False):
+        reset_counters()
+        calls = []
+        torch.cuda.synchronize()
+        t0 = time.time()
+        logits[paged] = _recurrent_tokens(params, cfg, toks, lens, DENSE_STEPS, paged, calls)
+        launches[paged] = read_counters()
+        stamps = [t0] + [t for t, _ in calls]
+        times[paged] = [b - a for a, b in zip(stamps, stamps[1:])]  # prefill, then steps
+        gqa = [0] + [c["paged_prefill_gqa"] for _, c in calls]
+        per_call[paged] = [b - a for a, b in zip(gqa, gqa[1:])]
+    if per_call[True] != [cfg.n_layers] * (1 + DENSE_STEPS):
+        fail(f"{DENSE_ARCH}: paged GQA launches per call {per_call[True]}, not "
+             f"{cfg.n_layers} a prefill call and a decode step")
+    others = {k: v for k, v in launches[True].items() if k != "paged_prefill_gqa"}
+    if any(others.values()) or any(launches[False].values()):
+        fail(f"{DENSE_ARCH}: a kernel off the dense path launched: paged {launches[True]}, "
+             f"contiguous {launches[False]}")
+    for paged, lg in logits.items():
+        if lg.shape != (1 + DENSE_STEPS, 4, cfg.vocab_size) or not torch.isfinite(
+                lg.float()).all():
+            fail(f"{DENSE_ARCH} ({'paged' if paged else 'contiguous'}): logits of shape "
+                 f"{tuple(lg.shape)}, or not finite")
+    agree = float((logits[True].argmax(-1) == logits[False].argmax(-1)).float().mean())
+    gap = float((logits[True].float() - logits[False].float()).abs().max())
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    if profile_out:
+        out = Path(profile_out)
+        profile_dense(params, cfg, toks, lens, out.with_name(f"{out.stem}-{DENSE_ARCH}.txt"))
+    # a decode step reads every weight once but the embedding table's
+    # (4 of its rows): the least time of a step
+    step_bytes = sum(t.numel() * t.element_size() for path, t in leaves_with_path(params)
+                     if path[0] != "embed")
+    del params, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    # fp32 smoke, each dense arch at its published G: card against CPU
+    worst = {}
+    for arch in DENSE_ARCHS:
+        scfg = keep_groups(reduce_for_smoke(get_config(arch)), get_config(arch))
+        sp = init_params(0, scfg, device="cpu")
+        sgen = torch.Generator().manual_seed(9)
+        stoks = torch.randint(0, scfg.vocab_size, (4, 16), generator=sgen)
+        slens = torch.tensor([16, 9, 12, 5])
+        for paged in (True, False):
+            got = _recurrent_tokens(_to(sp, dev), scfg, stoks.to(dev), slens.to(dev), 8,
+                                    paged).cpu()
+            want = _recurrent_tokens(sp, scfg, stoks, slens, 8, paged)
+            err = float(((got - want).abs() / (1e-5 + 1e-5 * want.abs())).max())
+            route = "paged" if paged else "contiguous"
+            worst[f"{arch}/{route}"] = err
+            if err > 1 or not torch.equal(got.argmax(-1), want.argmax(-1)):
+                fail(f"{arch} fp32 smoke G={scfg.n_heads // scfg.n_kv_heads} ({route}): card "
+                     f"logits off the CPU's by {err:.3f} of 1e-5, or other tokens")
+    line = dict(
+        phase="dense", path=DENSE_PATH, arch=DENSE_ARCH, layers=cfg.n_layers,
+        d_model=cfg.d_model, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+        head_dim=cfg.resolved_head_dim, d_ff=cfg.d_ff, dtype=cfg.param_dtype, rows=4,
+        decode_steps=DENSE_STEPS, init_s=init_s, init_peak_mem_gb=init_peak_gb,
+        peak_mem_gb=peak_gb,
+        **{f"{route}_{k}": v for route, t in (("paged", times[True]),
+                                              ("contiguous", times[False]))
+           for k, v in (("prefill_s", t[0]), ("decode_step_p50_s", float(np.median(t[1:]))),
+                        ("decode_step_max_s", max(t[1:])))},
+        decode_bound_ms=step_bytes / HBM_BPS * 1e3,
+        launches=launches[True], contiguous_launches=launches[False],
+        gqa_launches_per_call=per_call[True], tokens_agree=agree, max_logit_gap=gap,
+        smoke_fp32_err_over_tol=worst, seconds=time.time() - t_phase)
+    print(json.dumps(line), flush=True)
+    return line
+
+
+# ---------------------------------------------------------- entry points
+ROOT = Path(__file__).resolve().parent
+EXPORT_DIR = ROOT / "profile_out"  # .gitignore'd
+
+
+# script -> the kernels its path launches on the card (each at least once;
+# no other may launch): the smoke serves run paged GQA, the grouped expert
+# FFN on prefill chunks and the GEMV tiers on decode steps; the train
+# example the flat MoE's moe_gemm; the dense quickstart (plain attention,
+# contiguous cache) none
+ENTRY_KERNELS = {
+    "tools/export_trace_torch.py": ("paged_prefill_gqa", "moe_gemm", "expert_ffn_gemv"),
+    "examples/quickstart_torch.py": (),
+    "examples/serve_moe_offload_torch.py": ("paged_prefill_gqa", "moe_gemm",
+                                            "expert_ffn_gemv"),
+    "examples/train_small_moe_torch.py": ("moe_gemm",),
+}
+
+
+def _run_entry(script: str, *argv, counted: bool = True) -> tuple:
+    """Run `python script argv...` as its `__main__` block, in this process
+    (so the launch counters see it), its standard output captured; fail
+    unless it ends with exit status 0. With `counted`, the counters are
+    reset just before and must show exactly ENTRY_KERNELS[script] launched.
+    Returns (stdout, seconds, launches)."""
+    reset_counters()
+    buf, argv0, code = io.StringIO(), sys.argv, 0
+    sys.argv = [script, *map(str, argv)]
+    t0 = time.time()
+    try:
+        with contextlib.redirect_stdout(buf):
+            runpy.run_path(str(ROOT / script), run_name="__main__")
+    except SystemExit as e:
+        code = e.code
+    finally:
+        sys.argv = argv0
+    torch.cuda.synchronize()
+    secs, launches, out = time.time() - t0, read_counters(), buf.getvalue()
+    if code not in (0, None):
+        fail(f"{script} {' '.join(map(str, argv))} exited {code}:\n{out[-3000:]}")
+    if counted:
+        want = ENTRY_KERNELS[script]
+        if any(launches[k] == 0 for k in want) or any(
+                n for k, n in launches.items() if k not in want):
+            fail(f"{script}: launches {launches}, want each of {want} and nothing else")
+    return out, secs, launches
+
+
+def export_trace_phase() -> dict:
+    """tools/export_trace_torch.py at its defaults on the card, its three
+    files into profile_out/: every `kernel.<op>` span must carry backend
+    "cuda"; then its `--check` on the trace."""
+    script = "tools/export_trace_torch.py"
+    EXPORT_DIR.mkdir(exist_ok=True)
+    trace = EXPORT_DIR / "serving.trace.json"
+    _, secs, launches = _run_entry(script, "--out", trace, "--metrics-json",
+                                   EXPORT_DIR / "metrics_snapshot.json", "--prom",
+                                   EXPORT_DIR / "metrics_snapshot.prom")
+    events = json.loads(trace.read_text())["traceEvents"]
+    kernel = [e for e in events if e["name"].startswith("kernel.")]
+    backends = {e["args"]["backend"] for e in kernel}
+    if not kernel or backends != {"cuda"}:
+        fail(f"export_trace: kernel spans with backends {backends} (want cuda only)")
+    _, check_s, _ = _run_entry(script, "--check", trace, counted=False)
+    snap = json.loads((EXPORT_DIR / "metrics_snapshot.json").read_text())
+    line = dict(phase="export_trace", path=script, trace=str(trace.relative_to(ROOT)),
+                events=len(events), kernel_spans={n: sum(e["name"] == n for e in kernel)
+                                                  for n in sorted({e["name"] for e in kernel})},
+                launches=launches, completed=snap["serving.completed"],
+                migrations=snap["engine.migrations"], seconds=secs, check_seconds=check_s)
+    print(json.dumps(line), flush=True)
+    return line
+
+
+# (script, extra arguments); the train example runs as the JAX example
+# does (200 steps of 8 x 64), its checkpoints in a fresh directory
+EXAMPLES = (("examples/quickstart_torch.py", ()),
+            ("examples/serve_moe_offload_torch.py", ()),
+            ("examples/train_small_moe_torch.py", ("--log-every", "50")))
+
+
+def examples_phase() -> list:
+    """The port's three examples on the card (their default device): each
+    must exit 0 (the train example only when its loss fell) and launch
+    the kernels of its path. One line each."""
+    lines = []
+    with tempfile.TemporaryDirectory() as ckpt:
+        for script, args in EXAMPLES:
+            if "train" in script:
+                args = (*args, "--ckpt-dir", ckpt)
+            out, secs, launches = _run_entry(script, *args)
+            outs = out.strip().splitlines()
+            lines.append(dict(phase="examples", path=script, args=list(args), seconds=secs,
+                              launches=launches, summary=next(
+                                  (ln for ln in outs if ln.startswith("[serve] device=")),
+                                  outs[-1])))
+            print(json.dumps(lines[-1]), flush=True)
+    return lines
 
 
 # ------------------------------------------------------------- training
@@ -1843,6 +2192,69 @@ def seamless_train_phase(dev) -> dict:
     return dict(path=SEAMLESS_TRAIN_PATH, launches=launches)
 
 
+# the phases in their order; `--only` runs a subset of them
+PHASES = ("kernels", "mha", "mamba", "xlstm", "gradient", "train", "train_smoke_parity",
+          "distributed", "seamless", "seamless_train", "dense", "serve", "spec_fp32",
+          "smoke_parity", "export_trace", "examples")
+
+
+def _cleared() -> None:
+    gc.collect()
+    torch.cuda.empty_cache()  # a phase's weights and tiers, before the next one
+
+
+def kernels_line(rows, by_label, paths, dx) -> dict:
+    """The `kernels` JSON line: each kernel's first row, with its launches
+    on the path it was ported on and on every path; paged_prefill_gqa's
+    dense-family rows, moe_gemm's train-step dX and grouped-dispatch rows,
+    and the smoke-width rows of the entry points' kernels beside those
+    paths' launches."""
+    by_path = {p["path"]: p["launches"] for p in paths}  # each after its own reset
+    dense_calls = next(p for p in paths if p["path"] == DENSE_PATH)["gqa_launches_per_call"]
+    kernels = []
+    for name, (fn, src, replaces, path) in KERNELS.items():
+        r = rows[name]
+        kernels.append(dict(
+            name=name, route="cuda", source=src, replaces=replaces,
+            launches=by_path[path][name],
+            launches_by_path={p: n[name] for p, n in by_path.items()},
+            max_abs_err=r["max_abs_err"], ms=r["kernel_ms"],
+            plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+            library_ms=r["library_ms"],
+        ))
+        if name == "paged_prefill_gqa":
+            # the dense family's (Kv, G) pairs at hd 128; only two of the
+            # shapes run on a full-width path (the dense phase's calls)
+            dense = {}
+            for label in DENSE_LABELS:
+                calls = dense_calls[DENSE_ROW_CALLS[label]] if label in DENSE_ROW_CALLS else []
+                dense[label] = dict(
+                    launches=sum(calls), launches_per_call=calls,
+                    path=DENSE_PATH if calls else None,
+                    **{k: by_label[label][k] for k in ("max_abs_err", "err_over_tol",
+                                                        "kernel_ms", "plain_ms", "bound_ms",
+                                                        "bound_by", "library_ms")})
+            kernels[-1]["dense"] = dense
+        smoke = [label for kname, label in SMOKE_LABELS if kname == name]
+        if smoke:  # the entry points' smoke-width shapes, and those paths' launches
+            kernels[-1]["smoke"] = dict(
+                launches_by_path={p: by_path[p][name] for p in ENTRY_KERNELS},
+                rows={label: {k: by_label[label][k] for k in (
+                    "max_abs_err", "err_over_tol", "kernel_ms", "plain_ms", "bound_ms",
+                    "bound_by", "library_ms")} for label in smoke})
+        if name == "moe_gemm":  # the dX products of the train step's backward
+            kernels[-1]["train_dx"] = dx
+            # the grouped dispatch's two GEMMs under the MoE hints, each
+            # launched once by the distributed/grouped path's layer
+            kernels[-1]["grouped_dispatch"] = {
+                label: dict(launches=by_path[DIST_GROUPED_PATH][name] // 2,
+                            **{k: by_label[label][k] for k in (
+                                "max_abs_err", "kernel_ms", "plain_ms", "bound_ms",
+                                "bound_by", "library_ms")})
+                for label in (GROUPED_GU, GROUPED_DOWN)}
+    return {"kernels": kernels}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", action="store_true",
@@ -1850,7 +2262,17 @@ def main(argv=None) -> int:
     ap.add_argument("--profile-out", default="profile_out/serve_profile.txt",
                     help="where --profile writes its full tables (one per model: "
                          "the file name's stem gets -<arch>)")
+    ap.add_argument("--only", default=None,
+                    help=f"comma-separated phases to run, of {', '.join(PHASES)} (default: "
+                         "all, then the kernels line); the build and SASS check always run")
+    ap.add_argument("--cases", default=None,
+                    help="comma-separated words: the kernels phase runs only the rows "
+                         "whose label holds one of them")
     args = ap.parse_args(argv)
+    run = PHASES if args.only is None else tuple(args.only.split(","))
+    if set(run) - set(PHASES):
+        ap.error(f"unknown phases {sorted(set(run) - set(PHASES))}; phases: {PHASES}")
+    profile_out = args.profile_out if args.profile else None
     if not torch.cuda.is_available():
         print("FAIL: no CUDA device: chip_smoke.py runs on the GPU", flush=True)
         return 1
@@ -1880,66 +2302,61 @@ def main(argv=None) -> int:
         if mma[name][op] == 0:
             fail(f"{name}: no {op} (tensor-core) instruction in its SASS")
 
-    rows, by_label = kernel_phases(dev)
-    paths = [mha_entry(dev)]
-    mamba_phase(dev)
-    xlstm_phase(dev)
-    dx = grad_phase(dev)
-    train_paths = train_phase(dev, profile_out=args.profile_out if args.profile else None)
-    paths += train_paths
-    for row in dx.values():  # each dX product runs once a MoE layer a step
-        row["launches_per_step"] = train_paths[0]["launches"]["moe_gemm"] // (6 * TRAIN_STEPS)
-    train_smoke_parity(dev)
-    gc.collect()
-    torch.cuda.empty_cache()
-    paths += distributed_phase(dev)
-    gc.collect()
-    torch.cuda.empty_cache()
-    for phase in (seamless_phase, seamless_train_phase):
-        paths.append(phase(dev))
-        gc.collect()
-        torch.cuda.empty_cache()
-    for arch, n_layers, mode, expect, forbid in SERVES:
-        paths.append(serve_full(dev, arch, n_layers, mode, expect, forbid,
-                                profile_out=args.profile_out if args.profile else None,
-                                plain_tokens=next((p["tokens"] for p in paths
-                                                   if p["path"] == arch), None)))
-        gc.collect()
-        torch.cuda.empty_cache()  # the loop's weights and tiers, before the next one
-    spec_fp32_full(dev)
-    gc.collect()
-    torch.cuda.empty_cache()
-    for arch in (GQA_ARCH, MLA_ARCH):
-        plain = serve_smoke_parity(dev, arch)
-        for mode in MODES:
-            serve_smoke_parity(dev, arch, mode, plain)
-        replay_parity(dev, arch)
-    for mode in (None, "slots"):  # jamba: the paged default admits whole suffixes
-        serve_smoke_parity(dev, JAMBA_ARCH, mode)
+    paths, dx, train_paths = [], {}, []
+    rows, by_label = {}, {}
+    if "kernels" in run:
+        words = args.cases.split(",") if args.cases else None
+        rows, by_label = kernel_phases(dev, words)
+    if "mha" in run:
+        paths.append(mha_entry(dev))
+    if "mamba" in run:
+        mamba_phase(dev)
+    if "xlstm" in run:
+        xlstm_phase(dev)
+    if "gradient" in run:
+        dx = grad_phase(dev)
+    if "train" in run:
+        train_paths = train_phase(dev, profile_out=profile_out)
+        paths += train_paths
+        for row in dx.values():  # each dX product runs once a MoE layer a step
+            row["launches_per_step"] = (train_paths[0]["launches"]["moe_gemm"]
+                                        // (6 * TRAIN_STEPS))
+    if "train_smoke_parity" in run:
+        train_smoke_parity(dev)
+    _cleared()
+    if "distributed" in run:
+        paths += distributed_phase(dev)
+        _cleared()
+    for name, phase in (("seamless", seamless_phase), ("seamless_train", seamless_train_phase),
+                        ("dense", lambda d: dense_phase(d, profile_out))):
+        if name in run:
+            paths.append(phase(dev))
+            _cleared()
+    if "serve" in run:
+        for arch, n_layers, mode, expect, forbid in SERVES:
+            paths.append(serve_full(dev, arch, n_layers, mode, expect, forbid,
+                                    profile_out=profile_out,
+                                    plain_tokens=next((p["tokens"] for p in paths
+                                                       if p["path"] == arch), None)))
+            _cleared()
+    if "spec_fp32" in run:
+        spec_fp32_full(dev)
+        _cleared()
+    if "smoke_parity" in run:
+        for arch in (GQA_ARCH, MLA_ARCH):
+            plain = serve_smoke_parity(dev, arch)
+            for mode in MODES:
+                serve_smoke_parity(dev, arch, mode, plain)
+            replay_parity(dev, arch)
+        for mode in (None, "slots"):  # jamba: the paged default admits whole suffixes
+            serve_smoke_parity(dev, JAMBA_ARCH, mode)
+    if "export_trace" in run:
+        paths.append(export_trace_phase())
+    if "examples" in run:
+        paths += examples_phase()
 
-    by_path = {p["path"]: p["launches"] for p in paths}  # each after its own reset
-    kernels = []
-    for name, (fn, src, replaces, path) in KERNELS.items():
-        r = rows[name]
-        kernels.append(dict(
-            name=name, route="cuda", source=src, replaces=replaces,
-            launches=by_path[path][name],
-            launches_by_path={p: n[name] for p, n in by_path.items()},
-            max_abs_err=r["max_abs_err"], ms=r["kernel_ms"],
-            plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
-            library_ms=r["library_ms"],
-        ))
-        if name == "moe_gemm":  # the dX products of the train step's backward
-            kernels[-1]["train_dx"] = dx
-            # the grouped dispatch's two GEMMs under the MoE hints, each
-            # launched once by the distributed/grouped path's layer
-            kernels[-1]["grouped_dispatch"] = {
-                label: dict(launches=by_path[DIST_GROUPED_PATH][name] // 2,
-                            **{k: by_label[label][k] for k in (
-                                "max_abs_err", "kernel_ms", "plain_ms", "bound_ms",
-                                "bound_by", "library_ms")})
-                for label in (GROUPED_GU, GROUPED_DOWN)}
-    print(json.dumps({"kernels": kernels}), flush=True)
+    if args.only is None:
+        print(json.dumps(kernels_line(rows, by_label, paths, dx)), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -64,7 +64,8 @@ __device__ __forceinline__ uint64_t desc_mn_major(const void* p, uint32_t chunk_
   return smem_desc<SW>(p, chunk_bytes, 8 * SW);
 }
 
-// One m64nNk16 bf16 -> fp32 warpgroup MMA, N in {32, 64, 128}. d holds
+// One m64nNk16 bf16 -> fp32 warpgroup MMA, N in {16, 32, 64, 128} (16:
+// registers A only). d holds
 // the thread's N/2 accumulators: for chunk i of 8 columns, d[4i], d[4i+1]
 // are row 16*warp + lane/4, columns 8i + 2*(lane%4) + {0, 1}, and
 // d[4i+2], d[4i+3] the same columns 8 rows further down. `TransB` = 0
@@ -73,6 +74,21 @@ __device__ __forceinline__ uint64_t desc_mn_major(const void* p, uint32_t chunk_
 // the warp's 16, columns 2*(lane%4) + {0, 1} and 8 more, in the order
 // (r, c), (r+8, c), (r, c+8), (r+8, c+8), the accumulator's own layout.
 template <int N, int TransB> struct Wgmma;
+
+template <int TransB>
+struct Wgmma<16, TransB> {
+  // D[64 x 16] (+)= A[64 x 16] (registers, 4 x bf16x2) * B[16 x 16] (shared memory)
+  static __device__ __forceinline__ void rs(float (&d)[8], const uint32_t (&a)[4],
+                                            uint64_t db, int scale_d) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1, %14;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d), "n"(TransB));
+  }
+};
 
 template <int TransB>
 struct Wgmma<32, TransB> {

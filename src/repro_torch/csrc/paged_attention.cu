@@ -27,8 +27,8 @@
 // query rows of (row, head) are one 64-row wgmma A operand (more rows
 // take more tiles). Keys go in tiles of 64, gathered from the pool's
 // bs-token blocks through the block table by 16-byte cp.async copies
-// straight into the 128-byte swizzled layout wgmma reads, two
-// tiles in flight (the next tile's gather overlaps this tile's math).
+// straight into the 128-byte swizzled layout wgmma reads (32-byte rows
+// for the 16-wide heads of the smoke configs), two tiles in flight (the next tile's gather overlaps this tile's math).
 // Per tile: S = Q K^T (m64n64k16, both K-major), the online softmax on
 // the accumulator fragment (as flash_attention.cu), P rounded to bf16
 // in registers as the A operand of O += P V (m64n{hd}k16, V MN-major).
@@ -195,7 +195,8 @@ constexpr float kLog2e = 1.4426950408889634f;
 
 template <int HD>
 struct GqaCfg {
-  static constexpr int SW = 128;                           // swizzled row bytes
+  // swizzled row bytes: a 16-wide head (a smoke config's) is one 32-byte row
+  static constexpr int SW = HD * 2 < 128 ? HD * 2 : 128;
   static constexpr int chunk = 64 * SW;                    // 64 rows of SW bytes
   static constexpr int tile = 64 * HD * 2;                 // [64, HD] = HD*2/SW chunks
   static constexpr int smem = tile * 5 + 1024;             // Q + 2 x (K, V)
@@ -452,7 +453,7 @@ size_t paged_prefill_gqa_smem(int rows, int hd) { return f32_smem_bytes(rows, hd
 // Keys per bf16 key tile (the unit the splits are counted in).
 int paged_prefill_gqa_key_tile() { return kKeys; }
 
-// dtype: 0 = float32, 1 = bfloat16 (hd in {64, 128}). bf16 with
+// dtype: 0 = float32, 1 = bfloat16 (hd in {16, 64, 128}). bf16 with
 // splits > 1 needs part_o (splits * B * Kv * C*G * hd floats) and part_ml
 // (splits * B * Kv * C*G * 2 floats) scratch. Returns 0 or a cudaError_t.
 int paged_prefill_gqa(const void* q, const void* pool_k, const void* pool_v,
@@ -466,6 +467,8 @@ int paged_prefill_gqa(const void* q, const void* pool_k, const void* pool_v,
     return launch_f32(q, pool_k, pool_v, tables, past_len, lengths, out, B, C, Kv, G, hd,
                       bs, nb, scale, s);
   switch (hd) {
+    case 16: return launch_bf16<16>(q, pool_k, pool_v, tables, past_len, lengths, out, part_o,
+                                    part_ml, B, C, Kv, G, bs, nb, splits, scale, s);
     case 64: return launch_bf16<64>(q, pool_k, pool_v, tables, past_len, lengths, out, part_o,
                                     part_ml, B, C, Kv, G, bs, nb, splits, scale, s);
     case 128: return launch_bf16<128>(q, pool_k, pool_v, tables, past_len, lengths, out,

@@ -14,9 +14,13 @@ for `sm_90a` only, and nothing falls back to the plain version behind
 the caller's back.
 
 Observability: `set_kernel_tracer` installs a process-global
-`repro_torch.obs.Tracer`; op wrappers bracket each call with
-`kernel_span`. Unlike the JAX package (where the span runs once per
-trace), the port runs eagerly, so the span brackets every call.
+`repro_torch.obs.Tracer`; the op layer brackets each call with
+`kernel_span`, under the reference's op names (`paged_decode_gqa`,
+`paged_prefill_gqa`, `paged_decode_mla`, `paged_prefill_mla` in
+models/attention.py; `grouped_expert_matmul`, `grouped_expert_ffn`,
+`cold_expert_ffn`, `mha` in the kernels' ops.py), one span per op call.
+Unlike the JAX package (where the span runs once per trace), the port
+runs eagerly, so the span brackets every call.
 """
 from __future__ import annotations
 
@@ -99,10 +103,12 @@ def set_kernel_tracer(tracer) -> None:
     _KERNEL_TRACER = tracer
 
 
-def kernel_span(op: str, kind: str):
-    """Span `kernel.<op>` with the resolved kind ("cuda" | "ref") around
-    one op-wrapper call, on the installed tracer (no-op when off)."""
+def kernel_span(op: str, choice: str, t: torch.Tensor):
+    """Span `kernel.<op>` around one op call whose kernel family resolves
+    `choice` on tensor `t`, with the resolved kind ("cuda" | "ref") as its
+    `backend` argument, on the installed tracer (no-op when off)."""
     tr = _KERNEL_TRACER
     if tr is None or not tr.enabled:
         return _NULL_SPAN
+    kind = "cuda" if use_kernel(choice, t, op=op) else "ref"
     return tr.span(f"kernel.{op}", cat="kernel", backend=kind)

@@ -23,7 +23,7 @@ import functools
 import torch
 
 from repro_torch.kernels import _launch as L
-from repro_torch.kernels.backend import kernel_span, use_kernel, wants_grad
+from repro_torch.kernels.backend import use_kernel, wants_grad
 from repro_torch.kernels.build import check, library
 from repro_torch.kernels.expert_gemv.ref import expert_ffn_gemv_ref
 
@@ -173,10 +173,8 @@ def expert_ffn_gemv(x, w1, w3, w2, *, backend: str = "auto") -> torch.Tensor:
             raise RuntimeError(
                 f"{OP}: the expert GEMV kernel has no gradient (nor has the reference's "
                 "Pallas kernel); call it under torch.no_grad() or on detached tensors")
-        with kernel_span(OP, "cuda"):
-            return _launch(x, w1, w3, w2)
-    with kernel_span(OP, "ref"):
-        return expert_ffn_gemv_ref(x, w1, w3, w2)
+        return _launch(x, w1, w3, w2)
+    return expert_ffn_gemv_ref(x, w1, w3, w2)
 
 
 expert_ffn_gemv.launches = 0

@@ -5,6 +5,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.backend import kernel_span
 from repro_torch.kernels.flash_attention.kernel import flash_attention
 
 
@@ -23,6 +24,7 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = Tru
     def heads_first(t):
         return t.transpose(1, 2).reshape(b * h, t.shape[1], dh).contiguous()
 
-    o = flash_attention(heads_first(q), heads_first(k), heads_first(v), causal=causal,
-                        backend=backend)
+    with kernel_span("mha", backend, q):
+        o = flash_attention(heads_first(q), heads_first(k), heads_first(v), causal=causal,
+                            backend=backend)
     return o.reshape(b, h, sq, dh).transpose(1, 2)

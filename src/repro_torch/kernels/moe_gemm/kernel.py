@@ -28,7 +28,7 @@ import functools
 import torch
 
 from repro_torch.kernels import _launch as L
-from repro_torch.kernels.backend import kernel_span, use_kernel, wants_grad
+from repro_torch.kernels.backend import use_kernel, wants_grad
 from repro_torch.kernels.build import check, library
 from repro_torch.kernels.moe_gemm.ref import join_panels, moe_gemm_ref
 
@@ -200,14 +200,12 @@ def moe_gemm(x: torch.Tensor, w, tile_expert: torch.Tensor, *, bm: int = 128,
     of `rows` rows, group g of expert group_expert[g] (None: expert g);
     by default every bm-row tile is a group of expert tile_expert[m]."""
     if use_kernel(backend, x, op=OP):
-        with kernel_span(OP, "cuda"):
-            panels = w if isinstance(w, (tuple, list)) else (w,)
-            if not wants_grad(x, *panels):
-                return _launch(x, w, tile_expert, bm)
-            rows, group_expert = groups or (bm, tile_expert)
-            return _MoEGemm.apply(x, join_panels(w), tile_expert, bm, rows, group_expert)
-    with kernel_span(OP, "ref"):
-        return moe_gemm_ref(x, w, tile_expert, bm)
+        panels = w if isinstance(w, (tuple, list)) else (w,)
+        if not wants_grad(x, *panels):
+            return _launch(x, w, tile_expert, bm)
+        rows, group_expert = groups or (bm, tile_expert)
+        return _MoEGemm.apply(x, join_panels(w), tile_expert, bm, rows, group_expert)
+    return moe_gemm_ref(x, w, tile_expert, bm)
 
 
 moe_gemm.launches = 0

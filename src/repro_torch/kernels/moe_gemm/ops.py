@@ -25,7 +25,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels.backend import resolve_backend
+from repro_torch.kernels.backend import kernel_span, resolve_backend
 from repro_torch.kernels.moe_gemm.kernel import moe_gemm, pair_addressable
 from repro_torch.kernels.moe_gemm.ref import moe_gemm_groups_ref
 
@@ -63,21 +63,22 @@ def grouped_expert_matmul(
     order = torch.argsort(expert_of, stable=True)
     xs, se = x[order], expert_of[order].long()
     group_sizes = torch.bincount(se, minlength=e)
-    if resolve_backend(backend) == "ref":
-        ys = moe_gemm_groups_ref(xs, w, group_sizes)
-    else:
-        padded = (group_sizes + bm - 1) // bm * bm
-        ends = torch.cumsum(padded, 0)
-        starts = ends - padded
-        rank = torch.arange(t, device=x.device) - torch.searchsorted(se, se)
-        dest = starts[se] + rank
-        t_pad = _round_up(capacity, bm)
-        keep = dest < t_pad
-        xp = x.new_zeros(t_pad, d).index_put((dest[keep],), xs[keep])
-        tile_start = torch.arange(0, t_pad, bm, device=x.device)
-        tile_expert = torch.searchsorted(ends, tile_start, right=True).clamp(0, e - 1)
-        yp = moe_gemm(xp, w, tile_expert.to(torch.int32), bm=bm, backend=backend)
-        ys = yp[dest.clamp(max=t_pad - 1)]
+    with kernel_span("grouped_expert_matmul", backend, x):
+        if resolve_backend(backend) == "ref":
+            ys = moe_gemm_groups_ref(xs, w, group_sizes)
+        else:
+            padded = (group_sizes + bm - 1) // bm * bm
+            ends = torch.cumsum(padded, 0)
+            starts = ends - padded
+            rank = torch.arange(t, device=x.device) - torch.searchsorted(se, se)
+            dest = starts[se] + rank
+            t_pad = _round_up(capacity, bm)
+            keep = dest < t_pad
+            xp = x.new_zeros(t_pad, d).index_put((dest[keep],), xs[keep])
+            tile_start = torch.arange(0, t_pad, bm, device=x.device)
+            tile_expert = torch.searchsorted(ends, tile_start, right=True).clamp(0, e - 1)
+            yp = moe_gemm(xp, w, tile_expert.to(torch.int32), bm=bm, backend=backend)
+            ys = yp[dest.clamp(max=t_pad - 1)]
     return ys[torch.argsort(order)]
 
 
@@ -93,21 +94,23 @@ def grouped_expert_ffn(
 ) -> torch.Tensor:
     """[G, C, D] -> [G, C, D], group g using expert group_expert[g]'s
     weights (identity when None)."""
-    g, c, d = h.shape
-    f = w_gate.shape[-1]
-    c_pad = _round_up(c, bm)
-    groups = (c_pad, group_expert)  # the weight gradient's groups
-    if group_expert is None:
-        assert g == w_gate.shape[0], (g, w_gate.shape)
-        group_expert = torch.arange(g, dtype=torch.int32, device=h.device)
-    hp = F.pad(h, (0, 0, 0, c_pad - c)).reshape(g * c_pad, d)
-    tile_expert = group_expert.to(torch.int32).repeat_interleave(c_pad // bm)
-    # GEMM 1: x @ [w_gate | w_up], one [D, 2F] panel
-    panels = (w_gate, w_up)
-    if not _joinable(w_gate, w_up):
-        panels = torch.cat([w_gate, w_up], dim=-1)
-    gu = moe_gemm(hp, panels, tile_expert, bm=bm, backend=backend, groups=groups)
-    a = F.silu(gu[:, :f].float()).to(h.dtype) * gu[:, f:]
-    # GEMM 2: down projection
-    o = moe_gemm(a.contiguous(), w_down, tile_expert, bm=bm, backend=backend, groups=groups)
-    return o.reshape(g, c_pad, d)[:, :c]
+    with kernel_span("grouped_expert_ffn", backend, h):
+        g, c, d = h.shape
+        f = w_gate.shape[-1]
+        c_pad = _round_up(c, bm)
+        groups = (c_pad, group_expert)  # the weight gradient's groups
+        if group_expert is None:
+            assert g == w_gate.shape[0], (g, w_gate.shape)
+            group_expert = torch.arange(g, dtype=torch.int32, device=h.device)
+        hp = F.pad(h, (0, 0, 0, c_pad - c)).reshape(g * c_pad, d)
+        tile_expert = group_expert.to(torch.int32).repeat_interleave(c_pad // bm)
+        # GEMM 1: x @ [w_gate | w_up], one [D, 2F] panel
+        panels = (w_gate, w_up)
+        if not _joinable(w_gate, w_up):
+            panels = torch.cat([w_gate, w_up], dim=-1)
+        gu = moe_gemm(hp, panels, tile_expert, bm=bm, backend=backend, groups=groups)
+        a = F.silu(gu[:, :f].float()).to(h.dtype) * gu[:, f:]
+        # GEMM 2: down projection
+        o = moe_gemm(a.contiguous(), w_down, tile_expert, bm=bm, backend=backend,
+                     groups=groups)
+        return o.reshape(g, c_pad, d)[:, :c]

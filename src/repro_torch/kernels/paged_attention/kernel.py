@@ -25,7 +25,7 @@ import functools
 import torch
 
 from repro_torch.kernels import _launch as L
-from repro_torch.kernels.backend import kernel_span, use_kernel
+from repro_torch.kernels.backend import use_kernel
 from repro_torch.kernels.build import check, library
 from repro_torch.kernels.paged_attention.ref import (
     paged_prefill_gqa_ref,
@@ -34,7 +34,7 @@ from repro_torch.kernels.paged_attention.ref import (
 
 OP = "paged_prefill_gqa"
 OP_MLA = "paged_prefill_mla"
-BF16_HEAD_DIMS = (64, 128)  # the bf16 GQA kernel's instances
+BF16_HEAD_DIMS = (16, 64, 128)  # the bf16 GQA kernel's instances (16: smoke configs)
 BF16_QUERY_ROWS = 64  # query rows of one bf16 block (MLA: cluster): one wgmma M tile
 # blocks a SM the key splits aim for. GQA (row, head, query tile, key
 # split) blocks: a block's gather waits on memory, so several a SM hide
@@ -127,10 +127,8 @@ def paged_prefill_gqa(q, pool_k, pool_v, tables, past_len, lengths, *,
     int32 tokens cached before the chunk; lengths [B] int32 real tokens
     in the chunk -> [B, C, Kv, G, hd] in q's dtype."""
     if use_kernel(backend, q, op=OP):
-        with kernel_span(OP, "cuda"):
-            return _launch(q, pool_k, pool_v, tables, past_len, lengths)
-    with kernel_span(OP, "ref"):
-        return paged_prefill_gqa_ref(q, pool_k, pool_v, tables, past_len, lengths)
+        return _launch(q, pool_k, pool_v, tables, past_len, lengths)
+    return paged_prefill_gqa_ref(q, pool_k, pool_v, tables, past_len, lengths)
 
 
 paged_prefill_gqa.launches = 0
@@ -240,12 +238,10 @@ def paged_prefill_mla(q_lat, q_rope, pool_ckv, pool_krope, tables, past_len, len
     past_len / lengths [B] int32 as in `paged_prefill_gqa`; `scale` is
     (qk_nope + qk_rope) ** -0.5 -> o_lat [B, C, H, r] fp32."""
     if use_kernel(backend, q_lat, op=OP_MLA):
-        with kernel_span(OP_MLA, "cuda"):
-            return _launch_mla(q_lat, q_rope, pool_ckv, pool_krope, tables, past_len,
-                               lengths, scale)
-    with kernel_span(OP_MLA, "ref"):
-        return paged_prefill_mla_ref(q_lat, q_rope, pool_ckv, pool_krope, tables,
-                                     past_len, lengths, scale=scale)
+        return _launch_mla(q_lat, q_rope, pool_ckv, pool_krope, tables, past_len,
+                           lengths, scale)
+    return paged_prefill_mla_ref(q_lat, q_rope, pool_ckv, pool_krope, tables, past_len,
+                                 lengths, scale=scale)
 
 
 paged_prefill_mla.launches = 0

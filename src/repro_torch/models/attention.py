@@ -23,7 +23,8 @@ never into a (possibly shared) live block. The pools are updated IN PLACE
 (the JAX functions return new pools; here the same tensors come back,
 written), which saves a copy of every pool per layer per step. The
 attention itself is the paged-attention kernel family
-(kernels/paged_attention), decode being its chunk-of-1 case.
+(kernels/paged_attention), decode being its chunk-of-1 case; each call
+is a `kernel.<op>` span under the reference's name for it.
 
 MLA runs absorbed: W_k^nope is folded into the query (`q_lat`), the
 kernel attends over the latent pools and returns latent outputs, and the
@@ -38,6 +39,7 @@ import torch
 
 from repro_torch.distributed import sharding as shd
 from repro_torch.distributed.collectives import copy_to_group, gather_dim
+from repro_torch.kernels.backend import kernel_span
 from repro_torch.kernels.paged_attention import (
     paged_decode_gqa,
     paged_decode_mla,
@@ -313,8 +315,9 @@ def gqa_decode_paged(p: Params, cfg, x, pool_k, pool_v, tables, pos):
     _paged_write(pool_v, tables, pos, v[:, 0])
     kvh = pool_k.shape[2]
     qk = q[:, 0].reshape(b, kvh, q.shape[2] // kvh, q.shape[3])
-    out = paged_decode_gqa(qk, pool_k, pool_v, tables, pos,
-                           backend=cfg.paged_attn_backend)
+    with kernel_span("paged_decode_gqa", cfg.paged_attn_backend, qk):
+        out = paged_decode_gqa(qk, pool_k, pool_v, tables, pos,
+                               backend=cfg.paged_attn_backend)
     out = out.reshape(b, 1, q.shape[2], q.shape[3])
     return torch.einsum("bshk,hkd->bsd", out, p["wo"]), pool_k, pool_v
 
@@ -335,8 +338,9 @@ def gqa_prefill_paged(p: Params, cfg, x, pool_k, pool_v, tables, past_len,
     lengths = token_mask.sum(-1).to(torch.int32)
     kvh = pool_k.shape[2]
     qk = q.reshape(b, c, kvh, q.shape[2] // kvh, q.shape[3]).contiguous()
-    out = paged_prefill_gqa(qk, pool_k, pool_v, tables, past_len, lengths,
-                            backend=cfg.paged_attn_backend)
+    with kernel_span("paged_prefill_gqa", cfg.paged_attn_backend, qk):
+        out = paged_prefill_gqa(qk, pool_k, pool_v, tables, past_len, lengths,
+                                backend=cfg.paged_attn_backend)
     out = out.reshape(b, c, q.shape[2], q.shape[3]).to(x.dtype)
     return torch.einsum("bshk,hkd->bsd", out, p["wo"]), pool_k, pool_v
 
@@ -377,8 +381,9 @@ def mla_decode_paged(p: Params, cfg, x, pool_ckv, pool_krope, tables, pos):
     q_lat, q_rope, ckv_new, krope_new, wv_b = _mla_project(p, cfg, x, pos[:, None])
     _paged_write(pool_ckv, tables, pos, ckv_new[:, 0])
     _paged_write(pool_krope, tables, pos, krope_new[:, 0])
-    o_lat = paged_decode_mla(q_lat[:, 0], q_rope[:, 0], pool_ckv, pool_krope, tables, pos,
-                             scale=_mla_scale(cfg), backend=cfg.paged_attn_backend)
+    with kernel_span("paged_decode_mla", cfg.paged_attn_backend, q_lat):
+        o_lat = paged_decode_mla(q_lat[:, 0], q_rope[:, 0], pool_ckv, pool_krope, tables,
+                                 pos, scale=_mla_scale(cfg), backend=cfg.paged_attn_backend)
     return _mla_out(p, o_lat[:, None], wv_b, x.dtype), pool_ckv, pool_krope
 
 
@@ -391,7 +396,8 @@ def mla_prefill_paged(p: Params, cfg, x, pool_ckv, pool_krope, tables, past_len,
     paged_scatter(pool_ckv, tables, positions, token_mask, ckv_new)
     paged_scatter(pool_krope, tables, positions, token_mask, krope_new)
     lengths = token_mask.sum(-1).to(torch.int32)
-    o_lat = paged_prefill_mla(q_lat, q_rope, pool_ckv, pool_krope, tables, past_len,
-                              lengths, scale=_mla_scale(cfg),
-                              backend=cfg.paged_attn_backend)
+    with kernel_span("paged_prefill_mla", cfg.paged_attn_backend, q_lat):
+        o_lat = paged_prefill_mla(q_lat, q_rope, pool_ckv, pool_krope, tables, past_len,
+                                  lengths, scale=_mla_scale(cfg),
+                                  backend=cfg.paged_attn_backend)
     return _mla_out(p, o_lat, wv_b, x.dtype), pool_ckv, pool_krope

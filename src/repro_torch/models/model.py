@@ -183,7 +183,9 @@ def init_layer(gen, cfg: ModelConfig, sig: Sig, lead=(), cross: bool = False) ->
 
 
 def resolve_device(device) -> torch.device:
-    """The port runs on the card unless the caller asks for the CPU."""
+    """The port runs on the card unless the caller asks for the CPU. A
+    card without an index is the current one (`cuda:0` by default), as
+    the tensors made on it name it: the loop compares the two."""
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError(
@@ -191,7 +193,10 @@ def resolve_device(device) -> torch.device:
                 "device='cpu' to run its plain PyTorch versions on the CPU"
             )
         device = "cuda"
-    return torch.device(device)
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return device
 
 
 def init_params(seed: int, cfg: ModelConfig, device=None) -> Params:

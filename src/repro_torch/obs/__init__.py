@@ -19,7 +19,7 @@ just attribute writes), tracing off (NULL_SPAN fast path).
 Metrics accumulate across `run()` calls; `reset()` on a facade or the
 registry starts a fresh window (see obs/metrics.py for the contract).
 Export a recorded trace with `Observability.export_trace()` or
-tools/export_trace.py.
+tools/export_trace_torch.py.
 """
 from __future__ import annotations
 

@@ -267,7 +267,7 @@ def _gqa_case(rng, dev, dtype, b, c, g, hd, nb, kv=2, bs=4):
             _t(lengths, dev, torch.int32))
 
 
-@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("hd", [16, 64, 128])  # 16: the smoke configs' heads
 @pytest.mark.parametrize("c,g,nb", [
     (1, 1, 16), (1, 2, 64), (1, 4, 40),    # decode; 64 blocks: two key splits
     (1, 2, 256),                           # 16 key tiles: 8 splits, short rows' empty
@@ -413,14 +413,20 @@ def _jamba_buffer(dev, dtype, n_slots, seed):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("c", [1, 64])
-def test_paged_gqa_at_jamba_widths(cuda_device, dtype, c):
-    """jamba's attention layer (8 KV heads, G 4, hd 128) over 18-block
-    tables: a decode step and the 64-token whole-suffix bucket; bf16 held
-    to `gqa_rounding_bound`, fp32 to 1e-5."""
+@pytest.mark.parametrize("kv,g,c,seed", [
+    # jamba's attention layer: a decode step and the 64-token bucket
+    (8, 4, 1, 71), (8, 4, 64, 134),
+    # the dense family: llama3.2-3b / phi4-mini, qwen2.5-32b,
+    # chameleon-34b, granite-20b's MQA (a 32-token chunk at G 48: 1536
+    # query rows a KV head, 24 row tiles)
+    *[(kv, g, c, 90 + g + c) for kv, g in [(8, 3), (8, 5), (8, 8), (1, 48)] for c in (1, 32)],
+])
+def test_paged_gqa_at_jamba_widths(cuda_device, dtype, kv, g, c, seed):
+    """The hd-128 (Kv, G) pairs over 18-block tables: jamba's (8, 4) and
+    the dense family's; bf16 held to `gqa_rounding_bound`, fp32 to 1e-5."""
     dev = cuda_device
-    args = _gqa_case(np.random.default_rng(70 + c), dev, dtype, b=5, c=c, g=4, hd=128,
-                     nb=18, kv=8)
+    args = _gqa_case(np.random.default_rng(seed), dev, dtype, b=5, c=c, g=g, hd=128, nb=18,
+                     kv=kv)
     got = paged_prefill_gqa(*args, backend="cuda")
     want = paged_prefill_gqa_ref(*args)
     real = torch.arange(c, device=dev)[None, :] < args[-1][:, None]

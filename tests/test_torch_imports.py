@@ -1,7 +1,8 @@
 """The PyTorch port stands alone: importing every module of
-`repro_torch`, and everything chip_smoke.py imports, loads neither JAX
-nor any module of the JAX package `repro` (the machine with the card
-has no JAX)."""
+`repro_torch`, everything chip_smoke.py imports, and the port's entry
+points outside the package (the `*_torch.py` examples, the trace
+exporter, the chip probes) loads neither JAX nor any module of the JAX
+package `repro` (the machine with the card has no JAX)."""
 import json
 import os
 import subprocess
@@ -18,15 +19,28 @@ for n in names:
     importlib.import_module(n)
 sys.path.insert(0, ".")
 importlib.import_module("chip_smoke")
+import importlib.util
+for i, path in enumerate(ENTRY_FILES):  # loaded as modules: their main does not run
+    spec = importlib.util.spec_from_file_location(f"_entry{i}", path)
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
 loaded = sorted(m for m in sys.modules
                 if m == "jax" or m.startswith("jax.") or m == "repro" or m.startswith("repro."))
 print(json.dumps({"modules": names, "forbidden": loaded}))
 """
 
 
+# the port's entry points outside src/repro_torch
+ENTRY_FILES = ["examples/quickstart_torch.py", "examples/serve_moe_offload_torch.py",
+               "examples/train_small_moe_torch.py", "examples/simulate_paper_torch.py",
+               "tools/export_trace_torch.py", "tools/train_probe.py",
+               "tools/dist_probe.py", "tools/gemv_probe.py", "tools/mla_probe.py",
+               "tools/serve_pair.py"]
+
+
 def test_port_imports_no_jax_and_nothing_of_repro():
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    out = subprocess.run([sys.executable, "-c", PROBE], cwd=ROOT, env=env,
+    probe = f"ENTRY_FILES = {ENTRY_FILES!r}\n" + PROBE
+    out = subprocess.run([sys.executable, "-c", probe], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     res = json.loads(out.stdout.strip().splitlines()[-1])

@@ -68,15 +68,24 @@ def _attention_case(seed, b, c, kv, g, hd, bs, nb, dead=(), all_pad=()):
     return q, pk, pv, tables, past, lengths
 
 
+# the (Kv, G) pairs the dense family brings at head width 128: llama3.2-3b /
+# phi4-mini (8, 3), qwen2.5-32b (8, 5), chameleon-34b (8, 8), granite-20b
+# (1, 48: MQA), Kv cut to 2 where it is 8 (the kernel's grid runs over KV
+# heads independently); a decode step and a 4-token chunk each
+DENSE_GQA = [pytest.param(100 + 10 * g + c, 4, c, g, 4, 5, kv, 128, id=f"dense-kv{kv}-g{g}-c{c}")
+             for kv, g in [(2, 3), (2, 5), (2, 8), (1, 48)] for c in (1, 4)]
+
+
 @pytest.mark.parametrize("dt", ["float32", "bfloat16"])
-@pytest.mark.parametrize("seed,b,c,g,bs,nb", [
-    (0, 3, 4, 2, 4, 4),
-    (1, 2, 8, 1, 2, 8),
-    (2, 4, 3, 2, 8, 2),
+@pytest.mark.parametrize("seed,b,c,g,bs,nb,kv,hd", [
+    pytest.param(0, 3, 4, 2, 4, 4, 2, 16, id="0-3-4-2-4-4"),
+    pytest.param(1, 2, 8, 1, 2, 8, 2, 16, id="1-2-8-1-2-8"),
+    pytest.param(2, 4, 3, 2, 8, 2, 2, 16, id="2-4-3-2-8-2"),
+    *DENSE_GQA,
 ])
-def test_paged_prefill_plain_matches_pallas(dt, seed, b, c, g, bs, nb):
+def test_paged_prefill_plain_matches_pallas(dt, seed, b, c, g, bs, nb, kv, hd):
     q, pk, pv, tables, past, lengths = _attention_case(
-        seed, b, c, kv=2, g=g, hd=16, bs=bs, nb=nb, all_pad=(b - 1,))
+        seed, b, c, kv=kv, g=g, hd=hd, bs=bs, nb=nb, all_pad=(b - 1,))
     jq, tq = _both(q, dt)
     jk, tk = _both(pk, dt)
     jv, tv = _both(pv, dt)
