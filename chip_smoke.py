@@ -46,7 +46,14 @@ Phases, each fatal on failure:
      unsharded step's (both under deterministic algorithms), moe_gemm 6
      launches a MoE layer a step, the params restored with shardings,
      `compressed_psum` over NCCL, and one MoE layer's grouped dispatch with
-     the MoE hints against the plain route; the dense family:
+     the MoE hints against the plain route; the serving functions' mesh
+     path on a (1, 1) NCCL mesh ("mesh_serve"): granite at full width and
+     depth, tiers (8, 10, 14), a masked prefill of 8 rows and 16 decode
+     steps, fp32 tokens identical to the unsharded path's and logits
+     within 1e-5, bf16 GEMV 72 launches a step on both paths and equal
+     moe_gemm prefill launches, each path's decode p50, and the dry-run's
+     fake-tensor trace of that cell at world size 1 (its temporaries
+     beside the card's); the dense family:
      granite-20b (MQA: 48 query heads over 1 KV head, hd 128) at published
      width with its depth cut to 44 layers, 4 right-padded rows through
      `prefill_paged` and 16 greedy `decode_step_paged` steps (the paged GQA
@@ -458,14 +465,16 @@ def grouped_case(dtype, *, b, e, cap, d, f, pair, dev, gen, calls=8):
 
 
 def gemv_case(dtype, *, n_slots, t, dev, gen, d=1024, f=512, live=None, calls=32,
-              flat=False):
+              flat=False, ops=False):
     """One tier of a decode step: n_slots experts, t tokens each, read as
     views of the [n, 3, D, F] tier buffer (down matrix transposed).
     `flat`: the flat MoE's decode step instead, all experts as slots over
     the model's own parameters, the row-major [E, F, D] w_down read in
     place, through `cold_expert_ffn` as the model calls it; in bf16 also
     timed as `copied`: w_down first copied into the tier layout, as the
-    wrapper did before the down pass read the row-major layout. With
+    wrapper did before the down pass read the row-major layout. `ops`:
+    the tier views through `cold_expert_ffn`, as the tier FFN calls it
+    (fp32 zero-pads an F that is no multiple of the kernel's panel). With
     `live`, only the first `live` slots have tokens and the others' rows
     are zero, as dispatch leaves a slot no token was routed to; the bound
     then counts only the live slots' weight bytes, which is all the work
@@ -479,7 +488,7 @@ def gemv_case(dtype, *, n_slots, t, dev, gen, d=1024, f=512, live=None, calls=32
     w1, w3, w2 = buf[:, 0], buf[:, 1], buf[:, 2].transpose(1, 2)
     if flat:
         w2 = w2.contiguous()
-    launch = cold_expert_ffn if flat else expert_ffn_gemv
+    launch = cold_expert_ffn if flat or ops else expert_ffn_gemv
 
     def library(x, w13, w2c):
         gu = torch.bmm(x, w13)
@@ -665,6 +674,17 @@ KERNEL_CASES = [  # (kernel, label, case, kwargs); the first per kernel is its J
      dict(n_slots=25, t=4, d=5120, f=1536, calls=8)),
     ("expert_ffn_gemv", "deepseek warm 48 slots T=4, 8 live", gemv_case,
      dict(n_slots=48, t=4, d=5120, f=1536, live=8, calls=8)),
+    # deepseek's warm tier as one rank of a 16-wide "model" axis holds it
+    # on the mesh path (F 1536 / 16 = 96 columns of every expert): the
+    # GEMV on the shard's views through `cold_expert_ffn` (fp32 pads F to
+    # 128), gate|up joined by torch.cat (96 is no multiple of the bf16
+    # pair's 64-column box), down on the tier view
+    ("expert_ffn_gemv", "mesh shard deepseek warm 48 slots T=4 F=96, 8 live", gemv_case,
+     dict(n_slots=48, t=4, d=5120, f=96, live=8, calls=8, ops=True)),
+    ("moe_gemm", "mesh shard deepseek warm gate|up 48x128x5120x192 joined", moe_gemm_case,
+     dict(n_slots=48, rows=128, d=5120, f=96, pair=True, flat=True, calls=8)),
+    ("moe_gemm", "mesh shard deepseek warm down 48x128x96x5120", moe_gemm_case,
+     dict(n_slots=48, rows=128, d=5120, f=96, pair=False, calls=8)),
     # a decode group of 40 rows at granite's widths: two token groups
     ("expert_ffn_gemv", "cold 16 slots T=40", gemv_case, dict(n_slots=16, t=40)),
     # 16 tokens a slot at deepseek's widths: the fp32 kernel stages 10 at
@@ -2023,6 +2043,149 @@ def distributed_phase(dev) -> list:
             dict(path=DIST_GROUPED_PATH, launches=grouped_launches)]
 
 
+MESH_SERVE_PATH = "mesh_serve"  # granite's tiered prefill + decode on a (1, 1) NCCL mesh
+MESH_ROWS, MESH_PROMPT, MESH_STEPS = 8, 64, 16
+
+
+def _mesh_serve_run(params, tiered, cfg, toks, mask, mesh=None):
+    """A masked prefill of `toks` through the tiers, then MESH_STEPS greedy
+    decode steps (on `mesh`: the mesh path, params and tiers DTensors).
+    Returns (tokens [steps, B], logits [steps + 1, B, V] on the host, each
+    decode step's seconds and GEMV launches, the prefill's launches, the
+    card's step temporaries {"prefill", "decode"} in bytes)."""
+    lens = mask.sum(-1).to(torch.int32)
+    cache_len = MESH_PROMPT + MESH_STEPS
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters()
+    logits, cache = prefill(params, cfg, toks, cache_len, tiered=tiered, token_mask=mask,
+                            mesh=mesh)
+    torch.cuda.synchronize()
+    prefill_launches = read_counters()
+    temp = {"prefill": torch.cuda.max_memory_allocated() - base, "decode": 0}
+    out_logits, out_toks, secs, gemv = [logits.float().cpu()], [], [], []
+    tok = logits.argmax(-1)[:, None].to(torch.int32)
+    for step in range(MESH_STEPS):
+        out_toks.append(tok[:, 0].cpu())
+        torch.cuda.synchronize()
+        before, n0 = torch.cuda.memory_allocated(), expert_ffn_gemv.launches
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        logits, cache, _ = decode_step(params, cfg, tok, cache, lens + step, tiered=tiered,
+                                       mesh=mesh)
+        torch.cuda.synchronize()
+        secs.append(time.time() - t0)
+        temp["decode"] = max(temp["decode"], torch.cuda.max_memory_allocated() - before)
+        gemv.append(expert_ffn_gemv.launches - n0)
+        out_logits.append(logits.float().cpu())
+        tok = logits.argmax(-1)[:, None].to(torch.int32)
+    return (torch.stack(out_toks), torch.stack(out_logits), secs, gemv, prefill_launches,
+            temp)
+
+
+def mesh_serve_phase(dev) -> dict:
+    """The serving functions' mesh path on one card: granite-moe-1b-a400m
+    at published width and full depth (24 layers), tiers as the serve
+    phases size them (8 hot, 10 warm, 14 cold), a masked prefill of
+    MESH_ROWS rows through the tiers and MESH_STEPS greedy decode steps,
+    through the unsharded `prefill` / `decode_step` and through
+    `prefill(..., mesh=)` / `decode_step(..., mesh=)` on a (1, 1) NCCL mesh
+    (params and tiers DTensors; every spec replicated there, so each tier
+    runs whole on the rank and the DP collectives run on one-rank groups).
+    fp32: the mesh path's tokens identical to the unsharded path's, its
+    logits within 1e-5 of their largest. bf16: the GEMV 72 launches a
+    step (3 tiers x 24 layers) on both, moe_gemm's prefill launches equal,
+    each path's decode-step p50; the counters reset just before the bf16
+    mesh run are the path's launches. Before NCCL starts, the dry-run's
+    fake-tensor trace of the bf16 cell at world size 1 (a one-rank fake
+    world, the kernels as their launches): its step temporaries beside the
+    card's (the allocator's peak above what the step found allocated)."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models.layers import make_generator
+    from repro_torch.serving.engine import strip_expert_weights
+    from repro_torch.serving.tiered_moe import tier_sizes
+
+    t_phase = time.time()
+    pub = get_config(GQA_ARCH)
+    sizes = tier_sizes(pub)
+    if tuple(sizes) != (8, 10, 14):
+        fail(f"{MESH_SERVE_PATH}: granite's tiers are {tuple(sizes)}, not the serve phases' "
+             "(8, 10, 14)")
+    one = {"data": 1, "model": 1}
+    t0 = time.time()
+    trace = {
+        "prefill": dryrun.trace_cell(pub, "prefill", MESH_ROWS, MESH_PROMPT, one, sizes=sizes,
+                                     tiered_prefill=True, cache_len=MESH_PROMPT + MESH_STEPS,
+                                     pad_cold_to=1),
+        "decode": dryrun.trace_cell(pub, "decode", MESH_ROWS, MESH_PROMPT + MESH_STEPS, one,
+                                    sizes=sizes, pad_cold_to=1)}
+    trace_s = time.time() - t0
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1,
+                            device_id=dev)
+    mesh = make_debug_mesh(device_type="cuda")
+    gen = torch.Generator().manual_seed(21)
+    toks = torch.randint(0, pub.vocab_size, (MESH_ROWS, MESH_PROMPT), generator=gen).to(dev)
+    lens = torch.randint(MESH_PROMPT // 2, MESH_PROMPT + 1, (MESH_ROWS,), generator=gen)
+    mask = (torch.arange(MESH_PROMPT)[None, :] < lens[:, None]).to(dev)
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        cfg = dataclasses.replace(pub, param_dtype=str(dtype)[6:])
+        params = init_params(0, cfg, device=dev)
+        tiered = fill_tiers_from_params(params, init_tiered_for_model(
+            make_generator(1, dev), cfg, sizes, mesh=mesh), cfg)
+        params = strip_expert_weights(params, cfg)
+        with torch.no_grad():
+            plain = _mesh_serve_run(params, tiered, cfg, toks, mask)
+            on_mesh = _mesh_serve_run(
+                shd.shard_tree(params, mesh, shd.tree_pspecs(params, mesh, cfg)),
+                shd.shard_tiered(tiered, mesh), cfg, toks, mask, mesh)
+        launches = read_counters()  # the bf16 mesh run is the path's
+        rel = float((on_mesh[1] - plain[1]).abs().max() / plain[1].abs().max())
+        same = bool(torch.equal(on_mesh[0], plain[0]))
+        if not bool(torch.isfinite(on_mesh[1]).all()):
+            fail(f"{MESH_SERVE_PATH}: non-finite {dtype} logits on the mesh path")
+        if dtype == torch.float32 and (not same or rel > 1e-5):
+            fail(f"{MESH_SERVE_PATH}: fp32 mesh tokens equal {same}, logits {rel:.3e} "
+                 "(relative) off the unsharded path's")
+        n_moe = sum(cfg.uses_moe_layer(i) for i in range(cfg.n_layers))
+        for name, run in (("unsharded", plain), ("mesh", on_mesh)):
+            if set(run[3]) != {3 * n_moe}:
+                fail(f"{MESH_SERVE_PATH}: {name} {dtype} GEMV launches a step {run[3]}, not "
+                     f"{3 * n_moe}")
+        if on_mesh[4] != plain[4] or on_mesh[4]["moe_gemm"] != 6 * n_moe:
+            fail(f"{MESH_SERVE_PATH}: prefill launches {on_mesh[4]} (unsharded {plain[4]}), "
+                 f"not moe_gemm's {6 * n_moe} (2 a tier a layer)")
+        out[str(dtype)[6:]] = dict(
+            tokens_equal=same, logits_max_rel_err=rel,
+            token_agreement=float((on_mesh[0] == plain[0]).float().mean()),
+            decode_p50_ms=float(np.median(on_mesh[2]) * 1e3),
+            unsharded_decode_p50_ms=float(np.median(plain[2]) * 1e3),
+            gemv_launches_per_step=on_mesh[3][0], prefill_launches=on_mesh[4],
+            step_temp_bytes=on_mesh[5], unsharded_step_temp_bytes=plain[5])
+        del params, tiered, plain, on_mesh
+        gc.collect()
+        torch.cuda.empty_cache()
+    dist.destroy_process_group()
+    measured = out["bfloat16"]["step_temp_bytes"]
+    mem = {k: dict(trace_temp_bytes=trace[k]["memory"]["temp_size_in_bytes"],
+                   trace_argument_bytes=trace[k]["memory"]["argument_size_in_bytes"],
+                   card_temp_bytes=measured[k],
+                   trace_over_card=trace[k]["memory"]["temp_size_in_bytes"] / max(measured[k], 1))
+           for k in ("prefill", "decode")}
+    print(json.dumps(dict(
+        phase="mesh_serve", path=MESH_SERVE_PATH, arch=GQA_ARCH, mesh=[1, 1], backend="nccl",
+        layers=pub.n_layers, rows=MESH_ROWS, prompt=MESH_PROMPT, steps=MESH_STEPS,
+        tiers=list(sizes), launches=launches, by_dtype=out, trace_memory=mem,
+        trace_collectives={k: trace[k]["collectives"]["counts"] for k in trace},
+        trace_s=trace_s, seconds=time.time() - t_phase)), flush=True)
+    return dict(path=MESH_SERVE_PATH, launches=launches)
+
+
 # ------------------------------------------------------ encoder-decoder
 def _frames(cfg, b: int, seed: int, dtype, dev) -> torch.Tensor:
     """Seeded encoder frames [b, F, D], 0.02 N(0, 1) as `add_frames`
@@ -2194,7 +2357,7 @@ def seamless_train_phase(dev) -> dict:
 
 # the phases in their order; `--only` runs a subset of them
 PHASES = ("kernels", "mha", "mamba", "xlstm", "gradient", "train", "train_smoke_parity",
-          "distributed", "seamless", "seamless_train", "dense", "serve", "spec_fp32",
+          "distributed", "mesh_serve", "seamless", "seamless_train", "dense", "serve", "spec_fp32",
           "smoke_parity", "export_trace", "examples")
 
 
@@ -2326,6 +2489,9 @@ def main(argv=None) -> int:
     _cleared()
     if "distributed" in run:
         paths += distributed_phase(dev)
+        _cleared()
+    if "mesh_serve" in run:
+        paths.append(mesh_serve_phase(dev))
         _cleared()
     for name, phase in (("seamless", seamless_phase), ("seamless_train", seamless_train_phase),
                         ("dense", lambda d: dense_phase(d, profile_out))):

@@ -400,6 +400,35 @@ def shard_tree(tree, mesh, specs):
     return unflatten(tree, flat)
 
 
+def shard_cache(cache, mesh):
+    """A decode cache stored as DTensors under `cache_pspecs`: each rank
+    keeps its rows (DP axes) and its key shard ("model")."""
+    return shard_tree(cache, mesh, cache_pspecs(cache, mesh))
+
+
+def shard_tiered(tiered, mesh):
+    """Tier states stored as DTensors under `tiered_pspecs`: hot
+    replicated, warm striped over F, cold homed over data x model."""
+    return shard_tree(tiered, mesh, tiered_pspecs(tiered, mesh))
+
+
+def sharded_zeros(like, specs, mesh, device):
+    """Zeros shaped as the (meta) tree `like`, stored as DTensors under
+    `specs`: each rank allocates only its own shard."""
+    from torch.distributed.tensor import DTensor
+
+    by_path = spec_leaves(specs)
+    flat = []
+    for path, leaf in leaves_with_path(like):
+        spec = by_path[path]
+        local = torch.zeros(shard_shape(tuple(leaf.shape), spec, mesh), dtype=leaf.dtype,
+                            device=device)
+        flat.append(DTensor.from_local(local, mesh, placements(spec, mesh), run_check=False,
+                                       shape=leaf.shape,
+                                       stride=_contiguous_stride(tuple(leaf.shape))))
+    return unflatten(like, flat)
+
+
 class NamedSharding:
     """A mesh and a spec: where `restore` puts a leaf (the reference's
     jax.sharding.NamedSharding)."""
@@ -464,7 +493,8 @@ def axis_group(mesh, axes) -> Tuple[Any, int, int]:
     else:
         dims = [names.index(a) for a in axes]
         rest = [i for i in range(len(names)) if i not in dims]
-        ranks = mesh.mesh.permute(*rest, *dims).reshape(-1, size)
+        # numpy, not torch ops: a fake-tensor trace may hold the mesh
+        ranks = mesh.mesh.numpy().transpose(*rest, *dims).reshape(-1, size)
         group = None
         for row in ranks.tolist():
             g = dist.new_group(row)

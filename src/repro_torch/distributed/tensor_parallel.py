@@ -1,0 +1,342 @@
+"""Tensor-parallel compute on a device mesh: the partitioning GSPMD
+derives for the reference's serving functions from its sharding rules
+(repro/distributed/sharding.py), written out.
+
+Each rank holds its shard of every leaf (`Local`: the plain tensor, the
+mesh axes that split it and the whole leaf's shape) and computes on its
+rows of the batch (split over the DP axes). A weight sharded over "data"
+(FSDP storage) is gathered over "data" just before use; what stays split
+over "model" decides the layer's partitioning, as the rules place it:
+- a weight split along its output dim (heads, F, vocab) is
+  column-parallel: each rank computes its columns;
+- one split along its contracting dim (the heads' fallback D, a row-
+  parallel w_down or wo, the router) gives partial sums, all-reduced over
+  "model";
+- a replicated one is computed whole on every rank.
+
+Every collective here runs on its group even when the group is one rank
+(a (1, 1) mesh runs the mesh code and its collectives, not the unsharded
+functions). Nothing here allocates a whole cache or tier buffer.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.distributed as dist
+
+from repro_torch.distributed import sharding as shd
+from repro_torch.models import layers
+
+
+class Local:
+    """This rank's shard `t` of a leaf whose whole shape is `shape`;
+    `axes` maps each mesh axis that splits it to the tensor dim it splits
+    (axes on one dim nest major first, in mesh order, as DTensor nests
+    them). Indexing takes one scan group of a stacked leaf. Where the
+    rules split the group dim itself (a stacked dense MLP read as experts
+    [E, D, F] when the layer count divides the axis), group g lives on
+    one rank of that axis: `src` = (axis, that rank's index), and `t`
+    there holds it (elsewhere, another group of the same shape)."""
+
+    __slots__ = ("t", "axes", "shape", "src")
+
+    def __init__(self, t: torch.Tensor, axes: Dict[str, int], shape: tuple, src=None):
+        self.t, self.axes, self.shape, self.src = t, axes, tuple(shape), src
+
+    def __getitem__(self, g):
+        split = [a for a, d in self.axes.items() if d == 0]
+        rest = {a: d - 1 for a, d in self.axes.items() if d != 0}
+        if not split:
+            return Local(self.t[g], rest, self.shape[1:])
+        if len(split) > 1 or self.src is not None:
+            raise ValueError(f"the group dim of {self.shape} is split as {self.axes}")
+        n = self.t.shape[0]
+        return Local(self.t[g % n], rest, self.shape[1:], src=(split[0], g // n))
+
+
+def local_leaf(dt, mesh) -> Local:
+    """A DTensor as a `Local` (its local tensor, shared, not copied)."""
+    names = list(mesh.mesh_dim_names)
+    axes = {names[i]: pl.dim for i, pl in enumerate(dt.placements) if pl.is_shard()}
+    return Local(dt.to_local(), axes, tuple(dt.shape))
+
+
+def local_tree(tree, mesh):
+    """Every DTensor leaf of a tree as a `Local`."""
+    if isinstance(tree, dict):
+        return {k: local_tree(v, mesh) for k, v in tree.items()}
+    return local_leaf(tree, mesh)
+
+
+# ------------------------------------------------------------- collectives
+def _all_reduce(x: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
+    out = x.contiguous().clone()
+    dist.all_reduce(out, op=op, group=group)
+    return out
+
+
+def _all_gather(x: torch.Tensor, group, n: int, dim: int) -> torch.Tensor:
+    """Every rank's `x` joined along `dim`, in group order."""
+    x = x.movedim(dim, 0).contiguous()
+    out = x.new_empty((n * x.shape[0], *x.shape[1:]))
+    dist.all_gather_into_tensor(out, x, group=group)
+    return out.movedim(0, dim)
+
+
+def _reduce_scatter(x: torch.Tensor, group, n: int) -> torch.Tensor:
+    """The sum over the group of `x` [n * r, ...], this rank's r rows."""
+    out = x.new_empty((x.shape[0] // n, *x.shape[1:]))
+    dist.reduce_scatter_tensor(out, x.contiguous(), group=group)
+    return out
+
+
+def _all_to_all(x: torch.Tensor, group) -> torch.Tensor:
+    """x [n, ...]: row j goes to rank j; returns [n, ...], row j from rank j."""
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    dist.all_to_all_single(out, x, group=group)
+    return out
+
+
+class TP:
+    """The mesh's groups as the serving functions use them: "model" (the
+    tensor- and sequence-parallel axis), the DP axes (pod, data: the batch
+    rows), and "data" (FSDP storage, the cold tier's homes)."""
+
+    def __init__(self, mesh):
+        self.mesh = mesh
+        self.names = list(mesh.mesh_dim_names)
+        self.sizes = shd.mesh_shape(mesh)
+        if "model" not in self.sizes:
+            raise ValueError(f"a serving mesh needs a 'model' axis, got {self.names}")
+        self.model, self.m, self.mi = shd.axis_group(mesh, "model")
+        dp = shd.dp_axes(mesh)
+        if dp is None:
+            raise ValueError(f"a serving mesh needs a DP axis, got {self.names}")
+        self.dp, self.n_dp, self.dp_i = shd.axis_group(mesh, dp)
+
+    def group(self, axes) -> Tuple:
+        """(group, size, index) over `axes` (mesh order), or a one-rank
+        stand-in (None, 1, 0) for no axes."""
+        axes = tuple(a for a in self.names if a in axes)
+        return shd.axis_group(self.mesh, axes) if axes else (None, 1, 0)
+
+    # ------------------------------------------------------ collectives
+    def sum_model(self, x):
+        return _all_reduce(x, self.model)
+
+    def max_model(self, x):
+        return _all_reduce(x, self.model, dist.ReduceOp.MAX)
+
+    def gather_model(self, x, dim: int):
+        return _all_gather(x, self.model, self.m, dim)
+
+    def sum_dp(self, x):
+        return _all_reduce(x, self.dp)
+
+    def gather_dp(self, x):
+        """[n_dp, *x.shape]: every DP shard's `x`, in global row order."""
+        return _all_gather(x[None], self.dp, self.n_dp, 0)
+
+    def all_gather(self, x, grp, dim: int = 0):
+        g, n, _ = grp
+        return x if g is None else _all_gather(x, g, n, dim)
+
+    def reduce_scatter(self, x, grp):
+        g, n, _ = grp
+        return x if g is None else _reduce_scatter(x, g, n)
+
+    def all_to_all_model(self, x):
+        return _all_to_all(x, self.model)
+
+    # ---------------------------------------------------------- weights
+    def chunk(self, n: int) -> Tuple[int, int]:
+        """(first index, count) of this rank's contiguous 1/m of n."""
+        if n % self.m:
+            raise ValueError(f"{n} does not split over {self.m} model ranks")
+        step = n // self.m
+        return self.mi * step, step
+
+    def weight(self, leaf: Local) -> Tuple[torch.Tensor, Optional[int], Optional[torch.Tensor]]:
+        """(w, dim, idx): the leaf gathered over every axis but "model"
+        (FSDP storage), the dim "model" still splits (None: replicated),
+        and, when "data" and "model" nest on that dim, the global indices
+        of the entries this rank holds along it (None: the contiguous
+        chunk `chunk(shape[dim])`)."""
+        w, idx = leaf.t, None
+        if leaf.src is not None:  # one rank holds this scan group: it sends it
+            g, _, _ = shd.axis_group(self.mesh, leaf.src[0])
+            w = w.clone(memory_format=torch.contiguous_format)
+            dist.broadcast(w, src=dist.get_global_rank(g, leaf.src[1]), group=g)
+        dm = leaf.axes.get("model")
+        for axis in self.names:
+            d = leaf.axes.get(axis)
+            if axis == "model" or d is None:
+                continue
+            if axis != "data":
+                raise ValueError(f"a weight split over {axis!r}: {leaf.axes}")
+            g, n, _ = shd.axis_group(self.mesh, "data")
+            w = _all_gather(w, g, n, d)
+            if d == dm:  # ("data", "model") on one dim: data-major pieces
+                idx = self.nested_index(leaf.shape[d], n, self.mi, w.device)
+        return w, dm, idx
+
+    def nested_index(self, n: int, ds: int, j: int, device) -> torch.Tensor:
+        """Global indices, along a dim of n split over ("data", "model"),
+        of what model rank j holds once "data" is gathered."""
+        c = n // (ds * self.m)
+        base = torch.arange(ds, device=device)[:, None] * (n // ds) + j * c
+        return (base + torch.arange(c, device=device)[None, :]).reshape(-1)
+
+    def take(self, x: torch.Tensor, dim: int, n: int, idx) -> torch.Tensor:
+        """This rank's entries of `x` along `dim` (whole, n long) for a
+        weight split there: the contiguous chunk, or `idx`."""
+        if idx is not None:
+            return x.index_select(dim, idx)
+        lo, step = self.chunk(n)
+        return x.narrow(dim, lo, step)
+
+    def gather_cols(self, y: torch.Tensor, n: int, idx) -> torch.Tensor:
+        """The whole last dim (n long) from every model rank's entries of
+        it (the contiguous chunks, or nested indices as `weight` gives)."""
+        full = self.gather_model(y, -1)
+        if idx is None:
+            return full
+        ds = self.sizes["data"]
+        order = torch.cat([self.nested_index(n, ds, j, y.device) for j in range(self.m)])
+        out = torch.empty_like(full)
+        out[..., order] = full
+        return out
+
+
+# ------------------------------------------------------------------ layers
+def embed(tp: TP, table: Local, tokens: torch.Tensor) -> torch.Tensor:
+    """Embedding lookup (reference rules :51-55): a vocab-parallel table
+    looks up the tokens in this rank's vocab range (zeros elsewhere) and
+    sums over "model"; a D-split one (odd vocab) gathers its columns."""
+    w, dm, idx = tp.weight(table)
+    tok = tokens.long()
+    if dm == 0:
+        if idx is not None:
+            raise ValueError(f"a vocab split over ('data', 'model'): {table.axes}")
+        lo, n = tp.chunk(table.shape[0])
+        rel = tok - lo
+        mine = (rel >= 0) & (rel < n)
+        rows = w[rel.clamp(0, n - 1)] * mine[..., None].to(w.dtype)
+        return tp.sum_model(rows)
+    if dm == 1:
+        return tp.gather_cols(w[tok], table.shape[1], idx)
+    return w[tok]
+
+
+def out_proj(tp: TP, x: torch.Tensor, w_leaf: Local, transpose: bool = False,
+             eq: Optional[str] = None) -> torch.Tensor:
+    """x [..., D] @ w [D, N] (or w [N, D] transposed, a tied table; `eq`
+    the einsum to use instead of @) with x whole on every model rank:
+    column-parallel over N (each rank's columns gathered over "model"),
+    or split along D (partial sums summed over "model"), or whole."""
+    w, dm, idx = tp.weight(w_leaf)
+
+    def mm(a, b):
+        return a @ b if eq is None else torch.einsum(eq, a, b)
+
+    if transpose:
+        w = w.T
+        dm = None if dm is None else 1 - dm
+    d, n = (w_leaf.shape[1], w_leaf.shape[0]) if transpose else w_leaf.shape
+    if dm == 1:
+        return tp.gather_cols(mm(x, w), n, idx)
+    if dm == 0:
+        return tp.sum_model(mm(tp.take(x, -1, d, idx), w))
+    return mm(x, w)
+
+
+def whole(tree):
+    """A replicated subtree (norm scales, routing tables) as plain tensors."""
+    if isinstance(tree, dict):
+        return {k: whole(v) for k, v in tree.items()}
+    if tree.axes:
+        raise ValueError(f"expected a replicated leaf, got one split {tree.axes}")
+    return tree.t
+
+
+def router_logits(tp: TP, flat: torch.Tensor, router: Local) -> torch.Tensor:
+    """fp32 router logits [T, E] of flat [T, D] (the router's D split over
+    "model" where it divides)."""
+    return out_proj(tp, flat.float(), router)
+
+
+def mlp(tp: TP, p, x: torch.Tensor) -> torch.Tensor:
+    """The dense SwiGLU MLP: w_gate / w_up column-parallel over F, w_down
+    row-parallel, one sum over "model" (reference rules :96-101)."""
+    return _swiglu(tp, p, x, layers.mlp)
+
+
+def shared_ffn(tp: TP, p, x: torch.Tensor) -> torch.Tensor:
+    """The shared experts [n, D, F] / [n, F, D], split over F as the dense
+    MLP is."""
+    from repro_torch.models.moe import shared_ffn as plain
+
+    return _swiglu(tp, p, x, plain)
+
+
+def _swiglu(tp: TP, p, x: torch.Tensor, plain) -> torch.Tensor:
+    """`plain` (the unsharded SwiGLU) on this rank's F columns; the partial
+    down products summed over "model" where F is split."""
+    w = {k: tp.weight(p[k]) for k in ("w_gate", "w_up", "w_down")}
+    split = w["w_down"][1]
+    if not (w["w_gate"][1] == w["w_up"][1] == (None if split is None else split + 1)):
+        raise ValueError(f"SwiGLU splits disagree: {p['w_gate'].axes}, {p['w_down'].axes}")
+    y = plain({k: t for k, (t, _, _) in w.items()}, x)
+    return y if split is None else tp.sum_model(y)
+
+
+def heads_proj(tp: TP, x: torch.Tensor, w_leaf: Local, eq: str, bias: Optional[Local] = None):
+    """A per-head projection x [..., D] -> [..., H, k] by w [.., D, H, k]
+    (`eq` its einsum). Returns (y, first head): this rank's H/m heads when
+    the heads split over "model" (first head their index), else every
+    head (None) — with a D-split weight (the fallback where the heads do
+    not divide) the partial sums summed over "model". The bias [H, k] is
+    added after the sum, as the reference adds it."""
+    w, dm, idx = tp.weight(w_leaf)
+    nd = len(w_leaf.shape)
+    if dm == nd - 2:  # heads
+        y = torch.einsum(eq, x, w)
+        lo, _ = tp.chunk(w_leaf.shape[-2])
+    elif dm == nd - 3:  # contracting D
+        y = tp.sum_model(torch.einsum(eq, tp.take(x, -1, w_leaf.shape[-3], idx), w))
+        lo = None
+    elif dm is None:
+        y, lo = torch.einsum(eq, x, w), None
+    else:
+        raise ValueError(f"a head projection split on dim {dm}: {w_leaf.axes}")
+    if bias is not None:
+        y = y + bias.t
+    return y, lo
+
+
+def gather_heads(tp: TP, y: torch.Tensor, lo: Optional[int], dim: int = 2) -> torch.Tensor:
+    """Every head of a per-head tensor: this rank's heads gathered over
+    "model" (`lo` not None), or `y` itself (every rank has them all)."""
+    return y if lo is None else tp.gather_model(y, dim)
+
+
+def heads_out(tp: TP, o: torch.Tensor, lo: Optional[int], wo: Local, eq: str) -> torch.Tensor:
+    """The output projection of per-head o [..., H | H/m, k] by wo [H, k,
+    D]: row-parallel over heads (this rank's heads, summed over "model"),
+    column-parallel over D where the heads do not divide (gathered), or
+    whole. `lo` says which heads o holds (None: all)."""
+    w, dm, idx = tp.weight(wo)
+    h = wo.shape[-3]
+    if dm == len(wo.shape) - 3:
+        first, n = tp.chunk(h)
+        if lo is None:  # every head here: take this rank's
+            o = o.narrow(-2, first, n)
+        elif lo != first:
+            raise ValueError(f"heads from {lo}, wo's from {first}")
+        return tp.sum_model(torch.einsum(eq, o, w))
+    if lo is not None:
+        raise ValueError(f"{o.shape[-2]} local heads but wo holds all {h}: {wo.axes}")
+    y = torch.einsum(eq, o, w)
+    return y if dm is None else tp.gather_cols(y, wo.shape[-1], idx)

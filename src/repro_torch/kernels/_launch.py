@@ -5,11 +5,25 @@ import ctypes
 
 import torch
 
+from repro_torch.kernels.backend import is_fake  # noqa: F401 (the wrappers' L.is_fake)
+
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # dynamic shared memory one block may use on an H100 (232,448 bytes)
 MAX_SMEM = 232448
 # bytes: the granule of a TMA tensor map's base address and strides
 TMA_ALIGN = 16
+
+
+# FLOPs of the kernel launches a fake-tensor trace stood in for: the
+# kernels are not aten ops, so FlopCounterMode cannot see them
+TRACE_FLOPS = {"flops": 0}
+
+
+def trace_launch(flops: int, *shape, like: torch.Tensor) -> torch.Tensor:
+    """A kernel launch in a fake-tensor trace: its output (fake, `like`'s
+    dtype and device) and its FLOPs counted, nothing run."""
+    TRACE_FLOPS["flops"] += int(flops)
+    return torch.empty(shape, dtype=like.dtype, device=like.device)
 
 
 def ptr(t: torch.Tensor) -> ctypes.c_void_p:

@@ -24,6 +24,8 @@ runs eagerly, so the span brackets every call.
 """
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 __all__ = [
@@ -55,6 +57,30 @@ def _check_card(device: torch.device) -> None:
         )
 
 
+_TRACE_ROUTE = False  # inside `trace_kernel_route`
+
+
+@contextlib.contextmanager
+def trace_kernel_route():
+    """Within, a fake tensor (a shape-only trace, launch/dryrun.py) takes
+    the kernel route on any device, as the card's tensors do: each launch
+    stands in as its output and FLOPs (kernels/_launch.py `trace_launch`).
+    Real tensors are untouched."""
+    global _TRACE_ROUTE
+    prev, _TRACE_ROUTE = _TRACE_ROUTE, True
+    try:
+        yield
+    finally:
+        _TRACE_ROUTE = prev
+
+
+def is_fake(t: torch.Tensor) -> bool:
+    """Whether `t` is a fake tensor (shapes only, nothing allocated)."""
+    from torch._subclasses.fake_tensor import FakeTensor
+
+    return isinstance(t, FakeTensor)
+
+
 def use_kernel(choice: str, t: torch.Tensor, *, op: str = "kernel") -> bool:
     """True when `op` must launch its CUDA kernel on tensor `t`, False
     when it runs its plain PyTorch version. Raises where the choice
@@ -62,6 +88,8 @@ def use_kernel(choice: str, t: torch.Tensor, *, op: str = "kernel") -> bool:
     resolve_backend(choice)
     if choice == "ref":
         return False
+    if _TRACE_ROUTE and is_fake(t):
+        return True
     if t.device.type == "cuda":
         _check_card(t.device)
         return True

@@ -38,10 +38,13 @@ def _joinable(a: torch.Tensor, b: torch.Tensor) -> bool:
     """True when `b` is `a` shifted in one storage (a tier buffer's gate
     and up matrices) that the kernel can read as one panel in place
     (smoke-size bf16 experts, F = 32, cannot)."""
+    from torch.multiprocessing.reductions import StorageWeakRef
+
+    # storage identity and offsets, not data pointers: a fake tensor has none
     return (
         a.stride() == b.stride()
-        and a.untyped_storage().data_ptr() == b.untyped_storage().data_ptr()
-        and b.data_ptr() >= a.data_ptr()
+        and StorageWeakRef(a.untyped_storage()) == StorageWeakRef(b.untyped_storage())
+        and b.storage_offset() >= a.storage_offset()
         and pair_addressable(a)
     )
 

@@ -401,3 +401,235 @@ def mla_prefill_paged(p: Params, cfg, x, pool_ckv, pool_krope, tables, past_len,
                                   lengths, scale=_mla_scale(cfg),
                                   backend=cfg.paged_attn_backend)
     return _mla_out(p, o_lat, wv_b, x.dtype), pool_ckv, pool_krope
+
+
+# ------------------------------------------------------ on a device mesh
+# The contiguous layout on a mesh (`tp`, distributed/tensor_parallel.py):
+# heads tensor-parallel by the reference's rules (wq / wk / wv over heads,
+# wo row-parallel; where the heads do not divide "model" the contracting
+# D instead, its partial sums summed), the cache split by `cache_pspec`:
+# rows over the DP axes, keys (ring slots) over "model". Prefill writes
+# its K/V head-sharded and reshards them to key shards (one all-to-all);
+# decode attends every head over this rank's key shard and combines the
+# shards by log-sum-exp over "model" (flash-decoding across ranks),
+# gathering no cache shard.
+def _seq_split(cache) -> bool:
+    """Whether "model" splits the cache's keys (dim 1 of [B, S, ...])."""
+    return cache.axes.get("model") == 1
+
+
+def _key_shard(tp, cache, pos):
+    """(first ring slot of this rank's keys, [B, T] valid keys): the slots
+    filled so far (slot <= pos), as `gqa_decode` masks them."""
+    n = cache.t.shape[1]
+    lo = tp.mi * n if _seq_split(cache) else 0
+    slots = lo + torch.arange(n, device=pos.device)
+    return lo, slots[None, :] <= pos[:, None]
+
+
+def _ring_write_mesh(tp, cache, pos, val):
+    """val [B, ...] at ring slot pos % S of each row, in place, on the
+    model rank whose key shard holds the slot (the others keep theirs)."""
+    c = cache.t
+    slot = (pos % cache.shape[1]).long()
+    rows = torch.arange(c.shape[0], device=c.device)
+    if not _seq_split(cache):
+        c[rows, slot] = val
+        return
+    n = c.shape[1]
+    rel = slot - tp.mi * n
+    mine = ((rel >= 0) & (rel < n)).reshape(-1, *([1] * (val.ndim - 1)))
+    rel = rel.clamp(0, n - 1)
+    c[rows, rel] = torch.where(mine, val.to(c.dtype), c[rows, rel])
+
+
+def _attend_lse(q, k, v, valid):
+    """One query per row: q [B, 1, H, hd] over k / v [B, T, Kv, hd] (this
+    rank's keys), valid [B, T] -> (out [B, 1, H, hd_v] in v's dtype, lse
+    [B, 1, H] fp32), the softmax as `_grouped_attention` takes it."""
+    b, sq, h, hdk = q.shape
+    kvh = k.shape[2]
+    qg = q.reshape(b, sq, kvh, h // kvh, hdk)
+    s = torch.einsum("bckgd,bskd->bckgs", qg, k).float() * hdk ** -0.5
+    s = torch.where(valid[:, None, None, None, :], s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bckgs,bskd->bckgd", p.to(v.dtype), v)
+    return out.reshape(b, sq, h, -1), torch.logsumexp(s, dim=-1).reshape(b, sq, h)
+
+
+def _combine(tp, out, lse):
+    """Each rank's softmax over its keys, weighted by exp(lse - max lse)
+    and summed over "model": the softmax over every key. out [..., H, k],
+    lse [..., H]."""
+    w = torch.exp(lse - tp.max_model(lse))[..., None]
+    tot = tp.sum_model(torch.cat([out.float() * w, w], dim=-1))
+    return (tot[..., :-1] / tot[..., -1:]).to(out.dtype)
+
+
+def fill_seq_cache(tp, cache, val, heads_lo, token_mask):
+    """Prefill's entries val [B, s, ...] (s <= S) at the head of the rows'
+    fresh cache [B, S, ...], pads zeroed, in the cache's layout. Entries
+    computed head-sharded (`heads_lo` not None: this rank's KV heads along
+    dim 2) are resharded from heads to key shards by one all-to-all over
+    "model" (gathered over heads when the keys are not split); whole ones
+    are cut to this rank's keys."""
+    c = cache.t
+    b, s = val.shape[:2]
+    big = cache.shape[1]
+    if s > big:
+        raise ValueError(f"a prompt of {s} tokens does not fit a cache of {big}")
+    if token_mask is not None:
+        val = val * token_mask[(...,) + (None,) * (val.ndim - 2)].to(val.dtype)
+    split = _seq_split(cache)
+    if heads_lo is not None and split:
+        full = val.new_zeros((b, big, *val.shape[2:]))
+        full[:, :s] = val
+        n = big // tp.m
+        parts = full.reshape(b, tp.m, n, *val.shape[2:]).movedim(1, 0)  # [m, B, n, Kv/m, ..]
+        got = tp.all_to_all_model(parts)  # part j: rank j's heads of this rank's keys
+        c.copy_(got.movedim(0, 2).reshape(c.shape))
+        return
+    if heads_lo is not None:
+        val = tp.gather_model(val, 2)
+    if split:
+        n = c.shape[1]
+        lo = tp.mi * n
+        hi = min(lo + n, s)
+        if hi > lo:
+            c[:, :hi - lo] = val[:, lo:hi]
+    else:
+        c[:, :s] = val
+
+
+def _kv_for_heads(q_lo, nq, k, v, k_lo, cfg):
+    """K / V of this rank's query heads [q_lo, q_lo + nq): the local KV
+    heads when both split, the groups they read (or, where the rank's
+    heads cut a group, one KV head per query head) when only q does."""
+    if q_lo is None:
+        if k_lo is not None:
+            raise ValueError("KV heads split over 'model' but query heads whole")
+        return k, v
+    g = cfg.n_heads // cfg.n_kv_heads
+    if k_lo is not None:
+        if k_lo != q_lo // g or k.shape[2] * g != nq:
+            raise ValueError(f"query heads from {q_lo} do not read KV heads from {k_lo}")
+        return k, v
+    if q_lo % g == 0 and nq % g == 0:
+        return k.narrow(2, q_lo // g, nq // g), v.narrow(2, q_lo // g, nq // g)
+    idx = (q_lo + torch.arange(nq, device=k.device)) // g
+    return k.index_select(2, idx), v.index_select(2, idx)
+
+
+def _qkv_mesh(tp, p, x, positions, theta):
+    from repro_torch.distributed import tensor_parallel as tpl
+
+    eq = "bsd,dhk->bshk"
+    q, q_lo = tpl.heads_proj(tp, x, p["wq"], eq, p.get("bq"))
+    k, k_lo = tpl.heads_proj(tp, x, p["wk"], eq, p.get("bk"))
+    v, v_lo = tpl.heads_proj(tp, x, p["wv"], eq, p.get("bv"))
+    if k_lo != v_lo:
+        raise ValueError(f"wk and wv split apart: {p['wk'].axes}, {p['wv'].axes}")
+    return apply_rope(q, positions, theta), q_lo, apply_rope(k, positions, theta), v, k_lo
+
+
+def gqa_prefill_mesh(tp, p, cfg, x, positions, token_mask, cache_k, cache_v):
+    """`gqa_forward` (causal, masked) on a mesh, its K/V written into the
+    rows' sharded cache (`fill_seq_cache`). x [B, S, D] this rank's rows;
+    p's leaves `Local`. Returns out [B, S, D]."""
+    from repro_torch.distributed import tensor_parallel as tpl
+
+    q, q_lo, k, v, k_lo = _qkv_mesh(tp, p, x, positions, cfg.rope_theta)
+    ka, va = _kv_for_heads(q_lo, q.shape[2], k, v, k_lo, cfg)
+    out = _grouped_attention(q, ka, va, causal=True, valid=token_mask)
+    fill_seq_cache(tp, cache_k, k, k_lo, token_mask)
+    fill_seq_cache(tp, cache_v, v, k_lo, token_mask)
+    return tpl.heads_out(tp, out, q_lo, p["wo"], "bshk,hkd->bsd")
+
+
+def gqa_decode_mesh(tp, p, cfg, x, cache_k, cache_v, pos):
+    """`gqa_decode` on a mesh: the new token's q / k / v gathered to every
+    head (a row's few values), its K/V written on the rank owning slot
+    pos % S, every head attended over this rank's keys and the shards
+    combined over "model", then wo. Returns out [B, 1, D]."""
+    from repro_torch.distributed import tensor_parallel as tpl
+
+    q, q_lo, k, v, k_lo = _qkv_mesh(tp, p, x, pos[:, None], cfg.rope_theta)
+    q = tpl.gather_heads(tp, q, q_lo)
+    _ring_write_mesh(tp, cache_k, pos, tpl.gather_heads(tp, k, k_lo)[:, 0])
+    _ring_write_mesh(tp, cache_v, pos, tpl.gather_heads(tp, v, k_lo)[:, 0])
+    _, valid = _key_shard(tp, cache_k, pos)
+    out, lse = _attend_lse(q, cache_k.t, cache_v.t, valid)
+    if _seq_split(cache_k):
+        out = _combine(tp, out, lse)
+    return tpl.heads_out(tp, out, None, p["wo"], "bshk,hkd->bsd")
+
+
+def _mla_latents_mesh(tp, p, cfg, x, positions):
+    """(q_nope, q_rope (roped), q's first head or None, ckv [B, S, r],
+    krope [B, S, rd] (roped)): wq over heads, wkv_a column-parallel over
+    its r + rd outputs (gathered: every rank needs the whole latent)."""
+    from repro_torch.distributed import tensor_parallel as tpl
+
+    m = cfg.mla
+    q, q_lo = tpl.heads_proj(tp, x, p["wq"], "bsd,dhk->bshk")
+    q_nope, q_rope = q.split([m.qk_nope_head_dim, m.qk_rope_head_dim], dim=-1)
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+    kv_a = tpl.out_proj(tp, x, p["wkv_a"], eq="bsd,dr->bsr")
+    ckv, krope = kv_a.split([m.kv_lora_rank, m.qk_rope_head_dim], dim=-1)
+    krope = apply_rope(krope[:, :, None, :], positions, cfg.rope_theta)[:, :, 0, :]
+    return q_nope, q_rope, q_lo, ckv, krope
+
+
+def mla_prefill_mesh(tp, p, cfg, x, positions, token_mask, cache_ckv, cache_krope):
+    """`mla_forward` (expanded) on a mesh: this rank's heads of q and of
+    wkv_b's per-head K/V, wo row-parallel; the latents (whole on every
+    rank) cut to this rank's key shard of the cache. Returns out [B, S, D]."""
+    from repro_torch.distributed import tensor_parallel as tpl
+
+    m = cfg.mla
+    q_nope, q_rope, q_lo, ckv, krope = _mla_latents_mesh(tp, p, cfg, x, positions)
+    kvb, kv_lo = tpl.heads_proj(tp, ckv, p["wkv_b"], "bsr,rhk->bshk")
+    if kv_lo != q_lo:
+        raise ValueError(f"wq and wkv_b split apart: {p['wq'].axes}, {p['wkv_b'].axes}")
+    k_nope, v = kvb.split([m.qk_nope_head_dim, m.v_head_dim], dim=-1)
+    k = torch.cat([k_nope, krope[:, :, None, :].expand(*k_nope.shape[:3],
+                                                        m.qk_rope_head_dim)], dim=-1)
+    out = _grouped_attention(torch.cat([q_nope, q_rope], dim=-1), k, v, causal=True,
+                             valid=token_mask)
+    fill_seq_cache(tp, cache_ckv, ckv, None, token_mask)
+    fill_seq_cache(tp, cache_krope, krope, None, token_mask)
+    return tpl.heads_out(tp, out, q_lo, p["wo"], "bshk,hkd->bsd")
+
+
+def mla_decode_mesh(tp, p, cfg, x, cache_ckv, cache_krope, pos):
+    """`mla_decode` (absorbed) on a mesh: this rank's heads of q_lat =
+    q_nope W_k^nope gathered to every head, the new latents written on the
+    rank owning slot pos % S, scores and values over this rank's latent
+    keys for every head (fp32), the shards combined over "model", then
+    this rank's heads through W_v and wo (row-parallel). Returns out
+    [B, 1, D]."""
+    from repro_torch.distributed import tensor_parallel as tpl
+
+    m = cfg.mla
+    q_nope, q_rope, q_lo, ckv_new, krope_new = _mla_latents_mesh(tp, p, cfg, x, pos[:, None])
+    wkv_b, dm, _ = tp.weight(p["wkv_b"])
+    if (dm is None) != (q_lo is None):
+        raise ValueError(f"wq and wkv_b split apart: {p['wq'].axes}, {p['wkv_b'].axes}")
+    wk_b, wv_b = wkv_b.split([m.qk_nope_head_dim, m.v_head_dim], dim=-1)
+    q_lat = torch.einsum("bshk,rhk->bshr", q_nope.float(), wk_b.float())
+    q_lat = tpl.gather_heads(tp, q_lat, q_lo)
+    q_rope = tpl.gather_heads(tp, q_rope.float(), q_lo)
+    _ring_write_mesh(tp, cache_ckv, pos, ckv_new[:, 0])
+    _ring_write_mesh(tp, cache_krope, pos, krope_new[:, 0])
+    ckv, krope = cache_ckv.t.float(), cache_krope.t.float()
+    s = (torch.einsum("bshr,btr->bhst", q_lat, ckv)
+         + torch.einsum("bshk,btk->bhst", q_rope, krope)) * _mla_scale(cfg)
+    _, valid = _key_shard(tp, cache_ckv, pos)
+    s = torch.where(valid[:, None, None, :], s, torch.full_like(s, NEG_INF))
+    o_lat = torch.einsum("bhst,btr->bshr", torch.softmax(s, dim=-1), ckv)
+    if _seq_split(cache_ckv):
+        o_lat = _combine(tp, o_lat, torch.logsumexp(s, dim=-1).transpose(1, 2))
+    if q_lo is not None:
+        o_lat = o_lat.narrow(2, q_lo, wv_b.shape[1])
+    o = torch.einsum("bshr,rhk->bshk", o_lat, wv_b.float()).to(x.dtype)
+    return tpl.heads_out(tp, o, q_lo, p["wo"], "bshk,hkd->bsd")

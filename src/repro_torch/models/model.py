@@ -590,6 +590,7 @@ def prefill(
     cold_capacity_frac: float = 0.25,
     token_mask: torch.Tensor | None = None,  # [B, S] bool real tokens
     frames: torch.Tensor | None = None,  # [B, F, D]: an encoder-decoder model's input
+    mesh=None,  # a DeviceMesh: params / tiered as DTensors, tokens this rank's rows
 ):
     """Full-sequence prefill building a fresh contiguous cache of
     `cache_len` (default S) slots per row. Without `token_mask` every row
@@ -601,7 +602,10 @@ def prefill(
     given. An encoder-decoder model runs its encoder over `frames` first
     and stores each decoder layer's cross K/V in the cache (the reference
     puts `_cross_kv`'s arrays in place of the zeros, :525, :543).
-    Returns (logits [B, V], cache)."""
+    Returns (logits [B, V], cache). On a `mesh` see `_mesh_prefill`."""
+    if mesh is not None:
+        return _mesh_prefill(params, cfg, tokens, cache_len, tiered, cold_capacity_frac,
+                             token_mask, mesh)
     b, s = tokens.shape
     cache = init_cache(cfg, b, cache_len or s, device=tokens.device)
     if cfg.encdec is not None:
@@ -615,6 +619,15 @@ def prefill(
     return _logits(params, cfg, _last_real(x, token_mask))[:, 0], cache
 
 
+def _row_positions(pos, tokens: torch.Tensor) -> torch.Tensor:
+    """[B] int32 positions on the tokens' device from [B] or a scalar (an
+    int made with a factory: a fake-tensor trace cannot copy host data)."""
+    if isinstance(pos, torch.Tensor):
+        pos = pos.to(device=tokens.device, dtype=torch.int32)
+        return pos.expand(tokens.shape[0])
+    return torch.full((tokens.shape[0],), int(pos), dtype=torch.int32, device=tokens.device)
+
+
 def decode_step(
     params: Params,
     cfg: ModelConfig,
@@ -624,16 +637,137 @@ def decode_step(
     tiered: Params | None = None,
     cold_capacity_frac: float = 0.25,
     token_mask: torch.Tensor | None = None,  # [B] live rows
+    mesh=None,  # a DeviceMesh: params / cache / tiered as DTensors, rows this rank's
 ):
     """One decode step against the contiguous cache (ring buffers written
     in place at pos % S, recurrent states over the old). Returns (logits
     [B, V], cache, expert_counts [n_layers, E]): one row per layer, zeros
     for a layer without routed experts, as the reference's `decode_step`
-    returns them."""
-    pos = torch.as_tensor(pos, dtype=torch.int32, device=tokens.device).expand(tokens.shape[0])
+    returns them. On a `mesh` see `_mesh_decode`."""
+    if mesh is not None:
+        return _mesh_decode(params, cfg, tokens, cache, pos, tiered, cold_capacity_frac,
+                            token_mask, mesh)
+    pos = _row_positions(pos, tokens)
     logits, counts, cache = _decode(params, cfg, tokens, cache, None, pos, tiered,
                                     cold_capacity_frac, token_mask)
     return logits, cache, counts
+
+
+# ------------------------------------------------------ on a device mesh
+MESH_SLICE = ("jamba, xlstm and seamless (Mamba / xLSTM state over channels, the "
+              "encoder-decoder) are sharded in the slice after the mesh serving one")
+
+
+def check_mesh_arch(cfg: ModelConfig) -> None:
+    """The mesh serving path runs GQA and MLA decoders (dense, MoE)."""
+    mixers = {layer_signature(cfg, i)[0] for i in range(cfg.n_layers)}
+    if cfg.encdec is not None or mixers - {"attn", "mla"}:
+        raise NotImplementedError(f"{cfg.name} on a mesh: {MESH_SLICE}")
+
+
+def _apply_layer_mesh(tp, cfg, sig, p, x, positions, cache, pos, token_mask, tiered_state,
+                      cold_capacity_frac):
+    """`apply_layer` on a mesh, contiguous layout (x this rank's rows,
+    every `Local` leaf this rank's shard): (x, expert counts [E] or None)."""
+    from repro_torch.distributed import tensor_parallel as tpl
+    from repro_torch.serving.tiered_moe import tiered_moe_forward_mesh
+
+    mixer, ffn = sig
+    h = rmsnorm(tpl.whole(p["norm1"]), x, cfg.norm_eps)
+    a, b = (cache[key] for key in MIXERS[mixer].cache_shapes(cfg, 0))
+    fn = {("attn", True): attn.gqa_decode_mesh, ("mla", True): attn.mla_decode_mesh,
+          ("attn", False): attn.gqa_prefill_mesh, ("mla", False): attn.mla_prefill_mesh}
+    if pos is not None:
+        y = fn[mixer, True](tp, p["mixer"], cfg, h, a, b, pos)
+    else:
+        y = fn[mixer, False](tp, p["mixer"], cfg, h, positions, token_mask, a, b)
+    x = x + y
+    counts = None
+    if ffn != "none":
+        h2 = rmsnorm(tpl.whole(p["norm2"]), x, cfg.norm_eps)
+        if ffn == "moe" and tiered_state is not None:
+            y, counts = tiered_moe_forward_mesh(tp, p["ffn"], tiered_state, cfg, h2,
+                                                cold_capacity_frac, token_mask)
+        elif ffn == "moe":
+            out = moe_lib.moe_forward_mesh(tp, p["ffn"], cfg, h2,
+                                           full_capacity=pos is not None or token_mask is not None,
+                                           token_mask=token_mask)
+            y, counts = out.y, out.expert_counts
+        else:
+            y = tpl.mlp(tp, p["ffn"], h2)
+        x = x + y
+    return x, counts
+
+
+def _mesh_walk(tp, cfg, params, tiered, cache, x, positions, pos, token_mask,
+               cold_capacity_frac):
+    """Every layer in execution order on the mesh: (x, counts [n_layers, E],
+    the params as `Local` leaves)."""
+    from repro_torch.distributed import tensor_parallel as tpl
+
+    e = cfg.moe.n_experts if cfg.moe is not None else 1
+    no_moe = torch.zeros((e,), dtype=torch.int32, device=x.device)
+    counts_all = []
+    local = (tpl.local_tree(params, tp.mesh), tpl.local_tree(cache, tp.mesh),
+             None if tiered is None else tpl.local_tree(tiered, tp.mesh))
+    for sig, p, c, ts in _layers(local[0], cfg, local[1], local[2]):
+        x, counts = _apply_layer_mesh(tp, cfg, sig, p, x, positions, c, pos, token_mask, ts,
+                                      cold_capacity_frac)
+        counts_all.append(no_moe if counts is None else counts)
+    return x, torch.stack(counts_all), local[0]
+
+
+def _mesh_logits(tp, params, cfg, x):
+    from repro_torch.distributed import tensor_parallel as tpl
+
+    x = rmsnorm(tpl.whole(params["final_norm"]), x, cfg.norm_eps)
+    if cfg.tie_embeddings:
+        return tpl.out_proj(tp, x, params["embed"]["table"], transpose=True)
+    return tpl.out_proj(tp, x, params["head"]["w"])
+
+
+def _mesh_prefill(params, cfg, tokens, cache_len, tiered, cold_capacity_frac, token_mask, mesh):
+    """`prefill` on a device mesh, GSPMD's partitioning of the reference's
+    one program written out (distributed/tensor_parallel.py): params (and
+    tiered, when given) are DTensor trees under `tree_pspecs` /
+    `tiered_pspecs`, tokens [B/dp, S] this rank's rows of the global batch
+    (split over the DP axes, pod-major). The embedding is vocab-parallel
+    (or D-split), attention heads tensor-parallel, the MLPs column- then
+    row-parallel, the MoE as `moe_forward_mesh` / `tiered_moe_forward_mesh`
+    place it, the logits gathered over "model". Returns (this rank's rows'
+    logits [B/dp, V], the cache as DTensors under `cache_pspecs`: this
+    rank's rows and key shard)."""
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.distributed import tensor_parallel as tpl
+
+    check_mesh_arch(cfg)
+    tp = tpl.TP(mesh)
+    b, s = tokens.shape
+    like = init_cache(cfg, b * tp.n_dp, cache_len or s, device="meta")
+    cache = shd.sharded_zeros(like, shd.cache_pspecs(like, mesh), mesh, tokens.device)
+    positions = torch.arange(s, dtype=torch.int32, device=tokens.device)[None, :]
+    x = tpl.embed(tp, tpl.local_leaf(params["embed"]["table"], mesh), tokens)
+    x, _, local = _mesh_walk(tp, cfg, params, tiered, cache, x, positions, None, token_mask,
+                             cold_capacity_frac)
+    return _mesh_logits(tp, local, cfg, _last_real(x, token_mask))[:, 0], cache
+
+
+def _mesh_decode(params, cfg, tokens, cache, pos, tiered, cold_capacity_frac, token_mask,
+                 mesh):
+    """`decode_step` on a device mesh (see `_mesh_prefill`): tokens [B/dp,
+    1], pos and token_mask this rank's rows', cache its DTensors (written
+    in place). Returns (logits [B/dp, V], cache, expert_counts [n_layers,
+    E] summed over the DP shards: the whole batch's)."""
+    from repro_torch.distributed import tensor_parallel as tpl
+
+    check_mesh_arch(cfg)
+    tp = tpl.TP(mesh)
+    pos = _row_positions(pos, tokens)
+    tmask = None if token_mask is None else token_mask.reshape(-1, 1)
+    x = tpl.embed(tp, tpl.local_leaf(params["embed"]["table"], mesh), tokens)
+    x, counts, local = _mesh_walk(tp, cfg, params, tiered, cache, x, pos[:, None], pos, tmask,
+                                  cold_capacity_frac)
+    return _mesh_logits(tp, local, cfg, x)[:, 0], cache, counts
 
 
 def decode_step_paged(

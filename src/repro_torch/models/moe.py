@@ -32,6 +32,7 @@ the TriMoE predictor and scheduler (core/) consume.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import NamedTuple
 
 import torch
@@ -63,6 +64,19 @@ _SHARDING_HINTS = None
 def set_moe_sharding_hints(dp=("data",), ep="model", enable=True):
     global _SHARDING_HINTS
     _SHARDING_HINTS = ((dp if isinstance(dp, tuple) else (dp,)), ep) if enable else None
+
+
+@contextlib.contextmanager
+def moe_sharding_hints(enable: bool = True):
+    """`set_moe_sharding_hints(enable=enable)` within, the previous hints
+    after."""
+    global _SHARDING_HINTS
+    prev = _SHARDING_HINTS
+    set_moe_sharding_hints(enable=enable)
+    try:
+        yield
+    finally:
+        _SHARDING_HINTS = prev
 
 
 def _dp():
@@ -147,7 +161,8 @@ def shared_ffn(p: Params, x: torch.Tensor) -> torch.Tensor:
 def moe_forward(p: Params, cfg, x: torch.Tensor, *, capacity_factor=None,
                 full_capacity: bool = False, grouped: bool | None = None,
                 token_mask: torch.Tensor | None = None,
-                backend: str | None = None) -> MoEOutput:
+                backend: str | None = None, logits: torch.Tensor | None = None,
+                shared: bool = True) -> MoEOutput:
     """Routed MoE over x [B, S, D]. The global dispatch (the default, as
     in the reference) sorts all B*S*k assignments at once; the grouped
     one sorts each batch row's own and runs [B*E] buffer groups over the
@@ -157,10 +172,12 @@ def moe_forward(p: Params, cfg, x: torch.Tensor, *, capacity_factor=None,
     together. `token_mask` [B, S] excludes masked tokens from dispatch,
     counts and the aux loss: their assignments take the sentinel expert
     id E, so the stable sort parks them after every real one. `backend`
-    overrides `cfg.moe_backend` for this call."""
+    overrides `cfg.moe_backend` for this call. `logits` [B*S, E] fp32
+    are the router's, computed by the caller (the mesh path's split
+    router); `shared=False` leaves the shared experts to the caller."""
     kind = moe_backend(cfg, backend)
     fwd = _moe_forward_grouped if grouped else _moe_forward_global
-    return fwd(p, cfg, x, capacity_factor, full_capacity, token_mask, kind)
+    return fwd(p, cfg, x, capacity_factor, full_capacity, token_mask, kind, logits, shared)
 
 
 def _capacity(n: int, k: int, e: int, cf: float) -> int:
@@ -199,8 +216,15 @@ def _aux_and_counts(mo, probs, a_exp, live, n_tokens: int, token_mask, dp=None):
     return mo.router_aux_coef * e * torch.sum(frac_tokens * frac_probs), counts
 
 
+def _bincount(x: torch.Tensor, n: int) -> torch.Tensor:
+    """torch.bincount(x, minlength=n) for x < n, of a fixed length (a
+    fake-tensor trace cannot size bincount's output)."""
+    return torch.zeros(n, dtype=torch.int64, device=x.device).index_add_(
+        0, x.long(), torch.ones_like(x, dtype=torch.int64))
+
+
 def _moe_forward_global(p, cfg, x, capacity_factor, full_capacity, token_mask=None,
-                        kind: str = "auto") -> MoEOutput:
+                        kind: str = "auto", logits=None, shared: bool = True) -> MoEOutput:
     mo = cfg.moe
     e, k = mo.n_experts, mo.top_k
     b, s, d = x.shape
@@ -211,7 +235,7 @@ def _moe_forward_global(p, cfg, x, capacity_factor, full_capacity, token_mask=No
     cap = n_all if full_capacity else _capacity(n_all, k, e, cf)
 
     flat = x.reshape(t, d)
-    probs, w, idx = router_topk(flat.float() @ p["router"], k)
+    probs, w, idx = router_topk(flat.float() @ p["router"] if logits is None else logits, k)
     live = None if token_mask is None else token_mask.reshape(t).repeat_interleave(k)
 
     # flatten (token, expert) assignments and sort them by expert
@@ -226,7 +250,7 @@ def _moe_forward_global(p, cfg, x, capacity_factor, full_capacity, token_mask=No
         keep = (pos < cap) & (se < e)
     else:
         # the global sort puts the shards before this one first
-        before = all_gather_stack(torch.bincount(a_key, minlength=e + 1), dp[0])[:dp[2]]
+        before = all_gather_stack(_bincount(a_key, e + 1), dp[0])[:dp[2]]
         keep = (pos + before.sum(0)[se] < cap) & (se < e)
         rows = min(cap, t)  # a shard holds at most t assignments per expert
     slot = torch.where(keep, se * rows + pos, e * rows)  # the overflow row is dropped
@@ -250,7 +274,7 @@ def _moe_forward_global(p, cfg, x, capacity_factor, full_capacity, token_mask=No
     y = x.new_zeros(t, d).index_add(0, st, contrib).reshape(b, s, d)
     if ep is not None:
         y = reduce_from_group(y, ep[2])
-    if mo.n_shared:
+    if mo.n_shared and shared:
         y = y + shared_ffn(p["shared"], x)
     aux, counts = _aux_and_counts(mo, probs, a_exp, live, t, token_mask, dp)
     return MoEOutput(y, aux, counts)
@@ -267,7 +291,8 @@ def _pad_experts(o: torch.Tensor, lo: int, e: int, dim: int) -> torch.Tensor:
 
 
 def _moe_forward_grouped(p, cfg, x, capacity_factor, full_capacity=False,
-                         token_mask=None, kind: str = "auto") -> MoEOutput:
+                         token_mask=None, kind: str = "auto", logits=None,
+                         shared: bool = True) -> MoEOutput:
     """Per-row dispatch: [B, S, D] -> buffers [B, E, C, D] -> expert FFN
     -> combine, every sort row-local. The [B*E] buffer groups run over
     the one [E, D, F] weight tensor through group -> expert rows
@@ -278,7 +303,9 @@ def _moe_forward_grouped(p, cfg, x, capacity_factor, full_capacity=False,
     cf = capacity_factor if capacity_factor is not None else mo.capacity_factor
     cap = s if full_capacity else _capacity(s, k, e, cf)
 
-    probs, w, idx = router_topk(x.float() @ p["router"], k)  # [B, S, k]
+    if logits is None:
+        logits = x.float() @ p["router"]
+    probs, w, idx = router_topk(logits.reshape(b, s, e), k)  # [B, S, k]
     a_tok = torch.arange(s, device=x.device)[None, :, None].expand(b, s, k).reshape(b, s * k)
     a_exp = idx.reshape(b, s * k)
     live = None if token_mask is None else token_mask.repeat_interleave(k, dim=-1)
@@ -318,9 +345,37 @@ def _moe_forward_grouped(p, cfg, x, capacity_factor, full_capacity=False,
                                         contrib.reshape(-1, d)).reshape(b, s, d)
     if ep is not None:
         y = reduce_from_group(y, ep[2])
-    if mo.n_shared:
+    if mo.n_shared and shared:
         y = y + shared_ffn(p["shared"], x)
     flat_live = None if live is None else live.reshape(-1)
     aux, counts = _aux_and_counts(mo, probs, a_exp.reshape(-1), flat_live, b * s, token_mask,
                                   _dp())
     return MoEOutput(y, aux, counts)
+
+
+def moe_forward_mesh(tp, p, cfg, x: torch.Tensor, *, full_capacity: bool,
+                     token_mask: torch.Tensor | None = None,
+                     backend: str | None = None) -> MoEOutput:
+    """The flat routed MoE on a serving mesh (`tp`, p's leaves `Local`):
+    the router split over D (partial logits summed over "model"), the
+    global dispatch over the DP shards, and the routed experts as the
+    rules place them: E over "model" runs this rank's E/m experts (the
+    hinted expert-parallel dispatch, outputs summed over "model"), F over
+    "model" gives partial sums; the shared experts column- then
+    row-parallel."""
+    from repro_torch.distributed import tensor_parallel as tpl
+
+    b, s, d = x.shape
+    logits = tpl.router_logits(tp, x.reshape(b * s, d), p["router"])
+    ws = {key: tp.weight(p[key]) for key in ("w_gate", "w_up", "w_down")}
+    split = ws["w_gate"][1]
+    if split not in (None, 0, 2) or split != ws["w_up"][1]:
+        raise ValueError(f"routed experts split as {p['w_gate'].axes}, {p['w_up'].axes}")
+    with moe_sharding_hints(), shd.use_mesh(tp.mesh):
+        out = moe_forward({key: w for key, (w, _, _) in ws.items()}, cfg, x,
+                          full_capacity=full_capacity, token_mask=token_mask,
+                          backend=backend, logits=logits, shared=False)
+    y = out.y if split != 2 else tp.sum_model(out.y)
+    if cfg.moe.n_shared:
+        y = y + tpl.shared_ffn(tp, p["shared"], x)
+    return MoEOutput(y, out.aux_loss, out.expert_counts)

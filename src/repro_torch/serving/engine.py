@@ -64,15 +64,28 @@ def moe_slot_names(cfg: ModelConfig):
 
 
 def init_tiered_for_model(gen: torch.Generator, cfg: ModelConfig,
-                          sizes: Optional[TierSizes] = None) -> Params:
-    """Tier states mirroring the params stacking (scan groups x slots)."""
+                          sizes: Optional[TierSizes] = None, mesh=None,
+                          pad_cold_to: Optional[int] = None) -> Params:
+    """Tier states mirroring the params stacking (scan groups x slots).
+    For a `mesh` the sizes default to its world size and the cold pool is
+    padded to a multiple of its "data" axis (the reference pads to 16, the
+    production mesh's), so `tiered_pspec` can home the cold experts over
+    it; without one, to 16; `pad_cold_to` overrides either."""
     if cfg.moe is None:
         return None
+    pad = 16
+    if mesh is not None:
+        from repro_torch.distributed.sharding import mesh_shape
+
+        dims = mesh_shape(mesh)
+        pad = dims.get("data", 1)
+        sizes = sizes or tier_sizes(cfg, n_chips=int(np.prod(list(dims.values()))))
+    pad = pad_cold_to or pad
     sizes = sizes or tier_sizes(cfg)
     layers, slots, n_groups = moe_slot_names(cfg)
-    out: Params = {name: init_tiered_state(gen, cfg, sizes) for name in layers}
+    out: Params = {name: init_tiered_state(gen, cfg, sizes, pad) for name in layers}
     if slots:
-        out["stack"] = {s: init_tiered_state(gen, cfg, sizes, lead=(n_groups,))
+        out["stack"] = {s: init_tiered_state(gen, cfg, sizes, pad, lead=(n_groups,))
                         for s in slots}
     return out
 

@@ -123,22 +123,34 @@ def _tier_ffn(w: torch.Tensor, h: torch.Tensor, backend: str, decode: bool):
                       backend=backend, decode=decode)
 
 
-def _dispatch_tier(flat, st, tier_slot, in_tier, n_slots: int, cap: int):
-    """Scatter this tier's assignments into [n_slots, cap, D] buffers.
-    Returns (buffers, dst [t*k] row of each assignment, ok [t*k])."""
-    n, d = st.shape[0], flat.shape[1]
-    key = torch.where(in_tier, tier_slot, torch.full_like(tier_slot, n_slots)).long()
+def slot_positions(key: torch.Tensor) -> torch.Tensor:
+    """Each assignment's rank among the earlier ones with its key."""
     ks, order = torch.sort(key, stable=True)
-    ar = torch.arange(n, device=flat.device)
+    ar = torch.arange(key.shape[0], device=key.device)
     pos_sorted = ar - torch.searchsorted(ks, ks, side="left")
     pos = torch.empty_like(pos_sorted)
     pos[order] = pos_sorted
+    return pos
+
+
+def _dispatch_tier(flat, st, tier_slot, in_tier, n_slots: int, cap: int, pos=None):
+    """Scatter this tier's assignments into [n_slots, cap, D] buffers, each
+    at its rank among the slot's assignments (`pos`: given, or counted
+    here). Returns (buffers, dst [t*k] row of each assignment, ok [t*k])."""
+    d = flat.shape[1]
+    key = torch.where(in_tier, tier_slot, torch.full_like(tier_slot, n_slots)).long()
+    if pos is None:
+        pos = slot_positions(key)
     ok = in_tier & (pos < cap)
     dst = torch.where(ok, key * cap + pos, torch.full_like(key, n_slots * cap))
     buf = torch.zeros((n_slots * cap + 1, d), dtype=flat.dtype, device=flat.device)
     # pad/over-capacity assignments all land on the discarded last row
     buf[dst] = flat[st]
     return buf[: n_slots * cap].reshape(n_slots, cap, d), dst, ok
+
+
+def _cold_capacity(t: int, k: int, cold_capacity_frac: float) -> int:
+    return max(k, int(t * cold_capacity_frac + 0.999))
 
 
 def tiered_moe_forward(
@@ -174,7 +186,7 @@ def tiered_moe_forward(
     contrib = None  # [t*k, D]: each assignment's weighted expert output
     for tid, key in enumerate(TIER_KEYS):
         n_slots = state[key].shape[0]
-        cap = t if tid != COLD_T else max(mo.top_k, int(t * cold_capacity_frac + 0.999))
+        cap = t if tid != COLD_T else _cold_capacity(t, mo.top_k, cold_capacity_frac)
         in_tier = a_tier == tid
         if a_live is not None:
             in_tier = in_tier & a_live
@@ -184,19 +196,129 @@ def tiered_moe_forward(
         c = obuf[dst] * (a_w * ok).to(o.dtype)[:, None]
         # an assignment lives in one tier: the other tiers add exact zeros
         contrib = c if contrib is None else contrib + c
-    # combine: each token's k contributions summed in order, in x's dtype
-    # (the reference's y.at[a_tok].add), with no atomics
-    ck = contrib.reshape(t, k, d)
+    y = _combine(contrib, x, k)
+    if mo.n_shared:
+        y = y + shared_ffn(p["shared"], x)
+    return y, _counts(a_exp, a_live, e)
+
+
+def _combine(contrib: torch.Tensor, x: torch.Tensor, k: int) -> torch.Tensor:
+    """Each token's k contributions [t*k, D] summed in order, in x's dtype
+    (the reference's y.at[a_tok].add), with no atomics: [B, S, D]."""
+    ck = contrib.reshape(-1, k, x.shape[-1])
     y = ck[:, 0]
     for j in range(1, k):
         y = y + ck[:, j]
-    y = y.reshape(b, s, d).to(x.dtype)
-    if mo.n_shared:
-        y = y + shared_ffn(p["shared"], x)
+    return y.reshape(x.shape).to(x.dtype)
+
+
+def _counts(a_exp: torch.Tensor, a_live, e: int) -> torch.Tensor:
+    """Live assignments per expert [E] int32."""
     one = (torch.ones_like(a_exp, dtype=torch.int32) if a_live is None
            else a_live.to(torch.int32))
-    counts = torch.zeros((e,), dtype=torch.int32, device=x.device).index_add_(0, a_exp, one)
-    return y, counts
+    return torch.zeros((e,), dtype=torch.int32, device=a_exp.device).index_add_(0, a_exp, one)
+
+
+# ------------------------------------------------------ on a device mesh
+def tiered_moe_forward_mesh(tp, p, state, cfg, x: torch.Tensor, cold_capacity_frac: float = 0.25,
+                            token_mask: Optional[torch.Tensor] = None,
+                            backend: Optional[str] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`tiered_moe_forward` on a serving mesh (`tp`; p's and state's
+    leaves `Local`, x this rank's rows), each tier computed where
+    `tiered_pspec` puts it:
+    - hot (replicated, the GPU): this rank's rows on every expert;
+    - warm (F striped over "model", the AMX-CPU): this rank's rows on its
+      F/m columns of every expert; SiLU is per column, so the partial
+      down products sum exactly over "model";
+    - cold (expert slots homed over data x model, or over data with F
+      striped: DIMM-NDP): the tokens travel to the experts. The rows are
+      gathered over the home axes' DP part, each rank runs the slots it
+      homes and the outputs go back by one reduce-scatter (and a sum over
+      "model"). Capacity is the global token count's and each
+      assignment's place in its slot the global order's (every DP shard's
+      slot keys gathered), so drops fall where the one program drops them.
+    Returns (y [B, S, D], expert_counts [E] int32 summed over the DP
+    shards)."""
+    from repro_torch.distributed import tensor_parallel as tpl
+
+    mo = cfg.moe
+    e, k = mo.n_experts, mo.top_k
+    b, s, d = x.shape
+    kind = moe_backend(cfg, backend)
+    t = b * s
+    flat = x.reshape(t, d)
+    _, w, idx = router_topk(tpl.router_logits(tp, flat, p["router"]), k)
+
+    a_tok = torch.arange(t, device=x.device).repeat_interleave(k)
+    a_exp = idx.reshape(-1)
+    a_w = w.reshape(-1)
+    a_live = None
+    if token_mask is not None:
+        a_live = token_mask.reshape(t).repeat_interleave(k)
+    a_tier = state["expert_tier"].t[a_exp]
+    a_slot = state["expert_slot"].t[a_exp].long()
+
+    contrib = None
+    for tid, key in enumerate(TIER_KEYS):
+        buf = state[key]
+        in_tier = a_tier == tid
+        if a_live is not None:
+            in_tier = in_tier & a_live
+        if tid == COLD_T:
+            c = _cold_mesh(tp, buf, flat, a_w, a_slot, in_tier,
+                           _cold_capacity(t * tp.n_dp, k, cold_capacity_frac), kind, s == 1, k)
+        else:
+            if buf.axes not in ({}, {"model": 3}):
+                raise ValueError(f"the {key} tier split as {buf.axes}")
+            n_slots = buf.t.shape[0]
+            h, dst, ok = _dispatch_tier(flat, a_tok, a_slot, in_tier, n_slots, t)
+            o = _tier_ffn(buf.t, h, kind, decode=(s == 1))
+            obuf = torch.cat([o.reshape(n_slots * t, d), o.new_zeros((1, d))])
+            c = obuf[dst] * (a_w * ok).to(o.dtype)[:, None]
+            if "model" in buf.axes:  # F columns: partial down products
+                c = tp.sum_model(c)
+        contrib = c if contrib is None else contrib + c
+    y = _combine(contrib, x, k)
+    if mo.n_shared:
+        y = y + tpl.shared_ffn(tp, p["shared"], x)
+    return y, tp.sum_dp(_counts(a_exp, a_live, e))
+
+
+def _cold_mesh(tp, buf, flat, a_w, a_slot, in_tier, cap: int, kind: str, decode: bool, k: int):
+    """The cold tier's contributions [t*k, D] to this rank's assignments
+    (see `tiered_moe_forward_mesh`). `buf` [n_slots, 3, D, F] as
+    `tiered_pspec` splits it: slots over data x model or data, F over
+    "model", or neither."""
+    n_slots = buf.shape[0]
+    homes = tuple(a for a, dim in buf.axes.items() if dim == 0)
+    f_split = buf.axes.get("model") == 3
+    if set(buf.axes) - set(homes) - ({"model"} if f_split else set()):
+        raise ValueError(f"the cold tier split as {buf.axes}")
+    tk, d = a_slot.shape[0], flat.shape[1]
+    # every DP shard's slot keys: positions in the global assignment order
+    key = torch.where(in_tier, a_slot, torch.full_like(a_slot, n_slots))
+    keys = tp.gather_dp(key).reshape(-1)
+    pos_all = slot_positions(keys)
+    # the rows travel over the home axes' DP part (the data shards of this pod)
+    grp = tp.group(tuple(a for a in homes if a != "model"))
+    _, n_g, i_g = grp
+    first = (tp.dp_i - i_g) * tk
+    keys_g = keys[first:first + n_g * tk]
+    flat_g = tp.all_gather(flat, grp)
+    n_local = buf.t.shape[0]
+    _, _, home = tp.group(homes)
+    lo = home * n_local
+    mine = (keys_g >= lo) & (keys_g < lo + n_local)
+    a_tok_g = torch.arange(flat_g.shape[0], device=flat.device).repeat_interleave(k)
+    h, dst, ok = _dispatch_tier(flat_g, a_tok_g, keys_g - lo, mine, n_local, cap,
+                                pos=pos_all[first:first + n_g * tk])
+    o = _tier_ffn(buf.t, h, kind, decode)
+    obuf = torch.cat([o.reshape(n_local * cap, d), o.new_zeros((1, d))])
+    out = tp.reduce_scatter(obuf[dst], grp)  # back to the shards the rows came from
+    if "model" in homes or f_split:
+        out = tp.sum_model(out)
+    pos = pos_all[tp.dp_i * tk:(tp.dp_i + 1) * tk]
+    return out * (a_w * (in_tier & (pos < cap))).to(out.dtype)[:, None]
 
 
 # ------------------------------------------------------------ migrations

@@ -112,6 +112,31 @@ class _Gather:
         return unflatten(tree, flat)
 
 
+def _whole_stacks(params: Params, mesh, places):
+    """(params, places) with every stacked leaf whose scan-group dim the
+    rules split (a dense MLP [L, D, F] read as experts when the layer count
+    divides the axis) gathered along it, so each scan group can be taken:
+    its gradient flows back as this rank's groups (the later gathers sum
+    it over the DP shards)."""
+    from torch.distributed.tensor import Replicate
+
+    from repro_torch.distributed.collectives import gather_dim
+
+    places = dict(places)
+    flat = []
+    for path, leaf in leaves_with_path(params):
+        pl = places[path]
+        if path[0] == "stack" and any(p.is_shard() and p.dim == 0 for p in pl):
+            pl = list(pl)
+            for i in reversed(range(len(pl))):  # inner mesh dims first
+                if pl[i].is_shard() and pl[i].dim == 0:
+                    leaf = gather_dim(leaf, mesh.get_group(i), 0)
+                    pl[i] = Replicate()
+            places[path] = pl
+        flat.append(leaf)
+    return unflatten(params, flat), places
+
+
 def mesh_value_and_grad(params: Params, cfg: ModelConfig, batch: Dict[str, Any], mesh,
                         places):
     """`value_and_grad` on a mesh: params a tree of this rank's shards
@@ -122,7 +147,8 @@ def mesh_value_and_grad(params: Params, cfg: ModelConfig, batch: Dict[str, Any],
     _, n_dp, _ = shd.dp_group(mesh)
     local = {k: shd.shard_rows(v, mesh) for k, v in batch.items()}
     with shd.use_mesh(mesh), torch.enable_grad():
-        logits, aux, counts = forward_train(tracked, cfg, local, gather=_Gather(mesh, places))
+        stacks, places = _whole_stacks(tracked, mesh, places)
+        logits, aux, counts = forward_train(stacks, cfg, local, gather=_Gather(mesh, places))
         ce_part = cross_entropy(logits, local["labels"]) * (1.0 / n_dp)  # rows' share
         flat = leaves(tracked)
         grads = torch.autograd.grad(ce_part + aux, flat, allow_unused=True)

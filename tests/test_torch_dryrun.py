@@ -5,8 +5,15 @@ device (params, AdamW state, batch, decode cache, tiered experts) equal
 what the reference's specs imply for its `jax.eval_shape` trees (each
 leaf's bytes over the product of the axis sizes its spec names), built
 as the reference's `build_cell` builds them; no compile. Then the
-port's dry-run CLI on one cell."""
+port's dry-run CLI on one cell (bytes), its fake-world trace of a smoke
+decode cell against a real 4-rank gloo run of it, and the CLI's trace of
+one production cell on 256 fake ranks."""
 import json
+import os
+import subprocess
+import sys
+import time
+from pathlib import Path
 
 import jax
 import numpy as np
@@ -106,3 +113,66 @@ def test_dryrun_cli_writes_one_cell(tmp_path):
         assert res["n_devices"] == (256 if kind == "single" else 512)
         assert set(res["bytes_per_device"]) == {"batch", "cache", "tiered", "params"}
         assert res["replicated_large_leaves"] == 0
+
+
+# ------------------------------------------------- the fake-world trace
+@pytest.fixture(scope="module")
+def gloo_cell(tmp_path_factory):
+    """The smoke decode cell's collectives in a real 4-rank gloo run on
+    (2, 2) (tests/torch_mesh_serve_worker.py, mode "dryrun")."""
+    import torch_mesh_serve_worker as worker
+
+    out = worker.spawn_world(tmp_path_factory.mktemp("dryrun_cell"), "dryrun", 180)
+    return out["dryrun_cell"]
+
+
+def test_fake_trace_matches_gloo_run_and_divides_flops(gloo_cell):
+    """The fake-world trace of the smoke decode cell on (2, 2) records the
+    kinds, counts and bytes of collectives that CommDebugMode and the
+    CollectiveCounter record in the real run; its FLOPs are the unsharded
+    trace's divided as the specs say: by 4 (rows over data; heads, keys,
+    the router's D, warm F, cold slots and vocab over model) but the hot
+    tier's, replicated over model, by 2 (rows only)."""
+    import torch_mesh_serve_worker as worker
+    from repro_torch.serving.tiered_moe import TierSizes
+
+    c = worker.DRYRUN_CELL
+    cfg = worker.port_cfg(c["arch"])
+    sizes = TierSizes(*c["sizes"])
+    traced = dryrun.trace_cell(cfg, "decode", c["batch"], c["seq"], {"data": 2, "model": 2},
+                               sizes=sizes)
+    coll = traced["collectives"]
+    for kind in dryrun.COLLECTIVES:
+        assert coll["counts"][kind] == gloo_cell["comm_debug_counts"].get(kind, 0), kind
+        assert coll["counts"][kind] == gloo_cell["counter"]["counts"][kind], kind
+        assert coll[kind] == gloo_cell["counter"][kind], kind
+    assert coll["counts"]["all-reduce"] and coll["counts"]["reduce-scatter"]
+    whole = dryrun.trace_cell(cfg, "decode", c["batch"], c["seq"], None, sizes=sizes)
+    assert whole["collectives"]["count"] == 0
+    # the hot tier's plain expert FFN: three [n_hot, B, D] x [D, F] products a layer
+    hot = cfg.n_layers * 6 * sizes.n_hot * c["batch"] * cfg.d_model * cfg.moe.d_expert
+    want = (whole["cost"]["flops"] - hot) / 4 + hot / 2
+    assert traced["cost"]["flops"] == want, (traced["cost"]["flops"], want)
+    mem = traced["memory"]
+    assert mem["argument_size_in_bytes"] > 0 and mem["temp_size_in_bytes"] > 0
+
+
+def test_dryrun_cli_traces_granite_decode_on_256_ranks(tmp_path):
+    """The CLI's default trace of one cell on the single-pod mesh: a fake
+    world of 256 ranks, within 60 s."""
+    root = Path(__file__).resolve().parents[1]
+    t0 = time.time()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", "granite-moe-1b-a400m",
+         "--shape", "decode_32k", "--mesh", "single", "--out", str(tmp_path)],
+        env=dict(os.environ, PYTHONPATH=str(root / "src"), OMP_NUM_THREADS="1"),
+        capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert time.time() - t0 < 60
+    res = json.loads((tmp_path / "granite-moe-1b-a400m__decode_32k__single.json").read_text())
+    assert res["n_devices"] == 256
+    assert res["cost"]["flops"] > 0
+    coll = res["collectives"]
+    assert coll["count"] > 0 and coll["reduce-scatter"] > 0 and coll["all-gather"] > 0
+    assert res["memory"]["argument_size_in_bytes"] == res["state_bytes_per_device"]
+    assert res["memory"]["temp_size_in_bytes"] > 0
