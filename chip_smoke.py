@@ -48,12 +48,15 @@ Phases, each fatal on failure:
      `compressed_psum` over NCCL, and one MoE layer's grouped dispatch with
      the MoE hints against the plain route; the serving functions' mesh
      path on a (1, 1) NCCL mesh ("mesh_serve"): granite at full width and
-     depth, tiers (8, 10, 14), a masked prefill of 8 rows and 16 decode
-     steps, fp32 tokens identical to the unsharded path's and logits
-     within 1e-5, bf16 GEMV 72 launches a step on both paths and equal
-     moe_gemm prefill launches, each path's decode p50, and the dry-run's
-     fake-tensor trace of that cell at world size 1 (its temporaries
-     beside the card's); the dense family:
+     depth, tiers (8, 10, 14), jamba at full width (8 layers in bf16, 5
+     in fp32, tiers (4, 5, 7)), xlstm-125m and seamless-m4t-large-v2 at
+     full width and depth, a masked prefill of 8 rows and 16 decode
+     steps each, fp32 tokens identical to the unsharded path's and logits
+     within 1e-5, bf16 GEMV 3 launches a MoE layer a step on both paths
+     (granite 72, jamba 12) and moe_gemm 6 a MoE layer in the prefill,
+     none of the five kernels for xlstm and seamless, each path's decode
+     p50, and the dry-run's fake-tensor trace of each cell at world size
+     1 (its temporaries beside the card's); the dense family:
      granite-20b (MQA: 48 query heads over 1 KV head, hd 128) at published
      width with its depth cut to 44 layers, 4 right-padded rows through
      `prefill_paged` and 16 greedy `decode_step_paged` steps (the paged GQA
@@ -2045,10 +2048,22 @@ def distributed_phase(dev) -> list:
 
 MESH_SERVE_PATH = "mesh_serve"  # granite's tiered prefill + decode on a (1, 1) NCCL mesh
 MESH_ROWS, MESH_PROMPT, MESH_STEPS = 8, 64, 16
+# jamba at fp32 on the mesh phase: layers 0-4 (Mamba 0-3 with MoE at 1 and
+# 3, the attention layer at 4); 8 fp32 layers' draw would not fit the card
+JAMBA_MESH_FP32_LAYERS = 5
+# each arch of the mesh phase: (path, bf16 depth, fp32 depth; None: the
+# published one), in run order
+MESH_SERVE_ARCHS = {
+    GQA_ARCH: (MESH_SERVE_PATH, None, None),
+    JAMBA_ARCH: (MESH_SERVE_PATH + "/jamba", JAMBA_LAYERS, JAMBA_MESH_FP32_LAYERS),
+    XLSTM_ARCH: (MESH_SERVE_PATH + "/xlstm", None, None),
+    ENCDEC_ARCH: (MESH_SERVE_PATH + "/seamless", None, None),
+}
 
 
-def _mesh_serve_run(params, tiered, cfg, toks, mask, mesh=None):
-    """A masked prefill of `toks` through the tiers, then MESH_STEPS greedy
+def _mesh_serve_run(params, tiered, cfg, toks, mask, mesh=None, frames=None):
+    """A masked prefill of `toks` (through the tiers when given; over the
+    encoder's `frames` for an encoder-decoder), then MESH_STEPS greedy
     decode steps (on `mesh`: the mesh path, params and tiers DTensors).
     Returns (tokens [steps, B], logits [steps + 1, B, V] on the host, each
     decode step's seconds and GEMV launches, the prefill's launches, the
@@ -2060,7 +2075,7 @@ def _mesh_serve_run(params, tiered, cfg, toks, mask, mesh=None):
     torch.cuda.reset_peak_memory_stats()
     reset_counters()
     logits, cache = prefill(params, cfg, toks, cache_len, tiered=tiered, token_mask=mask,
-                            mesh=mesh)
+                            frames=frames, mesh=mesh)
     torch.cuda.synchronize()
     prefill_launches = read_counters()
     temp = {"prefill": torch.cuda.max_memory_allocated() - base, "decode": 0}
@@ -2084,106 +2099,158 @@ def _mesh_serve_run(params, tiered, cfg, toks, mask, mesh=None):
             temp)
 
 
-def mesh_serve_phase(dev) -> dict:
-    """The serving functions' mesh path on one card: granite-moe-1b-a400m
-    at published width and full depth (24 layers), tiers as the serve
-    phases size them (8 hot, 10 warm, 14 cold), a masked prefill of
-    MESH_ROWS rows through the tiers and MESH_STEPS greedy decode steps,
-    through the unsharded `prefill` / `decode_step` and through
-    `prefill(..., mesh=)` / `decode_step(..., mesh=)` on a (1, 1) NCCL mesh
-    (params and tiers DTensors; every spec replicated there, so each tier
-    runs whole on the rank and the DP collectives run on one-rank groups).
-    fp32: the mesh path's tokens identical to the unsharded path's, its
-    logits within 1e-5 of their largest. bf16: the GEMV 72 launches a
-    step (3 tiers x 24 layers) on both, moe_gemm's prefill launches equal,
-    each path's decode-step p50; the counters reset just before the bf16
-    mesh run are the path's launches. Before NCCL starts, the dry-run's
-    fake-tensor trace of the bf16 cell at world size 1 (a one-rank fake
-    world, the kernels as their launches): its step temporaries beside the
-    card's (the allocator's peak above what the step found allocated)."""
-    import torch.distributed as dist
+def _mesh_cfg(pub, dtype, layers):
+    cfg = dataclasses.replace(pub, param_dtype=str(dtype)[6:])
+    return cfg if layers is None else dataclasses.replace(cfg, n_layers=layers)
 
+
+def _mesh_serve_arch(dev, mesh, arch, sizes, toks, mask) -> dict:
+    """One arch of `mesh_serve_phase`: fp32 then bf16, the unsharded path
+    then the mesh path on the same storage (on a (1, 1) mesh every spec is
+    replicated, so the DTensors wrap the unsharded tensors), each run's
+    logits kept on the host. Returns the arch's report; its "launches" are
+    the bf16 mesh run's (the counters reset just before it), its peak the
+    card's largest allocation: each dtype's setup (params drawn, experts
+    copied into tiers) or a step of its runs."""
     from repro_torch.distributed import sharding as shd
-    from repro_torch.launch import dryrun
-    from repro_torch.launch.mesh import make_debug_mesh
-    from repro_torch.models.layers import make_generator
+    from repro_torch.models.layers import make_generator, torch_dtype
     from repro_torch.serving.engine import strip_expert_weights
-    from repro_torch.serving.tiered_moe import tier_sizes
 
-    t_phase = time.time()
-    pub = get_config(GQA_ARCH)
-    sizes = tier_sizes(pub)
-    if tuple(sizes) != (8, 10, 14):
-        fail(f"{MESH_SERVE_PATH}: granite's tiers are {tuple(sizes)}, not the serve phases' "
-             "(8, 10, 14)")
-    one = {"data": 1, "model": 1}
-    t0 = time.time()
-    trace = {
-        "prefill": dryrun.trace_cell(pub, "prefill", MESH_ROWS, MESH_PROMPT, one, sizes=sizes,
-                                     tiered_prefill=True, cache_len=MESH_PROMPT + MESH_STEPS,
-                                     pad_cold_to=1),
-        "decode": dryrun.trace_cell(pub, "decode", MESH_ROWS, MESH_PROMPT + MESH_STEPS, one,
-                                    sizes=sizes, pad_cold_to=1)}
-    trace_s = time.time() - t0
-    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1,
-                            device_id=dev)
-    mesh = make_debug_mesh(device_type="cuda")
-    gen = torch.Generator().manual_seed(21)
-    toks = torch.randint(0, pub.vocab_size, (MESH_ROWS, MESH_PROMPT), generator=gen).to(dev)
-    lens = torch.randint(MESH_PROMPT // 2, MESH_PROMPT + 1, (MESH_ROWS,), generator=gen)
-    mask = (torch.arange(MESH_PROMPT)[None, :] < lens[:, None]).to(dev)
-    out = {}
-    for dtype in (torch.float32, torch.bfloat16):
-        cfg = dataclasses.replace(pub, param_dtype=str(dtype)[6:])
+    path, bf16_layers, fp32_layers = MESH_SERVE_ARCHS[arch]
+    pub = get_config(arch)
+    out, peak = {}, 0
+    for dtype, layers in ((torch.float32, fp32_layers), (torch.bfloat16, bf16_layers)):
+        cfg = _mesh_cfg(pub, dtype, layers)
+        torch.cuda.reset_peak_memory_stats()
         params = init_params(0, cfg, device=dev)
-        tiered = fill_tiers_from_params(params, init_tiered_for_model(
-            make_generator(1, dev), cfg, sizes, mesh=mesh), cfg)
-        params = strip_expert_weights(params, cfg)
+        tiered = None
+        if sizes is not None:
+            tiered = fill_tiers_from_params(params, init_tiered_for_model(
+                make_generator(1, dev), cfg, sizes, mesh=mesh), cfg)
+            params = strip_expert_weights(params, cfg)
+        frames = (None if cfg.encdec is None
+                  else _frames(cfg, toks.shape[0], 22, torch_dtype(cfg.param_dtype), dev))
+        setup_peak = torch.cuda.max_memory_allocated()  # the runs reset the peak
         with torch.no_grad():
-            plain = _mesh_serve_run(params, tiered, cfg, toks, mask)
+            plain = _mesh_serve_run(params, tiered, cfg, toks, mask, frames=frames)
             on_mesh = _mesh_serve_run(
                 shd.shard_tree(params, mesh, shd.tree_pspecs(params, mesh, cfg)),
-                shd.shard_tiered(tiered, mesh), cfg, toks, mask, mesh)
+                None if tiered is None else shd.shard_tiered(tiered, mesh), cfg, toks, mask,
+                mesh, frames)
         launches = read_counters()  # the bf16 mesh run is the path's
+        peak = max(peak, setup_peak, torch.cuda.max_memory_allocated())
         rel = float((on_mesh[1] - plain[1]).abs().max() / plain[1].abs().max())
         same = bool(torch.equal(on_mesh[0], plain[0]))
         if not bool(torch.isfinite(on_mesh[1]).all()):
-            fail(f"{MESH_SERVE_PATH}: non-finite {dtype} logits on the mesh path")
+            fail(f"{path}: non-finite {dtype} logits on the mesh path")
         if dtype == torch.float32 and (not same or rel > 1e-5):
-            fail(f"{MESH_SERVE_PATH}: fp32 mesh tokens equal {same}, logits {rel:.3e} "
-                 "(relative) off the unsharded path's")
-        n_moe = sum(cfg.uses_moe_layer(i) for i in range(cfg.n_layers))
+            fail(f"{path}: fp32 mesh tokens equal {same}, logits {rel:.3e} (relative) off "
+                 "the unsharded path's")
+        n_moe = sum(cfg.uses_moe_layer(i) for i in range(cfg.n_layers)) if cfg.moe else 0
         for name, run in (("unsharded", plain), ("mesh", on_mesh)):
-            if set(run[3]) != {3 * n_moe}:
-                fail(f"{MESH_SERVE_PATH}: {name} {dtype} GEMV launches a step {run[3]}, not "
-                     f"{3 * n_moe}")
-        if on_mesh[4] != plain[4] or on_mesh[4]["moe_gemm"] != 6 * n_moe:
-            fail(f"{MESH_SERVE_PATH}: prefill launches {on_mesh[4]} (unsharded {plain[4]}), "
-                 f"not moe_gemm's {6 * n_moe} (2 a tier a layer)")
+            if sizes is None and (any(run[4].values()) or any(run[3])):
+                fail(f"{path}: a kernel launched on the {name} {dtype} path: {run[4]}, GEMV "
+                     f"{run[3]} (no Pallas kernel reaches this arch in the reference)")
+            if sizes is not None and set(run[3]) != {3 * n_moe}:
+                fail(f"{path}: {name} {dtype} GEMV launches a step {run[3]}, not {3 * n_moe}")
+        if sizes is not None and (on_mesh[4] != plain[4] or on_mesh[4]["moe_gemm"] != 6 * n_moe):
+            fail(f"{path}: prefill launches {on_mesh[4]} (unsharded {plain[4]}), not "
+                 f"moe_gemm's {6 * n_moe} (2 a tier a layer)")
         out[str(dtype)[6:]] = dict(
-            tokens_equal=same, logits_max_rel_err=rel,
+            layers=cfg.n_layers, setup_peak_gb=setup_peak / 1e9, tokens_equal=same,
+            logits_max_rel_err=rel,
             token_agreement=float((on_mesh[0] == plain[0]).float().mean()),
             decode_p50_ms=float(np.median(on_mesh[2]) * 1e3),
             unsharded_decode_p50_ms=float(np.median(plain[2]) * 1e3),
             gemv_launches_per_step=on_mesh[3][0], prefill_launches=on_mesh[4],
             step_temp_bytes=on_mesh[5], unsharded_step_temp_bytes=plain[5])
-        del params, tiered, plain, on_mesh
+        del params, tiered, plain, on_mesh, frames
         gc.collect()
         torch.cuda.empty_cache()
+    return dict(path=path, launches=launches, by_dtype=out, peak_mem_gb=peak / 1e9)
+
+
+def mesh_serve_phase(dev) -> list:
+    """The serving functions' mesh path on one card, arch by arch
+    (MESH_SERVE_ARCHS), a masked prefill of MESH_ROWS rows of MESH_PROMPT
+    slots and MESH_STEPS greedy decode steps through the unsharded
+    `prefill` / `decode_step` and through `prefill(..., mesh=)` /
+    `decode_step(..., mesh=)` on a (1, 1) NCCL mesh (params and tiers
+    DTensors; every spec replicated there, so each tier runs whole on the
+    rank, and the DP and "model" collectives run on one-rank groups):
+    - granite-moe-1b-a400m at published width and full depth (24 layers),
+      tiers as the serve phases size them (8 hot, 10 warm, 14 cold);
+    - jamba-v0.1-52b at full width, 8 layers (one Jamba block: Mamba
+      channel-parallel, the attention layer at 4, MoE at 1 / 3 / 5 / 7)
+      in bf16, 5 at fp32, tiers (4, 5, 7);
+    - xlstm-125m and seamless-m4t-large-v2 (the encoder over [8, 1024,
+      1024] frames) at full width and depth.
+    fp32: the mesh path's tokens identical to the unsharded path's, its
+    logits within 1e-5 of their largest. bf16: a tiered arch's GEMV at 3 a
+    MoE layer a step (granite 72, jamba 12) and moe_gemm's prefill
+    launches 6 a MoE layer (granite 144, jamba 24) on both paths; xlstm and
+    seamless launch none of the five kernels; each path's decode-step p50;
+    the counters reset just before the bf16 mesh run are the path's
+    launches. Before NCCL starts, the dry-run's fake-tensor trace of each
+    bf16 cell at world size 1 (a one-rank fake world, the kernels as their
+    launches): its step temporaries beside the card's (the allocator's
+    peak above what the step found allocated)."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.serving.tiered_moe import tier_sizes
+
+    t_phase = time.time()
+    sizes = {GQA_ARCH: tier_sizes(get_config(GQA_ARCH)),
+             JAMBA_ARCH: ARCH_LOOP_KW[JAMBA_ARCH]["sizes"], XLSTM_ARCH: None, ENCDEC_ARCH: None}
+    if tuple(sizes[GQA_ARCH]) != (8, 10, 14):
+        fail(f"{MESH_SERVE_PATH}: granite's tiers are {tuple(sizes[GQA_ARCH])}, not the serve "
+             "phases' (8, 10, 14)")
+    one = {"data": 1, "model": 1}
+    trace, trace_s = {}, {}
+    for arch, (_, layers, _) in MESH_SERVE_ARCHS.items():
+        t0 = time.time()
+        cfg = _mesh_cfg(get_config(arch), torch.bfloat16, layers)
+        trace[arch] = {
+            "prefill": dryrun.trace_cell(cfg, "prefill", MESH_ROWS, MESH_PROMPT, one,
+                                         sizes=sizes[arch], tiered_prefill=True,
+                                         cache_len=MESH_PROMPT + MESH_STEPS, pad_cold_to=1),
+            "decode": dryrun.trace_cell(cfg, "decode", MESH_ROWS, MESH_PROMPT + MESH_STEPS, one,
+                                        sizes=sizes[arch], pad_cold_to=1)}
+        trace_s[arch] = time.time() - t0
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1,
+                            device_id=dev)
+    mesh = make_debug_mesh(device_type="cuda")
+    paths = []
+    for arch, (path, _, _) in MESH_SERVE_ARCHS.items():
+        t_arch = time.time()
+        vocab = get_config(arch).vocab_size
+        gen = torch.Generator().manual_seed(21)
+        toks = torch.randint(0, vocab, (MESH_ROWS, MESH_PROMPT), generator=gen).to(dev)
+        lens = torch.randint(MESH_PROMPT // 2, MESH_PROMPT + 1, (MESH_ROWS,), generator=gen)
+        mask = (torch.arange(MESH_PROMPT)[None, :] < lens[:, None]).to(dev)
+        rep = _mesh_serve_arch(dev, mesh, arch, sizes[arch], toks, mask)
+        measured = rep["by_dtype"]["bfloat16"]["step_temp_bytes"]
+        tr = trace[arch]
+        mem = {k: dict(trace_temp_bytes=tr[k]["memory"]["temp_size_in_bytes"],
+                       trace_argument_bytes=tr[k]["memory"]["argument_size_in_bytes"],
+                       card_temp_bytes=measured[k],
+                       trace_over_card=tr[k]["memory"]["temp_size_in_bytes"]
+                       / max(measured[k], 1))
+               for k in ("prefill", "decode")}
+        print(json.dumps(dict(
+            phase="mesh_serve", path=path, arch=arch, mesh=[1, 1], backend="nccl",
+            rows=MESH_ROWS, prompt=MESH_PROMPT, steps=MESH_STEPS,
+            tiers=None if sizes[arch] is None else list(sizes[arch]),
+            launches=rep["launches"], by_dtype=rep["by_dtype"], peak_mem_gb=rep["peak_mem_gb"],
+            trace_memory=mem, trace_collectives={k: tr[k]["collectives"]["counts"] for k in tr},
+            trace_s=trace_s[arch], seconds=time.time() - t_arch)), flush=True)
+        paths.append(dict(path=path, launches=rep["launches"]))
     dist.destroy_process_group()
-    measured = out["bfloat16"]["step_temp_bytes"]
-    mem = {k: dict(trace_temp_bytes=trace[k]["memory"]["temp_size_in_bytes"],
-                   trace_argument_bytes=trace[k]["memory"]["argument_size_in_bytes"],
-                   card_temp_bytes=measured[k],
-                   trace_over_card=trace[k]["memory"]["temp_size_in_bytes"] / max(measured[k], 1))
-           for k in ("prefill", "decode")}
-    print(json.dumps(dict(
-        phase="mesh_serve", path=MESH_SERVE_PATH, arch=GQA_ARCH, mesh=[1, 1], backend="nccl",
-        layers=pub.n_layers, rows=MESH_ROWS, prompt=MESH_PROMPT, steps=MESH_STEPS,
-        tiers=list(sizes), launches=launches, by_dtype=out, trace_memory=mem,
-        trace_collectives={k: trace[k]["collectives"]["counts"] for k in trace},
-        trace_s=trace_s, seconds=time.time() - t_phase)), flush=True)
-    return dict(path=MESH_SERVE_PATH, launches=launches)
+    print(json.dumps(dict(phase="mesh_serve", archs=list(MESH_SERVE_ARCHS),
+                          seconds=time.time() - t_phase)), flush=True)
+    return paths
 
 
 # ------------------------------------------------------ encoder-decoder
@@ -2491,7 +2558,7 @@ def main(argv=None) -> int:
         paths += distributed_phase(dev)
         _cleared()
     if "mesh_serve" in run:
-        paths.append(mesh_serve_phase(dev))
+        paths += mesh_serve_phase(dev)
         _cleared()
     for name, phase in (("seamless", seamless_phase), ("seamless_train", seamless_train_phase),
                         ("dense", lambda d: dense_phase(d, profile_out))):

@@ -449,24 +449,32 @@ def named_shardings(mesh, specs):
 
 # ------------------------------------------------------------ the active mesh
 _ACTIVE = None  # the DeviceMesh model code runs on, or None (one device)
+_ACTIVE_BATCH = None  # its global batch's rows (None: they split over the DP axes)
 
 
 @contextlib.contextmanager
-def use_mesh(mesh):
+def use_mesh(mesh, batch: Optional[int] = None):
     """Run the model code on `mesh`: its batch rows split over the DP
-    axes, so the MoE's global dispatch, aux loss and counts exchange what
-    they need over them, and the expert- and sequence-parallel hints
-    (models/moe.py, models/attention.py) find their groups here."""
-    global _ACTIVE
-    prev, _ACTIVE = _ACTIVE, mesh
+    axes (or, for a global `batch` that does not divide them, whole on
+    every DP shard), so the MoE's global dispatch, aux loss and counts
+    exchange what they need over them, and the expert- and sequence-
+    parallel hints (models/moe.py, models/attention.py) find their groups
+    here."""
+    global _ACTIVE, _ACTIVE_BATCH
+    prev, _ACTIVE, _ACTIVE_BATCH = (_ACTIVE, _ACTIVE_BATCH), mesh, batch
     try:
         yield mesh
     finally:
-        _ACTIVE = prev
+        _ACTIVE, _ACTIVE_BATCH = prev
 
 
 def active_mesh():
     return _ACTIVE
+
+
+def active_batch() -> Optional[int]:
+    """The active mesh's global batch rows, as `use_mesh` was given them."""
+    return _ACTIVE_BATCH
 
 
 def axis_group(mesh, axes) -> Tuple[Any, int, int]:
@@ -504,19 +512,28 @@ def axis_group(mesh, axes) -> Tuple[Any, int, int]:
     return cache[axes]
 
 
-def dp_group(mesh) -> Tuple[Any, int, int]:
-    """(group, size, row-shard index) over the mesh's DP axes."""
+def rows_split(mesh, batch: int) -> bool:
+    """Whether a global batch of `batch` rows splits over the mesh's DP
+    axes; where it does not, every DP shard holds and computes all of them
+    (the reference's dry-run replicates such a batch, `cache_pspec` its
+    cache's batch dim)."""
+    return batch % dp_size(mesh) == 0
+
+
+def dp_group(mesh, batch: Optional[int] = None) -> Tuple[Any, int, int]:
+    """(group, size, row-shard index) over the mesh's DP axes; (None, 1, 0)
+    without DP axes or for a global `batch` that does not split over them
+    (every shard holds the whole batch: nothing is exchanged over DP)."""
     dp = dp_axes(mesh)
-    if dp is None:
+    if dp is None or (batch is not None and not rows_split(mesh, batch)):
         return None, 1, 0
     return axis_group(mesh, dp)
 
 
 def shard_rows(x: torch.Tensor, mesh) -> torch.Tensor:
     """This rank's rows (dim 0) of a global batch leaf: the batch splits
-    over the DP axes, pod-major."""
-    _, n, idx = dp_group(mesh)
-    if x.shape[0] % n:
-        raise ValueError(f"batch of {x.shape[0]} rows does not split over {n} DP shards")
+    over the DP axes, pod-major, or stays whole on every DP shard where it
+    does not divide them."""
+    _, n, idx = dp_group(mesh, x.shape[0])
     step = x.shape[0] // n
     return x[idx * step:(idx + 1) * step]

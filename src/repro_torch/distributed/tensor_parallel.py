@@ -12,7 +12,12 @@ over "model" decides the layer's partitioning, as the rules place it:
 - one split along its contracting dim (the heads' fallback D, a row-
   parallel w_down or wo, the router) gives partial sums, all-reduced over
   "model";
-- a replicated one is computed whole on every rank.
+- a replicated one is computed whole on every rank;
+- one whose columns hold nb blocks ([x | z], [i | f | z | o]) while the
+  layer's state splits its channels is regrouped to this rank's channels
+  of each block by one all-to-all (`block_cols`, `block_weight`).
+A batch that does not split over the DP axes stays whole on every DP rank
+(`TP`'s `batch`), as the reference replicates it.
 
 Every collective here runs on its group even when the group is one rank
 (a (1, 1) mesh runs the mesh code and its collectives, not the unsharded
@@ -102,19 +107,26 @@ def _all_to_all(x: torch.Tensor, group) -> torch.Tensor:
 class TP:
     """The mesh's groups as the serving functions use them: "model" (the
     tensor- and sequence-parallel axis), the DP axes (pod, data: the batch
-    rows), and "data" (FSDP storage, the cold tier's homes)."""
+    rows), and "data" (FSDP storage, the cold tier's homes).
 
-    def __init__(self, mesh):
+    `batch` is the global batch's rows. Where it does not split over the DP
+    axes (`split` false) every DP shard holds and computes the whole batch,
+    as the reference replicates it: the DP group is then (None, 1, 0) and
+    nothing that sums or gathers rows runs over it, so the replicas count
+    once."""
+
+    def __init__(self, mesh, batch: Optional[int] = None):
         self.mesh = mesh
         self.names = list(mesh.mesh_dim_names)
         self.sizes = shd.mesh_shape(mesh)
         if "model" not in self.sizes:
             raise ValueError(f"a serving mesh needs a 'model' axis, got {self.names}")
         self.model, self.m, self.mi = shd.axis_group(mesh, "model")
-        dp = shd.dp_axes(mesh)
-        if dp is None:
+        if shd.dp_axes(mesh) is None:
             raise ValueError(f"a serving mesh needs a DP axis, got {self.names}")
-        self.dp, self.n_dp, self.dp_i = shd.axis_group(mesh, dp)
+        self.batch = batch
+        self.split = batch is None or shd.rows_split(mesh, batch)
+        self.dp, self.n_dp, self.dp_i = shd.dp_group(mesh, batch)
 
     def group(self, axes) -> Tuple:
         """(group, size, index) over `axes` (mesh order), or a one-rank
@@ -133,11 +145,16 @@ class TP:
         return _all_gather(x, self.model, self.m, dim)
 
     def sum_dp(self, x):
-        return _all_reduce(x, self.dp)
+        """The sum over the DP shards' rows (replicated rows: `x` itself)."""
+        return _all_reduce(x, self.dp) if self.split else x
 
     def gather_dp(self, x):
         """[n_dp, *x.shape]: every DP shard's `x`, in global row order."""
-        return _all_gather(x[None], self.dp, self.n_dp, 0)
+        return _all_gather(x[None], self.dp, self.n_dp, 0) if self.split else x[None]
+
+    def all_reduce(self, x, grp):
+        g, _, _ = grp
+        return x if g is None else _all_reduce(x, g)
 
     def all_gather(self, x, grp, dim: int = 0):
         g, n, _ = grp
@@ -149,6 +166,25 @@ class TP:
 
     def all_to_all_model(self, x):
         return _all_to_all(x, self.model)
+
+    def regroup_model(self, pieces: torch.Tensor) -> torch.Tensor:
+        """Blocks split by columns to blocks split by channels. A leaf's
+        last dim holds nb blocks of W (Mamba's [x | z], sLSTM's [i | f | z
+        | o]) and "model" splits it into contiguous chunks, so rank j holds
+        pieces p = j * nb + q (q < nb) of W/m, where piece p is channels
+        [r W/m, (r + 1) W/m) of block b for p = b m + r. `pieces` [nb, ...]
+        are this rank's, in order; one all-to-all over "model" sends piece
+        p to rank r and returns [nb, ...]: this rank's channels of blocks
+        0..nb-1."""
+        nb, m, j = pieces.shape[0], self.m, self.mi
+        dest = [(j * nb + q) % m for q in range(nb)]
+        order = sorted(range(nb), key=lambda q: (dest[q], q))
+        src = [(b * m + j) // nb for b in range(nb)]  # blocks arrive in src order = b order
+        send = torch.cat([pieces[q:q + 1] for q in order])  # device ops only: no host copy
+        out = torch.empty_like(send)
+        dist.all_to_all_single(out, send, [src.count(r) for r in range(m)],
+                               [dest.count(r) for r in range(m)], group=self.model)
+        return out
 
     # ---------------------------------------------------------- weights
     def chunk(self, n: int) -> Tuple[int, int]:
@@ -250,6 +286,45 @@ def out_proj(tp: TP, x: torch.Tensor, w_leaf: Local, transpose: bool = False,
     if dm == 0:
         return tp.sum_model(mm(tp.take(x, -1, d, idx), w))
     return mm(x, w)
+
+
+def block_weight(tp: TP, leaf: Local, nb: int, split: bool) -> torch.Tensor:
+    """A weight whose last dim holds nb blocks of W channels, as this rank
+    computes with it: [..., nb, W/m] (its channels of every block) where
+    `split` (the channels a layer's state splits over "model"), else
+    [..., nb, W]. A column-split weight is regrouped by one all-to-all
+    over "model" (`TP.regroup_model`); a whole one is cut."""
+    w, dm, idx = tp.weight(leaf)
+    last = len(leaf.shape) - 1
+    blocks = leaf.shape[-1] // nb
+    if dm is None:
+        w = w.unflatten(-1, (nb, blocks))
+        if not split:
+            return w
+        lo, n = tp.chunk(blocks)
+        return w.narrow(-1, lo, n)
+    if dm != last or idx is not None or not split:
+        raise ValueError(f"a block weight {leaf.shape} split as {leaf.axes}, channels "
+                         f"{'split' if split else 'whole'}")
+    pieces = w.unflatten(-1, (nb, -1)).movedim(-2, 0)
+    return tp.regroup_model(pieces).movedim(0, -2)
+
+
+def block_cols(tp: TP, x: torch.Tensor, leaf: Local, nb: int, split: bool) -> torch.Tensor:
+    """x [..., S, D] @ w [D, nb W] restricted to this rank's channels of
+    each block: [..., S, nb, W/m] (`split`) or [..., S, nb, W]. A
+    column-split w regroups once a call, on the side that moves fewer
+    bytes: the activations (x @ the local columns, then the all-to-all)
+    at one token a row, as decode runs, where a rank's rows are far fewer
+    than w's D rows; the weight otherwise (the dry-run's jamba
+    prefill_32k holds 2 x 32768 token rows a rank against D = 4096)."""
+    if x.shape[-2] != 1 or "model" not in leaf.axes:
+        return (x @ block_weight(tp, leaf, nb, split).flatten(-2)).unflatten(-1, (nb, -1))
+    w, dm, idx = tp.weight(leaf)
+    if dm != len(leaf.shape) - 1 or idx is not None or not split:
+        raise ValueError(f"a block weight {leaf.shape} split as {leaf.axes}")
+    y = (x @ w).unflatten(-1, (nb, -1))
+    return tp.regroup_model(y.movedim(-2, 0)).movedim(0, -2)
 
 
 def whole(tree):

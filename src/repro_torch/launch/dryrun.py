@@ -29,9 +29,15 @@ shards as fake tensors (shapes only) stored as DTensors, and the step
 - `MemTracker`: `memory.temp_size_in_bytes`, the peak of what the step
   allocates beside the state it is given (`argument_size_in_bytes`),
   minus its outputs.
-A cell of an arch the mesh serving path does not run yet (jamba, xlstm,
-seamless prefill and decode) keeps the bytes-only report with a
-`not_traced` reason. No `.hlo.zst` artefacts: nothing is compiled.
+A batch that does not split over the DP axes (long_500k's one row) is
+whole on every DP rank, as the reference replicates it. xLSTM's prefill
+steps its recurrences token by token, so its prefill_32k cells trace two
+windows of the token loop (`WINDOW` tokens) and scale them to the cell's
+S: every count there is affine in S (no attention, and a prefill's
+regroups move weights at any S > 1), so the per-token part is the two
+windows' difference over their step difference; the record says
+`scaled`, and its temporaries are the larger window's. No `.hlo.zst`
+artefacts: nothing is compiled.
 JSON goes to `<out>/<arch>__<shape>__<mesh><tag>.json`, the reference's
 naming.
 
@@ -69,7 +75,7 @@ from repro_torch.distributed.sharding import (
 from repro_torch.kernels import _launch as L
 from repro_torch.kernels.backend import trace_kernel_route
 from repro_torch.models.layers import make_generator, torch_dtype
-from repro_torch.models.model import check_mesh_arch, decode_step, init_params, prefill
+from repro_torch.models.model import decode_step, init_params, prefill
 from repro_torch.models.moe import moe_sharding_hints
 from repro_torch.serving.engine import init_tiered_for_model, strip_expert_weights
 from repro_torch.serving.kv_cache import cache_spec
@@ -81,6 +87,7 @@ from repro_torch.tree import leaves_with_path, tree_map
 MESHES = {"single": {"data": 16, "model": 16},
           "multi": {"pod": 2, "data": 16, "model": 16}}
 H100_BYTES = 80e9  # one H100's HBM
+WINDOW = (32, 64)  # the token windows an xLSTM prefill cell traces and scales
 
 
 def input_specs(cfg: ModelConfig, shape: ShapeSpec) -> Dict[str, torch.Tensor]:
@@ -260,7 +267,7 @@ def _step(cfg: ModelConfig, kind: str, batch: int, seq: int, mesh, likes, device
     inputs zeros shaped as `likes` (fake under FakeTensorMode): rank 0's
     shards as DTensors on a mesh."""
     dp = 1 if mesh is None else dp_size(mesh)
-    if batch % dp:
+    if batch % dp and kind == "train":
         raise ValueError(f"a batch of {batch} rows does not split over {dp} DP shards")
 
     def place(part, spec_fn):
@@ -289,14 +296,18 @@ def _step(cfg: ModelConfig, kind: str, batch: int, seq: int, mesh, likes, device
                 return step(p, o, b)
 
         return train, [p, o, b]
-    rows = batch // dp
+    rows = batch // dp if batch % dp == 0 else batch  # else whole on every DP rank
     tiered = None if "tiered" not in likes else place(
         "tiered", lambda like: tiered_pspecs(like, mesh))
     if kind == "prefill":
         toks = torch.zeros(rows, seq, **i32)
+        frames = None if cfg.encdec is None else torch.zeros(
+            rows, cfg.encdec.frontend_frames, cfg.d_model, dtype=torch_dtype(cfg.param_dtype),
+            device=device)
         return (lambda: prefill(p, cfg, toks, cache_len, tiered=tiered,
-                                cold_capacity_frac=cold_capacity_frac, mesh=mesh)), \
-            [p, tiered, toks]
+                                cold_capacity_frac=cold_capacity_frac, frames=frames, mesh=mesh,
+                                batch=None if mesh is None else batch)), \
+            [p, tiered, toks, frames]
     cache = place("cache", lambda like: cache_pspecs(like, mesh))
     toks = torch.zeros(rows, 1, **i32)
     return (lambda: decode_step(p, cfg, toks, cache, seq - 1, tiered=tiered,
@@ -369,16 +380,37 @@ def trace_cell(cfg: ModelConfig, kind: str, batch: int, seq: int,
     }
 
 
-def untraced_reason(cfg: ModelConfig, shape: ShapeSpec) -> Optional[str]:
-    """Why a cell is not traced, or None: serving cells of archs the mesh
-    serving path does not run yet."""
-    if shape.kind == "train":
-        return None
-    try:
-        check_mesh_arch(cfg)
-    except NotImplementedError as e:
-        return str(e)
-    return None
+def windowed(cfg: ModelConfig, kind: str, seq: int) -> bool:
+    """Whether a cell traces `WINDOW` and scales: an xLSTM prefill longer
+    than the windows (a Python step a token on every layer)."""
+    return cfg.xlstm is not None and kind == "prefill" and seq > WINDOW[1]
+
+
+def trace_scaled(cfg: ModelConfig, kind: str, batch: int, seq: int, dims=None,
+                 window=WINDOW) -> Dict[str, Any]:
+    """`trace_cell` of a prefill whose every count is affine in the tokens
+    (a recurrent arch's), at the two `window` lengths, scaled to `seq`: v =
+    v(w0) + (seq - w0) (v(w1) - v(w0)) / (w1 - w0) for the FLOPs and each
+    kind's collective bytes and counts; memory is the w1 window's."""
+    if cfg.xlstm is None:  # attention (or a Mamba chunk's scan) is not affine in S
+        raise ValueError(f"{cfg.name}'s counts are not affine in the tokens")
+    w0, w1 = window
+    a, b = (trace_cell(cfg, kind, batch, w, dims) for w in (w0, w1))
+
+    def scale(x, y):
+        if isinstance(x, dict):
+            return {k: scale(x[k], y[k]) for k in x}
+        if isinstance(x, str):
+            return x
+        v = x + (seq - w0) * (y - x) / (w1 - w0)
+        return type(x)(v) if isinstance(x, int) else v
+
+    return {"cost": scale(a["cost"], b["cost"]),
+            "collectives": scale(a["collectives"], b["collectives"]),
+            "memory": b["memory"],
+            "scaled": {"from_steps": [w0, w1], "to_steps": seq,
+                       "memory": f"the {w1}-token window's"},
+            "trace_s": round(a["trace_s"] + b["trace_s"], 2)}
 
 
 def run_cell(arch: str, shape_name: str, mesh_kind: str, out_dir: str | None = None,
@@ -404,17 +436,13 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, out_dir: str | None = N
             + " ".join(f"{k}={v / 1e9:.3f}GB" for k, v in per_device.items())
             + f" replicated={len(replicated)} fits_80GB={total <= H100_BYTES}")
     if trace:
-        reason = untraced_reason(cfg, shape)
-        if reason is not None:
-            result["not_traced"] = reason
-            line += " not traced"
-        else:
-            traced = trace_cell(cfg, shape.kind, shape.global_batch, shape.seq_len, mesh)
-            result.update(traced)
-            line += (f" flops={traced['cost']['flops']:.3e} coll_bytes="
-                     f"{sum(v for k, v in traced['collectives'].items() if k in COLLECTIVES):.3e}"
-                     f" temp={traced['memory']['temp_size_in_bytes'] / 1e9:.3f}GB"
-                     f" ({traced['trace_s']}s)")
+        tracer = trace_scaled if windowed(cfg, shape.kind, shape.seq_len) else trace_cell
+        traced = tracer(cfg, shape.kind, shape.global_batch, shape.seq_len, mesh)
+        result.update(traced)
+        line += (f" flops={traced['cost']['flops']:.3e} coll_bytes="
+                 f"{sum(v for k, v in traced['collectives'].items() if k in COLLECTIVES):.3e}"
+                 f" temp={traced['memory']['temp_size_in_bytes'] / 1e9:.3f}GB"
+                 f" ({traced['trace_s']}s{', scaled' if 'scaled' in traced else ''})")
     print(line, flush=True)
     if out_dir is not None:
         os.makedirs(out_dir, exist_ok=True)

@@ -444,9 +444,10 @@ def _ring_write_mesh(tp, cache, pos, val):
 
 
 def _attend_lse(q, k, v, valid):
-    """One query per row: q [B, 1, H, hd] over k / v [B, T, Kv, hd] (this
-    rank's keys), valid [B, T] -> (out [B, 1, H, hd_v] in v's dtype, lse
-    [B, 1, H] fp32), the softmax as `_grouped_attention` takes it."""
+    """q [B, Sq, H, hd] (a decode step's one query a row, or cross
+    attention's Sq) over k / v [B, T, Kv, hd] (this rank's keys), valid
+    [B, T] -> (out [B, Sq, H, hd_v] in v's dtype, lse [B, Sq, H] fp32),
+    the softmax as `_grouped_attention` takes it."""
     b, sq, h, hdk = q.shape
     kvh = k.shape[2]
     qg = q.reshape(b, sq, kvh, h // kvh, hdk)
@@ -532,17 +533,19 @@ def _qkv_mesh(tp, p, x, positions, theta):
     return apply_rope(q, positions, theta), q_lo, apply_rope(k, positions, theta), v, k_lo
 
 
-def gqa_prefill_mesh(tp, p, cfg, x, positions, token_mask, cache_k, cache_v):
-    """`gqa_forward` (causal, masked) on a mesh, its K/V written into the
-    rows' sharded cache (`fill_seq_cache`). x [B, S, D] this rank's rows;
-    p's leaves `Local`. Returns out [B, S, D]."""
+def gqa_prefill_mesh(tp, p, cfg, x, positions, token_mask, cache_k, cache_v, causal=True):
+    """`gqa_forward` (masked) on a mesh, its K/V written into the rows'
+    sharded cache (`fill_seq_cache`); with no cache (an encoder's self-
+    attention, causal=False) nothing is written. x [B, S, D] this rank's
+    rows; p's leaves `Local`. Returns out [B, S, D]."""
     from repro_torch.distributed import tensor_parallel as tpl
 
     q, q_lo, k, v, k_lo = _qkv_mesh(tp, p, x, positions, cfg.rope_theta)
     ka, va = _kv_for_heads(q_lo, q.shape[2], k, v, k_lo, cfg)
-    out = _grouped_attention(q, ka, va, causal=True, valid=token_mask)
-    fill_seq_cache(tp, cache_k, k, k_lo, token_mask)
-    fill_seq_cache(tp, cache_v, v, k_lo, token_mask)
+    out = _grouped_attention(q, ka, va, causal=causal, valid=token_mask)
+    if cache_k is not None:
+        fill_seq_cache(tp, cache_k, k, k_lo, token_mask)
+        fill_seq_cache(tp, cache_v, v, k_lo, token_mask)
     return tpl.heads_out(tp, out, q_lo, p["wo"], "bshk,hkd->bsd")
 
 
@@ -633,3 +636,42 @@ def mla_decode_mesh(tp, p, cfg, x, cache_ckv, cache_krope, pos):
         o_lat = o_lat.narrow(2, q_lo, wv_b.shape[1])
     o = torch.einsum("bshr,rhk->bshk", o_lat, wv_b.float()).to(x.dtype)
     return tpl.heads_out(tp, o, q_lo, p["wo"], "bshk,hkd->bsd")
+
+
+# --------------------------------------- the encoder and cross attention
+# seamless (16 MHA heads over "model"): the encoder's self-attention is
+# `gqa_prefill_mesh` non-causal over no cache; cross attention projects q
+# heads-parallel and reads the cross K/V ck / cv [B, F, Kv, hd], which
+# `cache_pspec` splits over frames: K/V computed heads-parallel from the
+# encoder output are resharded to frames by one all-to-all
+# (`fill_seq_cache`), and the queries (S in prefill, 1 in decode) attend
+# every head over this rank's frames, with no key and no causal mask,
+# the frame shards combined by log-sum-exp over "model".
+def fill_cross_mesh(tp, p, enc_out, cache_ck, cache_cv):
+    """A decoder layer's cross K/V of the encoder output [B, F, D] (no bias,
+    no RoPE), heads-parallel, written into the rows' frame shards."""
+    from repro_torch.distributed import tensor_parallel as tpl
+
+    eq = "bsd,dhk->bshk"
+    k, k_lo = tpl.heads_proj(tp, enc_out, p["wk"], eq)
+    v, v_lo = tpl.heads_proj(tp, enc_out, p["wv"], eq)
+    if k_lo != v_lo:
+        raise ValueError(f"wk and wv split apart: {p['wk'].axes}, {p['wv'].axes}")
+    fill_seq_cache(tp, cache_ck, k, k_lo, None)
+    fill_seq_cache(tp, cache_cv, v, v_lo, None)
+
+
+def cross_attention_mesh(tp, p, cfg, x, cache_ck, cache_cv):
+    """Cross attention of x [B, S, D] (no RoPE on q) over the cached
+    encoder K/V: every head's queries over this rank's frames, the frame
+    shards combined over "model", then wo. Returns out [B, S, D]."""
+    from repro_torch.distributed import tensor_parallel as tpl
+
+    q, q_lo = tpl.heads_proj(tp, x, p["wq"], "bsd,dhk->bshk", p.get("bq"))
+    q = tpl.gather_heads(tp, q, q_lo)
+    k, v = cache_ck.t, cache_cv.t
+    every = torch.ones(k.shape[:2], dtype=torch.bool, device=k.device)
+    out, lse = _attend_lse(q, k, v, every)
+    if _seq_split(cache_ck):
+        out = _combine(tp, out, lse)
+    return tpl.heads_out(tp, out, None, p["wo"], "bshk,hkd->bsd")

@@ -9,7 +9,8 @@ combining each chunk as h = b_cum + a_cum * h0. The dtype trail is the
 reference's: projections and the causal conv in the parameter dtype,
 dt / abar / bx / h in fp32, A_log and D fp32 under bf16 params.
 No Pallas kernel reaches this module in the reference, so it stays plain
-PyTorch.
+PyTorch. `mamba_forward_mesh` / `mamba_decode_mesh` run the block
+channel-parallel on a device mesh (see the section at the end).
 """
 from __future__ import annotations
 
@@ -50,30 +51,40 @@ def _softplus(x: torch.Tensor) -> torch.Tensor:
     return torch.clamp_min(x, 0.0) + torch.log1p(torch.exp(-x.abs()))
 
 
-def _ssm_inputs(p: Params, cfg, xz: torch.Tensor, conv_state=None):
-    """Shared pre-scan computation. xz: [B, S, D]. The trailing `xc` is
-    the conv input with its causal pad prepended: masked prefill gathers
-    per-row conv states out of it."""
-    mc, di, dtr = _dims(cfg)
-    xi = torch.einsum("bsd,de->bse", xz, p["in_proj"])
-    x, z = xi.chunk(2, dim=-1)  # [B, S, Di] each
+def _ssm_inputs(p: Params, cfg, x: torch.Tensor, z: torch.Tensor, conv_state=None,
+                reduce=None):
+    """Shared pre-scan computation on C channels: x, z [B, S, C] the
+    in-projection's halves (C = Di, or a mesh rank's Di/m, whose conv,
+    dt_proj, dt_bias, A_log and D leaves `p` then holds: only x_proj's
+    product crosses channels, and `reduce` sums its partial products over
+    the ranks). The trailing `xc` is the conv input with its causal pad
+    prepended: masked prefill gathers per-row conv states out of it."""
+    mc, _, dtr = _dims(cfg)
+    dtype, c = x.dtype, x.shape[-1]
     # causal depthwise conv over time, tap by tap in the parameter dtype
-    pad = (torch.zeros((x.shape[0], mc.d_conv - 1, di), dtype=x.dtype, device=x.device)
+    pad = (torch.zeros((x.shape[0], mc.d_conv - 1, c), dtype=x.dtype, device=x.device)
            if conv_state is None else conv_state)
     xc = torch.cat([pad, x], dim=1)
     new_conv_state = xc[:, -(mc.d_conv - 1):, :] if mc.d_conv > 1 else pad
     s = x.shape[1]
     x = sum(xc[:, i:i + s, :] * p["conv_w"][i] for i in range(mc.d_conv)) + p["conv_b"]
-    x = F.silu(x.float()).to(xz.dtype)
+    x = F.silu(x.float()).to(dtype)
 
     proj = torch.einsum("bsi,ie->bse", x, p["x_proj"])
+    if reduce is not None:
+        proj = reduce(proj)
     dt_in, b_ssm, c_ssm = torch.split(proj, [dtr, mc.d_state, mc.d_state], dim=-1)
     dt = _softplus(torch.einsum("bsr,ri->bsi", dt_in, p["dt_proj"]).float()
-                   + p["dt_bias"].float())  # [B, S, Di] fp32
-    a = -torch.exp(p["A_log"])  # [Di, N] fp32
-    abar = torch.exp(dt[..., None] * a)  # [B, S, Di, N]
-    bx = (dt * x.float())[..., None] * b_ssm.float()[:, :, None, :]  # [B, S, Di, N]
+                   + p["dt_bias"].float())  # [B, S, C] fp32
+    a = -torch.exp(p["A_log"])  # [C, N] fp32
+    abar = torch.exp(dt[..., None] * a)  # [B, S, C, N]
+    bx = (dt * x.float())[..., None] * b_ssm.float()[:, :, None, :]  # [B, S, C, N]
     return x, z, abar, bx, c_ssm, new_conv_state, xc
+
+
+def _in_proj(p: Params, xz: torch.Tensor):
+    """(x, z) [B, S, Di] each: the in-projection's two halves."""
+    return torch.einsum("bsd,de->bse", xz, p["in_proj"]).chunk(2, dim=-1)
 
 
 def _assoc_scan(a: torch.Tensor, b: torch.Tensor):
@@ -108,9 +119,19 @@ def mamba_forward(p: Params, cfg, xz: torch.Tensor, chunk: int = 128,
     conv state is the window ending at each row's last real token, so
     the final {ssm, conv} equals an unpadded forward of the same row.
     Outputs at pad positions are unspecified."""
-    mc, di, _ = _dims(cfg)
-    b, s, _ = xz.shape
-    x, z, abar, bx, c_ssm, new_conv, xc = _ssm_inputs(p, cfg, xz)
+    y, state = _forward(p, cfg, *_in_proj(p, xz), chunk, token_mask)
+    out = torch.einsum("bsi,id->bsd", y, p["out_proj"])
+    return (out, state) if return_state else out
+
+
+def _forward(p: Params, cfg, x, z, chunk: int, token_mask, reduce=None):
+    """`mamba_forward` on the in-projection's halves x, z [B, S, C] (see
+    `_ssm_inputs`): (the gated output [B, S, C] before out_proj, the final
+    {ssm [B, C, N], conv [B, d_conv - 1, C]})."""
+    mc = cfg.mamba
+    b, s, c = x.shape
+    dtype = x.dtype
+    x, z, abar, bx, c_ssm, new_conv, xc = _ssm_inputs(p, cfg, x, z, reduce=reduce)
     if token_mask is not None:
         live = token_mask[..., None, None]  # [B, S, 1, 1]
         abar = torch.where(live, abar, torch.ones_like(abar))  # identity on pads
@@ -118,29 +139,26 @@ def mamba_forward(p: Params, cfg, xz: torch.Tensor, chunk: int = 128,
 
     chunk = min(chunk, s)
     assert s % chunk == 0, (s, chunk)
-    h0 = torch.zeros((b, di, mc.d_state), dtype=torch.float32, device=xz.device)
+    h0 = torch.zeros((b, c, mc.d_state), dtype=torch.float32, device=x.device)
     hs = []
     for c0 in range(0, s, chunk):
         a_cum, b_cum = _assoc_scan(abar[:, c0:c0 + chunk], bx[:, c0:c0 + chunk])
-        h = b_cum + a_cum * h0[:, None]  # [B, c, Di, N]
+        h = b_cum + a_cum * h0[:, None]  # [B, c, C, N]
         h0 = h[:, -1]
         hs.append(h)
     h = torch.cat(hs, dim=1) if len(hs) > 1 else hs[0]
 
     y = torch.einsum("bsin,bsn->bsi", h, c_ssm.float())
     y = y + p["D"] * x.float()
-    y = y.to(xz.dtype) * F.silu(z.float()).to(xz.dtype)
-    out = torch.einsum("bsi,id->bsd", y, p["out_proj"])
-    if not return_state:
-        return out
+    y = y.to(dtype) * F.silu(z.float()).to(dtype)
     if token_mask is not None and mc.d_conv > 1:
         # input position t sits at xc index t + d_conv - 1, so the window
         # of positions [L - d_conv + 1, L - 1] is xc[L : L + d_conv - 1]
         # (short rows reach into the zero pad, as unpadded ones do)
         lengths = token_mask.sum(-1)
-        gidx = lengths[:, None] + torch.arange(mc.d_conv - 1, device=xz.device)[None, :]
+        gidx = lengths[:, None] + torch.arange(mc.d_conv - 1, device=x.device)[None, :]
         new_conv = torch.take_along_dim(xc, gidx[..., None], dim=1)
-    return out, {"ssm": h0, "conv": new_conv}
+    return y, {"ssm": h0, "conv": new_conv}
 
 
 def mamba_init_state(cfg, batch: int, dtype, device=None):
@@ -153,10 +171,81 @@ def mamba_init_state(cfg, batch: int, dtype, device=None):
 
 def mamba_decode(p: Params, cfg, xz: torch.Tensor, state):
     """Single-token step. xz: [B, 1, D]; state: {ssm, conv}."""
-    x, z, abar, bx, c_ssm, new_conv, _ = _ssm_inputs(p, cfg, xz, state["conv"])
-    h = abar[:, 0] * state["ssm"] + bx[:, 0]  # [B, Di, N]
+    y, new = _decode(p, cfg, *_in_proj(p, xz), state)
+    return torch.einsum("bi,id->bd", y, p["out_proj"])[:, None, :], new
+
+
+def _decode(p: Params, cfg, x, z, state, reduce=None):
+    """`mamba_decode` on the in-projection's halves x, z [B, 1, C]: (the
+    gated output [B, C] before out_proj, the new {ssm, conv})."""
+    dtype = x.dtype
+    x, z, abar, bx, c_ssm, new_conv, _ = _ssm_inputs(p, cfg, x, z, state["conv"], reduce)
+    h = abar[:, 0] * state["ssm"] + bx[:, 0]  # [B, C, N]
     y = torch.einsum("bin,bn->bi", h, c_ssm[:, 0].float())
     y = y + p["D"] * x[:, 0].float()
-    y = y.to(xz.dtype) * F.silu(z[:, 0].float()).to(xz.dtype)
-    out = torch.einsum("bi,id->bd", y, p["out_proj"])[:, None, :]
-    return out, {"ssm": h, "conv": new_conv}
+    y = y.to(dtype) * F.silu(z[:, 0].float()).to(dtype)
+    return y, {"ssm": h, "conv": new_conv}
+
+
+# ------------------------------------------------------ on a device mesh
+# Channel-parallel, as the reference's rules place the leaves
+# (repro/distributed/sharding.py:109-124) and `cache_pspec` the state:
+# in_proj's columns, conv_w / conv_b / dt_bias / D, A_log's and x_proj's
+# and out_proj's rows, dt_proj's columns, ssm [B, Di, N] and conv
+# [B, d_conv - 1, Di] all split Di over "model" in rank order, so the
+# scan and the depthwise conv are local. The collectives: in_proj's
+# regroup ([x | z] column chunks to this rank's channels of each half,
+# `tpl.block_cols`), one all-reduce of x_proj's partial (dt_in, B, C)
+# [B, S, dtr + 2N], and out_proj's row-parallel sum.
+def _mesh_leaves(tp, p, state):
+    """(split, {leaf: this rank's tensor}): whether "model" splits the
+    channels, and the per-channel leaves (x_proj's rows) as held; the
+    state (`Local`s) must split as they do."""
+    split = "model" in p["conv_b"].axes
+    if state["ssm"].axes.get("model", 1) != 1 or state["conv"].axes.get("model", 2) != 2 \
+            or any(("model" in state[k].axes) != split for k in ("ssm", "conv")):
+        raise ValueError(f"mamba state split as {state['ssm'].axes}, {state['conv'].axes}; "
+                         f"conv_b as {p['conv_b'].axes}")
+    out = {}
+    for k in ("conv_w", "conv_b", "x_proj", "dt_proj", "dt_bias", "A_log", "D"):
+        w, dm, idx = tp.weight(p[k])
+        if (dm is not None) != split or idx is not None:
+            raise ValueError(f"mamba {k} split as {p[k].axes}, conv_b as {p['conv_b'].axes}")
+        out[k] = w
+    return split, out
+
+
+def _mesh_in(tp, p, xz, state):
+    from repro_torch.distributed import tensor_parallel as tpl
+
+    split, lp = _mesh_leaves(tp, p, state)
+    x, z = tpl.block_cols(tp, xz, p["in_proj"], 2, split).unbind(-2)
+    return split, lp, x, z, (tp.sum_model if split else None)
+
+
+def _mesh_out(tp, p, y, split: bool):
+    """out_proj's rows (this rank's channels) summed over "model"."""
+    w, dm, _ = tp.weight(p["out_proj"])
+    if (dm == 0) != split:
+        raise ValueError(f"mamba out_proj split as {p['out_proj'].axes}")
+    out = y @ w
+    return tp.sum_model(out) if split else out
+
+
+def mamba_forward_mesh(tp, p, cfg, xz: torch.Tensor, state, token_mask=None,
+                       chunk: int = 128):
+    """`mamba_forward(..., return_state=True)` on a mesh (p's leaves
+    `Local`, xz [B, S, D] this rank's rows, `state` the rows' cache leaves:
+    their layout; the forward starts from the zero state): (out [B, S, D],
+    the final state on this rank's C channels {ssm [B, C, N], conv [B,
+    d_conv - 1, C]})."""
+    split, lp, x, z, reduce = _mesh_in(tp, p, xz, state)
+    y, new = _forward(lp, cfg, x, z, chunk, token_mask, reduce)
+    return _mesh_out(tp, p, y, split), new
+
+
+def mamba_decode_mesh(tp, p, cfg, xz: torch.Tensor, state):
+    """`mamba_decode` on a mesh: `state` the rows' {ssm, conv} shards."""
+    split, lp, x, z, reduce = _mesh_in(tp, p, xz, state)
+    y, new = _decode(lp, cfg, x, z, {k: state[k].t for k in ("ssm", "conv")}, reduce)
+    return _mesh_out(tp, p, y, split)[:, None, :], new

@@ -590,7 +590,8 @@ def prefill(
     cold_capacity_frac: float = 0.25,
     token_mask: torch.Tensor | None = None,  # [B, S] bool real tokens
     frames: torch.Tensor | None = None,  # [B, F, D]: an encoder-decoder model's input
-    mesh=None,  # a DeviceMesh: params / tiered as DTensors, tokens this rank's rows
+    mesh=None,  # a DeviceMesh: params / tiered as DTensors, tokens (frames) this rank's rows
+    batch: int | None = None,  # on a mesh: the global batch's rows (see _mesh_prefill)
 ):
     """Full-sequence prefill building a fresh contiguous cache of
     `cache_len` (default S) slots per row. Without `token_mask` every row
@@ -605,7 +606,7 @@ def prefill(
     Returns (logits [B, V], cache). On a `mesh` see `_mesh_prefill`."""
     if mesh is not None:
         return _mesh_prefill(params, cfg, tokens, cache_len, tiered, cold_capacity_frac,
-                             token_mask, mesh)
+                             token_mask, mesh, frames, batch)
     b, s = tokens.shape
     cache = init_cache(cfg, b, cache_len or s, device=tokens.device)
     if cfg.encdec is not None:
@@ -654,34 +655,46 @@ def decode_step(
 
 
 # ------------------------------------------------------ on a device mesh
-MESH_SLICE = ("jamba, xlstm and seamless (Mamba / xLSTM state over channels, the "
-              "encoder-decoder) are sharded in the slice after the mesh serving one")
-
-
-def check_mesh_arch(cfg: ModelConfig) -> None:
-    """The mesh serving path runs GQA and MLA decoders (dense, MoE)."""
-    mixers = {layer_signature(cfg, i)[0] for i in range(cfg.n_layers)}
-    if cfg.encdec is not None or mixers - {"attn", "mla"}:
-        raise NotImplementedError(f"{cfg.name} on a mesh: {MESH_SLICE}")
+# each recurrent mixer's (forward, decode) on a mesh: forward (tp, p, cfg,
+# x, state, token_mask) from the init state, decode (tp, p, cfg, x, state)
+# from the rows' state; `state` the layer's cache leaves as `Local`s (their
+# layout), and each returns (y, this rank's new state)
+MESH_RECURRENT = {
+    "mamba": (mb.mamba_forward_mesh, mb.mamba_decode_mesh),
+    "mlstm": (xl.mlstm_forward_mesh, xl.mlstm_decode_mesh),
+    "slstm": (xl.slstm_forward_mesh, xl.slstm_decode_mesh),
+}
 
 
 def _apply_layer_mesh(tp, cfg, sig, p, x, positions, cache, pos, token_mask, tiered_state,
                       cold_capacity_frac):
     """`apply_layer` on a mesh, contiguous layout (x this rank's rows,
-    every `Local` leaf this rank's shard): (x, expert counts [E] or None)."""
+    every `Local` leaf this rank's shard; a recurrent layer's new state
+    written over its shard in place): (x, expert counts [E] or None)."""
     from repro_torch.distributed import tensor_parallel as tpl
     from repro_torch.serving.tiered_moe import tiered_moe_forward_mesh
 
     mixer, ffn = sig
     h = rmsnorm(tpl.whole(p["norm1"]), x, cfg.norm_eps)
-    a, b = (cache[key] for key in MIXERS[mixer].cache_shapes(cfg, 0))
-    fn = {("attn", True): attn.gqa_decode_mesh, ("mla", True): attn.mla_decode_mesh,
-          ("attn", False): attn.gqa_prefill_mesh, ("mla", False): attn.mla_prefill_mesh}
-    if pos is not None:
-        y = fn[mixer, True](tp, p["mixer"], cfg, h, a, b, pos)
+    if mixer in MESH_RECURRENT:
+        forward, decode = MESH_RECURRENT[mixer]
+        state = cache["state"]
+        y, new = (decode(tp, p["mixer"], cfg, h, state) if pos is not None
+                  else forward(tp, p["mixer"], cfg, h, state, token_mask))
+        for key, val in new.items():
+            state[key].t.copy_(val)
     else:
-        y = fn[mixer, False](tp, p["mixer"], cfg, h, positions, token_mask, a, b)
+        a, b = (cache[key] for key in MIXERS[mixer].cache_shapes(cfg, 0))
+        fn = {("attn", True): attn.gqa_decode_mesh, ("mla", True): attn.mla_decode_mesh,
+              ("attn", False): attn.gqa_prefill_mesh, ("mla", False): attn.mla_prefill_mesh}
+        if pos is not None:
+            y = fn[mixer, True](tp, p["mixer"], cfg, h, a, b, pos)
+        else:
+            y = fn[mixer, False](tp, p["mixer"], cfg, h, positions, token_mask, a, b)
     x = x + y
+    if "cross" in p:
+        hc = rmsnorm(tpl.whole(p["norm_cross"]), x, cfg.norm_eps)
+        x = x + attn.cross_attention_mesh(tp, p["cross"], cfg, hc, cache["ck"], cache["cv"])
     counts = None
     if ffn != "none":
         h2 = rmsnorm(tpl.whole(p["norm2"]), x, cfg.norm_eps)
@@ -699,22 +712,25 @@ def _apply_layer_mesh(tp, cfg, sig, p, x, positions, cache, pos, token_mask, tie
     return x, counts
 
 
-def _mesh_walk(tp, cfg, params, tiered, cache, x, positions, pos, token_mask,
-               cold_capacity_frac):
-    """Every layer in execution order on the mesh: (x, counts [n_layers, E],
-    the params as `Local` leaves)."""
+def _mesh_local(tp, params, cache, tiered):
+    """(params, cache, tiered) as trees of `Local` leaves."""
     from repro_torch.distributed import tensor_parallel as tpl
 
+    return (tpl.local_tree(params, tp.mesh), tpl.local_tree(cache, tp.mesh),
+            None if tiered is None else tpl.local_tree(tiered, tp.mesh))
+
+
+def _mesh_walk(tp, cfg, local, x, positions, pos, token_mask, cold_capacity_frac):
+    """Every layer in execution order on the mesh over the `Local` trees
+    (params, cache, tiered): (x, counts [n_layers, E])."""
     e = cfg.moe.n_experts if cfg.moe is not None else 1
     no_moe = torch.zeros((e,), dtype=torch.int32, device=x.device)
     counts_all = []
-    local = (tpl.local_tree(params, tp.mesh), tpl.local_tree(cache, tp.mesh),
-             None if tiered is None else tpl.local_tree(tiered, tp.mesh))
     for sig, p, c, ts in _layers(local[0], cfg, local[1], local[2]):
         x, counts = _apply_layer_mesh(tp, cfg, sig, p, x, positions, c, pos, token_mask, ts,
                                       cold_capacity_frac)
         counts_all.append(no_moe if counts is None else counts)
-    return x, torch.stack(counts_all), local[0]
+    return x, torch.stack(counts_all)
 
 
 def _mesh_logits(tp, params, cfg, x):
@@ -726,48 +742,86 @@ def _mesh_logits(tp, params, cfg, x):
     return tpl.out_proj(tp, x, params["head"]["w"])
 
 
-def _mesh_prefill(params, cfg, tokens, cache_len, tiered, cold_capacity_frac, token_mask, mesh):
+def _mesh_encoder(tp, params, cfg, frames):
+    """`_run_encoder` on a mesh over this rank's rows of frames [B, F, D]:
+    each layer's self-attention heads-parallel (non-causal, RoPE at the
+    frames' positions), its FFN column- then row-parallel."""
+    from repro_torch.distributed import tensor_parallel as tpl
+
+    enc = params["encoder"]
+    positions = torch.arange(frames.shape[1], dtype=torch.int32, device=frames.device)[None, :]
+    x = frames
+    for g in range(cfg.encdec.n_encoder_layers):
+        p = index_tree(enc["stack"]["slot0"], g)
+        h = rmsnorm(tpl.whole(p["norm1"]), x, cfg.norm_eps)
+        x = x + attn.gqa_prefill_mesh(tp, p["mixer"], cfg, h, positions, None, None, None,
+                                      causal=False)
+        x = x + tpl.mlp(tp, p["ffn"], rmsnorm(tpl.whole(p["norm2"]), x, cfg.norm_eps))
+    return rmsnorm(tpl.whole(enc["final_norm"]), x, cfg.norm_eps)
+
+
+def _mesh_prefill(params, cfg, tokens, cache_len, tiered, cold_capacity_frac, token_mask, mesh,
+                  frames=None, batch=None):
     """`prefill` on a device mesh, GSPMD's partitioning of the reference's
     one program written out (distributed/tensor_parallel.py): params (and
     tiered, when given) are DTensor trees under `tree_pspecs` /
     `tiered_pspecs`, tokens [B/dp, S] this rank's rows of the global batch
-    (split over the DP axes, pod-major). The embedding is vocab-parallel
-    (or D-split), attention heads tensor-parallel, the MLPs column- then
-    row-parallel, the MoE as `moe_forward_mesh` / `tiered_moe_forward_mesh`
-    place it, the logits gathered over "model". Returns (this rank's rows'
-    logits [B/dp, V], the cache as DTensors under `cache_pspecs`: this
-    rank's rows and key shard)."""
+    of `batch` rows (default B/dp times the DP size), split over the DP
+    axes, pod-major (`shard_rows`); a batch that does not split comes
+    whole to every rank, which computes all of it (`TP`). The embedding is
+    vocab-parallel (or D-split), attention heads tensor-parallel, the
+    MLPs column- then row-parallel, Mamba and xLSTM channel-parallel over
+    their state's split (models/mamba.py, models/xlstm.py), the MoE as
+    `moe_forward_mesh` / `tiered_moe_forward_mesh` place it, the logits
+    gathered over "model". An encoder-decoder model runs its encoder over
+    this rank's rows of `frames` and writes each layer's cross K/V into
+    its frame shards. Returns (this rank's rows' logits [B/dp, V], the
+    cache as DTensors under `cache_pspecs`: this rank's rows and shard)."""
     from repro_torch.distributed import sharding as shd
     from repro_torch.distributed import tensor_parallel as tpl
 
-    check_mesh_arch(cfg)
-    tp = tpl.TP(mesh)
     b, s = tokens.shape
-    like = init_cache(cfg, b * tp.n_dp, cache_len or s, device="meta")
+    tp = tpl.TP(mesh, b * shd.dp_size(mesh) if batch is None else batch)
+    if b * tp.n_dp != tp.batch:
+        raise ValueError(f"{b} rows a rank on {tp.n_dp} DP shards, for a batch of {tp.batch}")
+    like = init_cache(cfg, tp.batch, cache_len or s, device="meta")
     cache = shd.sharded_zeros(like, shd.cache_pspecs(like, mesh), mesh, tokens.device)
+    local = _mesh_local(tp, params, cache, tiered)
+    if cfg.encdec is not None:
+        check_frames(params, cfg, frames)
+        enc_out = _mesh_encoder(tp, local[0], cfg, frames)
+        for _, lp, c, _ in _layers(local[0], cfg, local[1], None):
+            attn.fill_cross_mesh(tp, lp["cross"], enc_out, c["ck"], c["cv"])
     positions = torch.arange(s, dtype=torch.int32, device=tokens.device)[None, :]
-    x = tpl.embed(tp, tpl.local_leaf(params["embed"]["table"], mesh), tokens)
-    x, _, local = _mesh_walk(tp, cfg, params, tiered, cache, x, positions, None, token_mask,
-                             cold_capacity_frac)
-    return _mesh_logits(tp, local, cfg, _last_real(x, token_mask))[:, 0], cache
+    x = tpl.embed(tp, local[0]["embed"]["table"], tokens)
+    x, _ = _mesh_walk(tp, cfg, local, x, positions, None, token_mask, cold_capacity_frac)
+    return _mesh_logits(tp, local[0], cfg, _last_real(x, token_mask))[:, 0], cache
+
+
+def _cache_batch(cache) -> int:
+    """The global batch's rows of a cache tree (DTensors: whole shapes)."""
+    from repro_torch.tree import leaves_with_path
+
+    path, leaf = next(iter(leaves_with_path(cache)))
+    return leaf.shape[1 if path[0] == "stack" else 0]
 
 
 def _mesh_decode(params, cfg, tokens, cache, pos, tiered, cold_capacity_frac, token_mask,
                  mesh):
     """`decode_step` on a device mesh (see `_mesh_prefill`): tokens [B/dp,
     1], pos and token_mask this rank's rows', cache its DTensors (written
-    in place). Returns (logits [B/dp, V], cache, expert_counts [n_layers,
-    E] summed over the DP shards: the whole batch's)."""
+    in place; their global batch says whether the rows split). Returns
+    (logits [B/dp, V], cache, expert_counts [n_layers, E] summed over the
+    DP shards: the whole batch's)."""
     from repro_torch.distributed import tensor_parallel as tpl
 
-    check_mesh_arch(cfg)
-    tp = tpl.TP(mesh)
+    tp = tpl.TP(mesh, _cache_batch(cache))
     pos = _row_positions(pos, tokens)
     tmask = None if token_mask is None else token_mask.reshape(-1, 1)
-    x = tpl.embed(tp, tpl.local_leaf(params["embed"]["table"], mesh), tokens)
-    x, counts, local = _mesh_walk(tp, cfg, params, tiered, cache, x, pos[:, None], pos, tmask,
-                                  cold_capacity_frac)
-    return _mesh_logits(tp, local, cfg, x)[:, 0], cache, counts
+    local = _mesh_local(tp, params, cache, tiered)
+    x = tpl.embed(tp, local[0]["embed"]["table"], tokens)
+    x, counts = _mesh_walk(tp, cfg, local, x, pos[:, None], pos, tmask, cold_capacity_frac)
+    return _mesh_logits(tp, local[0], cfg, x)[:, 0], cache, counts
 
 
 def decode_step_paged(

@@ -81,11 +81,12 @@ def moe_sharding_hints(enable: bool = True):
 
 def _dp():
     """(group, size, row-shard index) of the active mesh's DP axes, or
-    None without a mesh or with one shard."""
+    None without a mesh, with one shard, or with the batch whole on every
+    shard (`use_mesh`'s batch does not split)."""
     mesh = shd.active_mesh()
     if mesh is None:
         return None
-    dp = shd.dp_group(mesh)
+    dp = shd.dp_group(mesh, shd.active_batch())
     return None if dp[1] == 1 else dp
 
 
@@ -371,7 +372,7 @@ def moe_forward_mesh(tp, p, cfg, x: torch.Tensor, *, full_capacity: bool,
     split = ws["w_gate"][1]
     if split not in (None, 0, 2) or split != ws["w_up"][1]:
         raise ValueError(f"routed experts split as {p['w_gate'].axes}, {p['w_up'].axes}")
-    with moe_sharding_hints(), shd.use_mesh(tp.mesh):
+    with moe_sharding_hints(), shd.use_mesh(tp.mesh, tp.batch):
         out = moe_forward({key: w for key, (w, _, _) in ws.items()}, cfg, x,
                           full_capacity=full_capacity, token_mask=token_mask,
                           backend=backend, logits=logits, shared=False)

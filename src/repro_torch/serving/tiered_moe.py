@@ -237,8 +237,11 @@ def tiered_moe_forward_mesh(tp, p, state, cfg, x: torch.Tensor, cold_capacity_fr
       "model"). Capacity is the global token count's and each
       assignment's place in its slot the global order's (every DP shard's
       slot keys gathered), so drops fall where the one program drops them.
+      Rows replicated over DP (a batch that does not split: `tp.split`
+      false) stay put: each home runs its slots on every row and the
+      homes' outputs are summed.
     Returns (y [B, S, D], expert_counts [E] int32 summed over the DP
-    shards)."""
+    shards: the whole batch's, replicated rows counted once)."""
     from repro_torch.distributed import tensor_parallel as tpl
 
     mo = cfg.moe
@@ -299,8 +302,10 @@ def _cold_mesh(tp, buf, flat, a_w, a_slot, in_tier, cap: int, kind: str, decode:
     key = torch.where(in_tier, a_slot, torch.full_like(a_slot, n_slots))
     keys = tp.gather_dp(key).reshape(-1)
     pos_all = slot_positions(keys)
-    # the rows travel over the home axes' DP part (the data shards of this pod)
-    grp = tp.group(tuple(a for a in homes if a != "model"))
+    # the rows travel over the home axes' DP part (the data shards of this
+    # pod); rows replicated on every DP shard stay where they are
+    home_dp = tp.group(tuple(a for a in homes if a != "model"))
+    grp = home_dp if tp.split else (None, 1, 0)
     _, n_g, i_g = grp
     first = (tp.dp_i - i_g) * tk
     keys_g = keys[first:first + n_g * tk]
@@ -315,6 +320,8 @@ def _cold_mesh(tp, buf, flat, a_w, a_slot, in_tier, cap: int, kind: str, decode:
     o = _tier_ffn(buf.t, h, kind, decode)
     obuf = torch.cat([o.reshape(n_local * cap, d), o.new_zeros((1, d))])
     out = tp.reduce_scatter(obuf[dst], grp)  # back to the shards the rows came from
+    if not tp.split:  # every home ran its slots on every row: sum them
+        out = tp.all_reduce(out, home_dp)
     if "model" in homes or f_split:
         out = tp.sum_model(out)
     pos = pos_all[tp.dp_i * tk:(tp.dp_i + 1) * tk]

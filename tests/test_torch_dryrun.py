@@ -5,9 +5,12 @@ device (params, AdamW state, batch, decode cache, tiered experts) equal
 what the reference's specs imply for its `jax.eval_shape` trees (each
 leaf's bytes over the product of the axis sizes its spec names), built
 as the reference's `build_cell` builds them; no compile. Then the
-port's dry-run CLI on one cell (bytes), its fake-world trace of a smoke
-decode cell against a real 4-rank gloo run of it, and the CLI's trace of
-one production cell on 256 fake ranks."""
+port's dry-run CLI on one cell (bytes), its fake-world trace of smoke
+cells (granite and jamba decode, seamless prefill) against a real 4-rank
+gloo run of each, every assigned arch's serving cells traced on a fake
+mesh (none is left untraced), xLSTM's windowed prefill trace against a
+full one, and the CLI's trace of one production cell on 256 fake
+ranks."""
 import json
 import os
 import subprocess
@@ -117,16 +120,24 @@ def test_dryrun_cli_writes_one_cell(tmp_path):
 
 # ------------------------------------------------- the fake-world trace
 @pytest.fixture(scope="module")
-def gloo_cell(tmp_path_factory):
-    """The smoke decode cell's collectives in a real 4-rank gloo run on
-    (2, 2) (tests/torch_mesh_serve_worker.py, mode "dryrun")."""
+def gloo_cells(tmp_path_factory):
+    """The smoke cells' collectives in a real 4-rank gloo run on (2, 2)
+    (tests/torch_mesh_serve_worker.py, mode "dryrun"), by cell name."""
     import torch_mesh_serve_worker as worker
 
     out = worker.spawn_world(tmp_path_factory.mktemp("dryrun_cell"), "dryrun", 180)
-    return out["dryrun_cell"]
+    return out["dryrun_cells"]
 
 
-def test_fake_trace_matches_gloo_run_and_divides_flops(gloo_cell):
+def _assert_same_collectives(traced, gloo_cell):
+    coll = traced["collectives"]
+    for kind in dryrun.COLLECTIVES:
+        assert coll["counts"][kind] == gloo_cell["comm_debug_counts"].get(kind, 0), kind
+        assert coll["counts"][kind] == gloo_cell["counter"]["counts"][kind], kind
+        assert coll[kind] == gloo_cell["counter"][kind], kind
+
+
+def test_fake_trace_matches_gloo_run_and_divides_flops(gloo_cells):
     """The fake-world trace of the smoke decode cell on (2, 2) records the
     kinds, counts and bytes of collectives that CommDebugMode and the
     CollectiveCounter record in the real run; its FLOPs are the unsharded
@@ -136,16 +147,13 @@ def test_fake_trace_matches_gloo_run_and_divides_flops(gloo_cell):
     import torch_mesh_serve_worker as worker
     from repro_torch.serving.tiered_moe import TierSizes
 
-    c = worker.DRYRUN_CELL
+    c = worker.DRYRUN_CELLS["granite"]
     cfg = worker.port_cfg(c["arch"])
     sizes = TierSizes(*c["sizes"])
     traced = dryrun.trace_cell(cfg, "decode", c["batch"], c["seq"], {"data": 2, "model": 2},
                                sizes=sizes)
+    _assert_same_collectives(traced, gloo_cells["granite"])
     coll = traced["collectives"]
-    for kind in dryrun.COLLECTIVES:
-        assert coll["counts"][kind] == gloo_cell["comm_debug_counts"].get(kind, 0), kind
-        assert coll["counts"][kind] == gloo_cell["counter"]["counts"][kind], kind
-        assert coll[kind] == gloo_cell["counter"][kind], kind
     assert coll["counts"]["all-reduce"] and coll["counts"]["reduce-scatter"]
     whole = dryrun.trace_cell(cfg, "decode", c["batch"], c["seq"], None, sizes=sizes)
     assert whole["collectives"]["count"] == 0
@@ -176,3 +184,55 @@ def test_dryrun_cli_traces_granite_decode_on_256_ranks(tmp_path):
     assert coll["count"] > 0 and coll["reduce-scatter"] > 0 and coll["all-gather"] > 0
     assert res["memory"]["argument_size_in_bytes"] == res["state_bytes_per_device"]
     assert res["memory"]["temp_size_in_bytes"] > 0
+
+
+@pytest.mark.parametrize("name", ["jamba", "seamless"])
+def test_fake_trace_matches_gloo_run_of_recurrent_and_encdec_cells(gloo_cells, name):
+    """jamba's smoke decode cell (Mamba's regroup all-to-alls and x_proj
+    sums, tiered MoE) and seamless's smoke prefill cell (the encoder,
+    cross K/V resharded to frames): the fake-world trace on (2, 2) records
+    the collectives of a real gloo run of the same step, kind by kind."""
+    import torch_mesh_serve_worker as worker
+    from repro_torch.serving.tiered_moe import TierSizes
+
+    c = worker.DRYRUN_CELLS[name]
+    sizes = None if c["sizes"] is None else TierSizes(*c["sizes"])
+    traced = dryrun.trace_cell(worker.port_cfg(c["arch"]), c["kind"], c["batch"], c["seq"],
+                               {"data": 2, "model": 2}, sizes=sizes)
+    _assert_same_collectives(traced, gloo_cells[name])
+    assert traced["collectives"]["counts"]["all-to-all"] > 0
+    assert traced["cost"]["flops"] > 0 and traced["memory"]["temp_size_in_bytes"] > 0
+
+
+@pytest.mark.parametrize("arch", ASSIGNED)
+def test_every_serving_cell_traces(arch):
+    """No serving cell is left untraced: every assigned arch's prefill and
+    decode (the smoke config, fp32) trace on a fake (2, 2) world, and so
+    does a decode of one row, which stays whole on both DP ranks (the
+    long_500k cells' batch of 1)."""
+    import torch_mesh_serve_worker as worker
+
+    assert not hasattr(dryrun, "untraced_reason")
+    cfg = worker.port_cfg(arch)
+    two = {"data": 2, "model": 2}
+    for kind, batch in (("prefill", 4), ("decode", 4), ("decode", 1)):
+        res = dryrun.trace_cell(cfg, kind, batch, 8, two)
+        assert res["cost"]["flops"] > 0, (kind, batch)
+        assert res["collectives"]["count"] > 0, (kind, batch)
+
+
+def test_windowed_xlstm_prefill_equals_full_trace():
+    """xLSTM's prefill cells trace two windows of the token loop and scale
+    them to S: at a small S the scaled FLOPs, collective bytes and counts
+    equal a full trace's."""
+    import torch_mesh_serve_worker as worker
+
+    cfg = worker.port_cfg("xlstm-125m")
+    two = {"data": 2, "model": 2}
+    full = dryrun.trace_cell(cfg, "prefill", 4, 24, two)
+    scaled = dryrun.trace_scaled(cfg, "prefill", 4, 24, two, window=(8, 16))
+    assert scaled["cost"] == full["cost"]
+    assert scaled["collectives"] == full["collectives"]
+    assert scaled["scaled"]["from_steps"] == [8, 16] and scaled["scaled"]["to_steps"] == 24
+    assert dryrun.windowed(get_config("xlstm-125m"), "prefill", 32768)
+    assert not dryrun.windowed(get_config("jamba-v0.1-52b"), "prefill", 32768)

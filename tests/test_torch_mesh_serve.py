@@ -8,17 +8,24 @@ Each case of the worker's CASES runs on (2, 2), (1, 4) and the (2, 1, 2)
 multi-pod mesh (as it names them): the port's mesh `prefill` of the rank's
 rows of 4 prompts, then 4 mesh `decode_step`s, against the reference's
 `prefill` / `decode_step(..., tiered=)` on the whole batch with the same
-params and tiers. The seven archs at fp32 smoke configs: the dense five
+params and tiers. The ten archs at fp32 smoke configs: the dense five
 keep their published G (query heads 6, 6, 10 do not divide a 4-wide
 "model" axis; granite-20b is MQA, once more with FSDP storage), granite-
 moe and deepseek with tier states whose cold pool is homed over data x
 model, or over data with F striped, a cold tier that drops at capacity
 (its drops held to the global order across the DP shards), and the flat
-expert-parallel MoE at its capacity factor. Tokens are equal; logits,
-caches and the global expert counts within 1e-5 of the reference's
-largest element (MLA within 1e-4, as tests/test_seq_parallel.py), counts
-exactly. No all-gather of a decode step has the size of a cache leaf (the
-rank's rows, every key) or of a tier buffer."""
+expert-parallel MoE at its capacity factor; jamba (Mamba channel-
+parallel, tiered MoE), xlstm-125m with its mLSTM state split over heads
+and, with 2 heads on (1, 4), along the key index, and seamless-m4t (the
+encoder over the rows' 16 frames, cross K/V split over frames, a vocab
+that does not divide 4). A batch of 1 on (2, 2) (granite-moe, jamba)
+stays whole on both DP ranks. Tokens are equal; logits, caches (the
+recurrent states and cross K/V too) and the global expert counts within
+1e-5 of the reference's largest element (MLA within 1e-4, as
+tests/test_seq_parallel.py), counts exactly. No all-gather of a decode
+step has the size of a cache leaf (the rank's rows, every key or
+channel; sLSTM's h aside: each step's h @ r needs the whole h) or of a
+tier buffer."""
 import dataclasses
 import sys
 from pathlib import Path
@@ -44,12 +51,12 @@ DEADLINE_S = 180  # a hang guard: the world takes ~22 s on an idle 8-core host
 TOL, MLA_TOL = 1e-5, 1e-4
 
 
-def jax_cfg(arch):
+def jax_cfg(arch, config=()):
     cfg = reduce_for_smoke(get_config(arch))
     if arch in worker.DENSE:
         return keep_groups(cfg, get_config(arch))
     return dataclasses.replace(cfg, param_dtype="float32", compute_dtype="float32",
-                               moe_backend="ref")
+                               moe_backend="ref", **dict(config))
 
 
 def jax_tiered(cfg, sizes, pad, key):
@@ -75,8 +82,8 @@ _PARAMS = {}
 
 
 def arch_params(cfg):
-    """The reference's seeded params of an arch, made once."""
-    if cfg.name not in _PARAMS:
+    """The reference's seeded params of a config, made once."""
+    if cfg not in _PARAMS:
         params = jax.tree.map(np.asarray, jmodel.init_params(jax.random.PRNGKey(0), cfg))
         if cfg.qkv_bias:  # zeros at init: give the biases values to carry
             rng = np.random.default_rng(1)
@@ -84,12 +91,12 @@ def arch_params(cfg):
                 leaf = params["stack"]["slot0"]["mixer"][k]
                 params["stack"]["slot0"]["mixer"][k] = rng.normal(size=leaf.shape).astype(
                     np.float32) * 0.5
-        _PARAMS[cfg.name] = params
-    return _PARAMS[cfg.name]
+        _PARAMS[cfg] = params
+    return _PARAMS[cfg]
 
 
 def case_state(case):
-    cfg = jax_cfg(case.arch)
+    cfg = jax_cfg(case.arch, case.config)
     state = {"params": arch_params(cfg)}
     if case.sizes is not None:
         state["tiered"] = jax_tiered(cfg, case.sizes, case.pad, jax.random.PRNGKey(1))
@@ -121,16 +128,21 @@ def reference(name, states):
     params, tiered = state["params"], state.get("tiered")
     if tiered is not None:
         params = strip_expert_weights(params, cfg)
-    toks, lens = worker.prompts(cfg.vocab_size)
+    first = worker.B - case.batch
+    toks, lens = (a[first:] for a in worker.prompts(cfg.vocab_size))
     mask = (np.arange(worker.S)[None, :] < lens[:, None]) if case.masked else None
     kw = dict(tiered=None if tiered is None else jax.tree.map(jnp.asarray, tiered),
               cold_capacity_frac=case.frac)
     p = jax.tree.map(jnp.asarray, params)
-    logits, cache = jmodel.prefill(p, cfg, {"tokens": jnp.asarray(toks)}, worker.CACHE,
+    batch = {"tokens": jnp.asarray(toks)}
+    frames = worker.frames(cfg)
+    if frames is not None:
+        batch["frames"] = jnp.asarray(frames[first:])
+    logits, cache = jmodel.prefill(p, cfg, batch, worker.CACHE,
                                    token_mask=None if mask is None else jnp.asarray(mask),
                                    **kw)
     out = {"prefill_logits": np.asarray(logits), "prefill_cache": jax.tree.map(np.asarray, cache)}
-    pos = lens if case.masked else np.full(worker.B, worker.S, np.int32)
+    pos = lens if case.masked else np.full(case.batch, worker.S, np.int32)
     tok = np.asarray(logits).argmax(-1)[:, None].astype(np.int32)
     steps = []
     for step in range(worker.DECODE_STEPS):
@@ -203,20 +215,3 @@ def test_mesh_train_step_takes_stacks_split_over_layers(world):
     itself; the unsharded step is held to the reference elsewhere)."""
     _, out, _ = world
     assert out["train_stacked_split_err"] < 1e-5
-
-
-@pytest.mark.parametrize("arch", ["jamba-v0.1-52b", "xlstm-125m", "seamless-m4t-large-v2"])
-def test_unsharded_archs_refuse_a_mesh(arch):
-    """The recurrent archs and the encoder-decoder are the next slice: on
-    a mesh the serving functions raise before touching anything."""
-    import torch
-
-    from repro_torch.configs import get_config as port_config
-    from repro_torch.models.model import MESH_SLICE, decode_step, prefill
-
-    cfg = port_config(arch)
-    toks = torch.zeros(2, 4, dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="slice"):
-        prefill(None, cfg, toks, mesh=object())
-    with pytest.raises(NotImplementedError, match=MESH_SLICE[:20]):
-        decode_step(None, cfg, toks[:, :1], None, 0, mesh=object())

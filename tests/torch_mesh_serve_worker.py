@@ -4,16 +4,18 @@ spawns (imports torch and the port only):
   python tests/torch_mesh_serve_worker.py RANK WORLD INIT_FILE IO_DIR MODE
 
 MODE "serve": for every case of CASES on every mesh it names, the rank takes its rows
-of the batch, runs the port's mesh `prefill` and DECODE_STEPS mesh
-`decode_step`s (greedy: each row's next token is the argmax of its own
-logits), records every collective of the decode steps, and gathers the
-rows, logits, counts and cache shards for rank 0 to write (those gathers
-are the test's, outside the recorded steps), and holds the mesh train
-step's gradients on a stacked MLP split over its layers to the unsharded
-step's. MODE "dryrun": the dry-run's
-smoke decode cell (DRYRUN_CELL) once on (2, 2) under CommDebugMode and
-the dry-run's CollectiveCounter (tests/test_torch_dryrun.py). Any failed
-check raises, so the rank exits non-zero; `spawn_world` runs a world."""
+of the batch (all of them where the batch does not split over DP), runs
+the port's mesh `prefill` (an encoder-decoder's over its rows' frames)
+and DECODE_STEPS mesh `decode_step`s (greedy: each row's next token is
+the argmax of its own logits), records every collective of the decode
+steps, and gathers the rows, logits, counts and cache shards for rank 0
+to write (those gathers are the test's, outside the recorded steps), and
+holds the mesh train step's gradients on a stacked MLP split over its
+layers to the unsharded step's. MODE "dryrun": each of the dry-run's
+smoke cells (DRYRUN_CELLS) once on (2, 2), the step the dry-run builds,
+under CommDebugMode and the dry-run's CollectiveCounter
+(tests/test_torch_dryrun.py). Any failed check raises, so the rank exits
+non-zero; `spawn_world` runs a world."""
 import dataclasses
 import datetime
 import json
@@ -37,7 +39,6 @@ from repro_torch.launch.mesh import make_mesh  # noqa: E402
 from repro_torch.models.layers import make_generator  # noqa: E402
 from repro_torch.models.model import decode_step, init_params, prefill  # noqa: E402
 from repro_torch.serving.engine import init_tiered_for_model, strip_expert_weights  # noqa: E402
-from repro_torch.serving.kv_cache import cache_spec  # noqa: E402
 from repro_torch.serving.tiered_moe import TierSizes  # noqa: E402
 from repro_torch.tree import leaves_with_path, tree_map  # noqa: E402
 
@@ -57,6 +58,8 @@ class Case:
     frac: float = 0.25  # cold_capacity_frac
     masked: bool = True  # right-padded prompts (token_mask), else exact length
     fsdp: bool = False  # params also split over "data"
+    batch: int = B  # the last `batch` of the B prompts (1: whole on every DP rank)
+    config: tuple = ()  # (field, value) pairs over the smoke config
 
 
 CASES = {
@@ -73,18 +76,49 @@ CASES = {
     "granite-moe/flat": Case("granite-moe-1b-a400m", masked=False),
     "deepseek/tiers": Case("deepseek-v2-236b", sizes=(2, 2, 4), pad=4),
     "deepseek/flat": Case("deepseek-v2-236b", masked=False),
+    # Mamba channel-parallel, its GQA layer and tiered MoE layers
+    "jamba/tiers": Case("jamba-v0.1-52b", sizes=(2, 2, 4), pad=4),
+    # a batch of 1 on 2 DP ranks: rows, cache and tier work whole on both
+    "jamba/batch1": Case("jamba-v0.1-52b", ("2x2",), sizes=(2, 2, 4), pad=4, batch=1),
+    "granite-moe/batch1": Case("granite-moe-1b-a400m", ("2x2",), sizes=(2, 2, 4), pad=4,
+                               batch=1),
+    # 4 heads: the mLSTM state splits over heads on every mesh
+    "xlstm": Case("xlstm-125m"),
+    # 2 heads: on (1, 4) C and n split along the key index (the published
+    # 4 heads on 16 ranks), over heads on the 2-wide meshes
+    "xlstm/dh": Case("xlstm-125m", config=(("n_heads", 2), ("n_kv_heads", 2))),
+    # 16 frames over "model"; a vocab of 258: vocab-parallel on 2 model
+    # ranks, the D-split embedding and head on 4
+    "seamless": Case("seamless-m4t-large-v2", config=(("vocab_size", 258),)),
 }
-# the dry-run's smoke decode cell, traced on a fake (2, 2) world by the test
-DRYRUN_CELL = dict(arch="granite-moe-1b-a400m", batch=4, seq=16, sizes=(2, 2, 4))
+# the dry-run's smoke cells, traced on a fake (2, 2) world by the test
+DRYRUN_CELLS = {
+    "granite": dict(arch="granite-moe-1b-a400m", kind="decode", batch=4, seq=16,
+                    sizes=(2, 2, 4)),
+    "jamba": dict(arch="jamba-v0.1-52b", kind="decode", batch=4, seq=16, sizes=(2, 2, 4)),
+    "seamless": dict(arch="seamless-m4t-large-v2", kind="prefill", batch=4, seq=16,
+                     sizes=None),
+}
 
 
-def port_cfg(arch: str):
-    """The smoke config in fp32: the dense archs keep their published G."""
+def port_cfg(arch: str, config: tuple = ()):
+    """The smoke config in fp32 (with the `config` fields set): the dense
+    archs keep their published G."""
     cfg = reduce_for_smoke(get_config(arch))
     if arch in DENSE:
         return keep_groups(cfg, get_config(arch))
     return dataclasses.replace(cfg, param_dtype="float32", compute_dtype="float32",
-                               moe_backend="ref")
+                               moe_backend="ref", **dict(config))
+
+
+def frames(cfg, seed: int = 2):
+    """An encoder-decoder's frames [B, F, D] fp32 (0.02 N(0, 1), as the
+    reference's `add_frames` scales them), else None."""
+    if cfg.encdec is None:
+        return None
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((B, cfg.encdec.frontend_frames, cfg.d_model)) * 0.02).astype(
+        np.float32)
 
 
 def prompts(vocab: int, seed: int = 0):
@@ -106,14 +140,21 @@ def _gather_rows(x: torch.Tensor, dp) -> torch.Tensor:
 
 
 def _full_cache(cache) -> dict:
-    return {"|".join(path): t.full_tensor().numpy() for path, t in leaves_with_path(cache)}
+    """Every cache leaf whole, copied: a replicated DTensor's `full_tensor`
+    is its local tensor, which the next decode step writes in place."""
+    return {"|".join(path): t.full_tensor().numpy().copy() for path, t in leaves_with_path(cache)}
 
 
 def _too_big(cache, tiered, rows: int) -> set:
     """The dims (sorted) of an all-gather of a cache leaf (this rank's
-    rows, every key) or of a tier buffer (one layer, whole)."""
+    rows, every key or channel) or of a tier buffer (one layer, whole).
+    Not sLSTM's state leaves c, n, h, m [rows, D]: the whole h that each
+    step's h @ r needs has their size, one all-gather a step."""
     out = set()
+    slstm = {path[:-1] for path, _ in leaves_with_path(cache) if path[-1] == "c"}
     for path, t in leaves_with_path(cache):
+        if path[:-1] in slstm:
+            continue
         shape = list(t.shape[1:] if "stack" in path else t.shape)
         shape[0] = rows
         out.add(tuple(sorted(shape)))
@@ -124,7 +165,7 @@ def _too_big(cache, tiered, rows: int) -> set:
 
 
 def run_case(name: str, case: Case, mesh_name: str, io: Path, results: dict) -> None:
-    cfg = port_cfg(case.arch)
+    cfg = port_cfg(case.arch, case.config)
     mesh = make_mesh(*MESHES[mesh_name], "cpu")
     like = {"params": init_params(0, cfg, device="cpu")}
     if case.sizes is not None:
@@ -136,17 +177,20 @@ def run_case(name: str, case: Case, mesh_name: str, io: Path, results: dict) -> 
         params = strip_expert_weights(params, cfg)
         tiered = shd.shard_tiered(tiered, mesh)
     params = shd.shard_tree(params, mesh, shd.tree_pspecs(params, mesh, cfg, fsdp=case.fsdp))
-    dp = shd.dp_group(mesh)
-    toks, lens = (torch.from_numpy(a) for a in prompts(cfg.vocab_size))
+    dp = shd.dp_group(mesh, case.batch)
+    toks, lens = (torch.from_numpy(a[B - case.batch:]) for a in prompts(cfg.vocab_size))
     mask = (torch.arange(S)[None, :] < lens[:, None]) if case.masked else None
-    rows = shd.shard_rows(torch.arange(B), mesh)
+    rows = shd.shard_rows(torch.arange(case.batch), mesh)
+    fr = frames(cfg)
+    fr = None if fr is None else torch.from_numpy(fr[B - case.batch:])[rows]
     kw = dict(tiered=tiered, cold_capacity_frac=case.frac, mesh=mesh)
     logits, cache = prefill(params, cfg, toks[rows], CACHE,
-                            token_mask=None if mask is None else mask[rows], **kw)
+                            token_mask=None if mask is None else mask[rows], frames=fr,
+                            batch=case.batch, **kw)
     key = f"{name}@{mesh_name}"
     arrays = {f"{key}/prefill_logits": _gather_rows(logits, dp).numpy()}
     arrays.update({f"{key}/prefill_cache/{k}": v for k, v in _full_cache(cache).items()})
-    pos = (lens if case.masked else torch.full((B,), S, dtype=torch.int32))[rows]
+    pos = (lens if case.masked else torch.full((case.batch,), S, dtype=torch.int32))[rows]
     tok = logits.argmax(-1)[:, None].to(torch.int32)
     big = _too_big(cache, tiered, rows.numel())
     out_toks, out_logits, out_counts, gathers = [], [], [], []
@@ -194,30 +238,27 @@ def train_stacked_split(results: dict) -> None:
     results["train_stacked_split_err"] = err
 
 
-def dryrun_cell(results: dict) -> None:
-    """The dry-run's smoke decode cell (zeros, as the trace builds it) on
-    (2, 2), one mesh decode step under CommDebugMode and CollectiveCounter."""
+def dryrun_cells(results: dict) -> None:
+    """Each of the dry-run's smoke cells on (2, 2): the step it traces
+    (zeros, as the trace builds them), run once under CommDebugMode and
+    CollectiveCounter."""
     from torch.distributed.tensor.debug import CommDebugMode
 
-    c = DRYRUN_CELL
-    cfg = port_cfg(c["arch"])
     mesh = make_mesh((2, 2), ("data", "model"), "cpu")
-    params = init_params(0, cfg, device="meta")
-    tiered = init_tiered_for_model(make_generator(1, "meta"), cfg, TierSizes(*c["sizes"]))
-    params = strip_expert_weights(params, cfg)
-    like = cache_spec(cfg, c["batch"], c["seq"])
-    p = shd.sharded_zeros(params, shd.tree_pspecs(params, mesh, cfg), mesh, "cpu")
-    t = shd.sharded_zeros(tiered, shd.tiered_pspecs(tiered, mesh), mesh, "cpu")
-    cache = shd.sharded_zeros(like, shd.cache_pspecs(like, mesh), mesh, "cpu")
-    toks = torch.zeros(c["batch"] // 2, 1, dtype=torch.int32)
-    with CommDebugMode() as comm, dryrun.CollectiveCounter() as coll:
-        decode_step(p, cfg, toks, cache, c["seq"] - 1, tiered=t, mesh=mesh)
-    counts = {}
-    for op, n in comm.get_comm_counts().items():
-        kind = dryrun.collective_kind(op)
-        assert kind is not None, op
-        counts[kind] = counts.get(kind, 0) + n
-    results["dryrun_cell"] = {"comm_debug_counts": counts, "counter": coll.report()}
+    results["dryrun_cells"] = {}
+    for name, c in DRYRUN_CELLS.items():
+        cfg = port_cfg(c["arch"])
+        sizes = None if c["sizes"] is None else TierSizes(*c["sizes"])
+        likes = dryrun._likes(cfg, c["kind"], c["batch"], c["seq"], sizes)
+        run, _ = dryrun._step(cfg, c["kind"], c["batch"], c["seq"], mesh, likes, "cpu")
+        with CommDebugMode() as comm, dryrun.CollectiveCounter() as coll:
+            run()
+        counts = {}
+        for op, n in comm.get_comm_counts().items():
+            kind = dryrun.collective_kind(op)
+            assert kind is not None, op
+            counts[kind] = counts.get(kind, 0) + n
+        results["dryrun_cells"][name] = {"comm_debug_counts": counts, "counter": coll.report()}
 
 
 def main(rank: int, world: int, init_file: str, io_dir: str, mode: str) -> None:
@@ -233,7 +274,7 @@ def main(rank: int, world: int, init_file: str, io_dir: str, mode: str) -> None:
                     run_case(name, case, mesh_name, io, results)
             train_stacked_split(results)
         else:
-            dryrun_cell(results)
+            dryrun_cells(results)
     dist.barrier()
     if rank == 0:
         np.savez(io / "out_arrays.npz", **results.pop("arrays"))
