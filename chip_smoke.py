@@ -1862,6 +1862,14 @@ def _to_host(tree):
     return tree_map(lambda t: t.detach().to("cpu"), tree)
 
 
+def _steps_start(dev) -> int:
+    """The bytes allocated as a run of steps starts, the peak counter reset
+    to them: the steps' temporaries are the peak less this."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    return torch.cuda.memory_allocated(dev)
+
+
 def distributed_phase(dev) -> list:
     """The distributed layer on one card: NCCL at world size 1 (an
     in-process HashStore, no network), the debug mesh (1, 1) of
@@ -1880,25 +1888,36 @@ def distributed_phase(dev) -> list:
     equal to the quantize round trip. Then one granite MoE layer at the
     train batch through the grouped dispatch with the MoE hints on (its
     32 experts the rank's E/m), counters reset just before, against the
-    plain route (bf16 and fp32). Returns the two paths' launch counts."""
+    plain route (bf16 and fp32). The mesh step computes on its shards
+    (heads, F, the vocab over "model"; rows over "data"); on one card
+    every group is one rank. Reported, not held: each step's median
+    seconds, peak memory and temporaries (the allocator's peak less what
+    the steps found allocated) for both steps, and, before NCCL starts,
+    the dry-run's fake-tensor trace of the train cell at world size 1
+    (its temporaries beside the card's). Returns the two paths' launch
+    counts."""
     import torch.distributed as dist
     from torch.distributed.tensor import DTensor
 
     from repro_torch.distributed import sharding as shd
     from repro_torch.distributed.collectives import (
         compressed_psum, int8_dequantize, int8_quantize)
+    from repro_torch.launch import dryrun
     from repro_torch.launch.mesh import make_debug_mesh
     from repro_torch.models.moe import init_moe, moe_forward, set_moe_sharding_hints
     from repro_torch.models.layers import make_generator
     from repro_torch.training import shard_train_state
 
     t_phase = time.time()
+    cfg = get_config(GQA_ARCH)
+    t0 = time.time()  # the fake world needs a process with no process group yet
+    trace = dryrun.trace_cell(cfg, "train", TRAIN_B, TRAIN_S, {"data": 1, "model": 1})
+    trace_s = time.time() - t0
     dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1,
                             device_id=dev)
     mesh = make_debug_mesh(device_type="cuda")
     if tuple(mesh.shape) != (1, 1):
         fail(f"{DIST_PATH}: the debug mesh of one card is {tuple(mesh.shape)}, not (1, 1)")
-    cfg = get_config(GQA_ARCH)
     n_moe = sum(cfg.uses_moe_layer(i) for i in range(cfg.n_layers))
     batches = _batches(cfg, TRAIN_B, TRAIN_S, dev)
 
@@ -1909,34 +1928,36 @@ def distributed_phase(dev) -> list:
     torch.use_deterministic_algorithms(True, warn_only=True)
 
     def unsharded():
-        """DIST_STEPS unsharded steps: (losses, the state on the host, median s)."""
+        """DIST_STEPS unsharded steps: (losses, the state on the host, median
+        s, peak bytes and temporaries over the steps)."""
         params, opt = init_train_state(0, cfg, TRAIN_OPT, device=dev)
         step = make_train_step(cfg, TRAIN_OPT)
         out, secs = [], []
+        base = _steps_start(dev)
         for i in range(DIST_STEPS):
             torch.cuda.synchronize()
             t0 = time.time()
             params, opt, metrics = step(params, opt, batches[i % 2])
             out.append(float(metrics["loss"]))
             secs.append(time.time() - t0)
+        peak = torch.cuda.max_memory_allocated(dev)
         state = _to_host({"params": params, "opt": opt})
         del params, opt, metrics
         gc.collect()
         torch.cuda.empty_cache()
-        return out, state, sorted(secs[1:])[len(secs[1:]) // 2]
+        return out, state, sorted(secs[1:])[len(secs[1:]) // 2], peak, peak - base
 
     # the unsharded step twice (its run-to-run spread), the state waiting on the host
-    ref_losses, ref, ref_step_s = unsharded()
-    rep_losses, rep, _ = unsharded()
+    ref_losses, ref, ref_step_s, ref_peak, ref_temp = unsharded()
+    rep_losses, rep, _, _, _ = unsharded()
     repeat_bitwise = rep_losses == ref_losses and all(
         torch.equal(a, b) for (_, a), (_, b) in zip(leaves_with_path(ref), leaves_with_path(rep)))
     del rep
 
-    torch.cuda.reset_peak_memory_stats(dev)
     params, opt = init_train_state(0, cfg, TRAIN_OPT, device=dev)
     params, opt = shard_train_state(params, opt, mesh, cfg)
     step = make_train_step(cfg, TRAIN_OPT, mesh=mesh)
-    torch.cuda.synchronize()
+    base = _steps_start(dev)
     reset_counters()
     losses, secs = [], []
     for i in range(DIST_STEPS):
@@ -1946,7 +1967,7 @@ def distributed_phase(dev) -> list:
         losses.append(float(metrics["loss"]))  # synchronises
         secs.append(time.time() - t0)
     launches = read_counters()
-    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    peak = torch.cuda.max_memory_allocated(dev)
     torch.use_deterministic_algorithms(deterministic)
     loss_rel = max(abs(a - b) / abs(b) for a, b in zip(losses, ref_losses))
     if loss_rel > 1e-6:
@@ -2034,9 +2055,17 @@ def distributed_phase(dev) -> list:
         phase="distributed", path=DIST_PATH, arch=GQA_ARCH, mesh=[1, 1], backend="nccl",
         layers=cfg.n_layers, batch=TRAIN_B, seq=TRAIN_S, steps=DIST_STEPS, losses=losses,
         step_s=secs, median_step_s=step_s, tokens_per_s=TRAIN_B * TRAIN_S / step_s,
-        peak_mem_gb=peak_gb, launches=launches,
+        peak_mem_gb=peak / 1e9, launches=launches,
         moe_gemm_launches_per_step=launches["moe_gemm"] / DIST_STEPS,
         unsharded_losses=ref_losses, unsharded_median_step_s=ref_step_s,
+        mesh_over_unsharded_step_s=step_s / ref_step_s,
+        unsharded_peak_mem_gb=ref_peak / 1e9, mesh_over_unsharded_peak=peak / ref_peak,
+        trace_memory=dict(
+            trace_temp_bytes=trace["memory"]["temp_size_in_bytes"],
+            trace_argument_bytes=trace["memory"]["argument_size_in_bytes"],
+            card_temp_bytes=peak - base, unsharded_card_temp_bytes=ref_temp,
+            trace_over_card=trace["memory"]["temp_size_in_bytes"] / max(peak - base, 1)),
+        trace_collectives=trace["collectives"]["counts"], trace_s=trace_s,
         unsharded_repeat_bitwise=repeat_bitwise, deterministic_algorithms=True,
         loss_max_rel_err=loss_rel,
         state_max_rel_err=worst, state_bitwise=bitwise, params_restored_bitwise=True,

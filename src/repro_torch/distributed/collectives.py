@@ -1,7 +1,11 @@
 """Collective helpers (port of repro/distributed/collectives.py:
 `int8_quantize` :22, `int8_dequantize` :28, `compressed_psum` :32,
 `cross_pod_grad_reduce` :49), plus the autograd-aware collectives the
-model code's mesh branches use.
+model code's mesh branches use: one home for every collective the mesh
+forwards run, each with its backward rule (f / g, gather / piece or
+reduce-scatter, reduce-scatter / gather, all-to-all / its inverse,
+broadcast / the owner's gradient), which is what GSPMD's transpose of
+the reference's program computes.
 
 On a (pod, data, model) mesh the gradient all-reduce splits into a cheap
 reduce within a pod and an expensive one across pods. `compressed_psum`
@@ -10,8 +14,9 @@ round-half-even rounding (as `jnp.round`); the error-feedback residual
 lives in the optimizer state (training/optimizer.py), so the
 quantization bias cancels over steps.
 
-Each process group of size 1 is skipped outright: a one-device mesh
-computes exactly what the unsharded code computes.
+Each process group of size 1 is skipped outright by the functions here
+(the Functions themselves run on any group): a one-device mesh computes
+exactly what the unsharded code computes.
 """
 from __future__ import annotations
 
@@ -70,9 +75,39 @@ def cross_pod_grad_reduce(grads, mesh, method: str = "int8"):
 
 
 # ------------------------------------------------ autograd-aware collectives
-class _CopyToGroup(torch.autograd.Function):
-    """Forward: the identity. Backward: the gradient summed over the
-    group (each rank computed a part of it from the same input)."""
+# Each Function below is one collective with its backward rule. Their
+# backward passes run their collective on every rank whatever the
+# gradient holds (zeros included), so every rank issues the same
+# collectives in the same order. They run on any group, one rank
+# included; the wrappers `copy_to_group`, `reduce_from_group` and
+# `gather_dim` skip a one-rank group, as this module's other functions
+# do, and distributed/tensor_parallel.py calls the Functions themselves.
+def _reduced(x: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
+    out = x.contiguous().clone()
+    dist.all_reduce(out, op=op, group=group)
+    return out
+
+
+def _gathered(x: torch.Tensor, group, n: int, dim: int) -> torch.Tensor:
+    """Every rank's `x` joined along `dim`, in group order."""
+    x = x.movedim(dim, 0).contiguous()
+    out = x.new_empty((n * x.shape[0], *x.shape[1:]))
+    dist.all_gather_into_tensor(out, x, group=group)
+    return out.movedim(0, dim)
+
+
+def _scattered(x: torch.Tensor, group, n: int, dim: int) -> torch.Tensor:
+    """The sum over the group of `x`, this rank's 1/n of it along `dim`."""
+    x = x.movedim(dim, 0).contiguous()
+    out = x.new_empty((x.shape[0] // n, *x.shape[1:]))
+    dist.reduce_scatter_tensor(out, x, group=group)
+    return out.movedim(0, dim)
+
+
+class CopyToGroup(torch.autograd.Function):
+    """Megatron's f. Forward: the identity (`x` whole on every rank).
+    Backward: the gradient summed over the group (each rank computed a
+    part of it in rank-specific compute)."""
 
     @staticmethod
     def forward(ctx, x, group):
@@ -81,93 +116,130 @@ class _CopyToGroup(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        return all_reduce(g.contiguous(), ctx.group), None
+        return _reduced(g, ctx.group), None
 
 
-class _ReduceFromGroup(torch.autograd.Function):
-    """Forward: the sum over the group of each rank's partial result.
-    Backward: the identity (every rank holds the whole gradient)."""
+class ReduceFromGroup(torch.autograd.Function):
+    """Megatron's g. Forward: the sum over the group of each rank's
+    partial result. Backward: the identity (every rank holds the whole
+    gradient)."""
 
     @staticmethod
     def forward(ctx, x, group):
-        return all_reduce(x.contiguous(), group)
+        return _reduced(x, group)
 
     @staticmethod
     def backward(ctx, g):
         return g, None
 
 
-class _GatherDim(torch.autograd.Function):
-    """Forward: the ranks' pieces joined along `dim` in group order.
-    Backward: this rank's piece of the (identical) gradient."""
+class ReduceCopy(torch.autograd.Function):
+    """g then f: partial results summed over the group into a tensor that
+    only rank-specific compute reads. Both passes sum over the group."""
 
     @staticmethod
-    def forward(ctx, x, group, dim):
-        ctx.group, ctx.dim = group, dim
-        ctx.rank, ctx.n = dist.get_rank(group), _size(group)
-        parts = [torch.empty_like(x) for _ in range(ctx.n)]
-        dist.all_gather(parts, x.contiguous(), group=group)
-        return torch.cat(parts, dim)
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _reduced(x, group)
 
     @staticmethod
     def backward(ctx, g):
-        return g.chunk(ctx.n, ctx.dim)[ctx.rank], None, None
+        return _reduced(g, ctx.group), None
 
 
-def copy_to_group(x: torch.Tensor, group) -> torch.Tensor:
-    return x if _size(group) == 1 else _CopyToGroup.apply(x, group)
-
-
-def reduce_from_group(x: torch.Tensor, group) -> torch.Tensor:
-    return x if _size(group) == 1 else _ReduceFromGroup.apply(x, group)
-
-
-def gather_dim(x: torch.Tensor, group, dim: int) -> torch.Tensor:
-    return x if _size(group) == 1 else _GatherDim.apply(x, group, dim)
-
-
-def all_gather_stack(x: torch.Tensor, group) -> torch.Tensor:
-    """[n, *x.shape]: every rank's `x` in group order (no autograd)."""
-    if _size(group) == 1:
-        return x[None]
-    parts = [torch.empty_like(x) for _ in range(_size(group))]
-    dist.all_gather(parts, x.contiguous(), group=group)
-    return torch.stack(parts)
-
-
-class _GatherShards(torch.autograd.Function):
-    """Forward: a leaf's shards gathered over the mesh dims `places`
-    shards it on (innermost dim first). Backward: the gradients of the
-    ranks that computed on other batch rows summed over `dp`, then this
-    rank's chunk of the sum."""
+class GatherDim(torch.autograd.Function):
+    """Forward: the n ranks' pieces joined along `dim` in group order.
+    Backward: this rank's piece (index `idx`) of the gradient, which is
+    whole on every rank; or, with `reduce`, the sum over the group of the
+    gradients, each rank's differing (the rows an FSDP weight met there),
+    scattered back to the pieces: a reduce-scatter."""
 
     @staticmethod
-    def forward(ctx, local, mesh, places, dp):
-        ctx.mesh, ctx.places, ctx.dp = mesh, places, dp
-        out = local
-        for i in reversed(range(len(places))):
-            if places[i].is_shard():
-                out = _gather(out, mesh.get_group(i), places[i].dim)
+    def forward(ctx, x, group, n, idx, dim, reduce=False):
+        ctx.group, ctx.n, ctx.idx, ctx.dim, ctx.reduce = group, n, idx, dim, reduce
+        return _gathered(x, group, n, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.reduce:
+            gx = _scattered(g, ctx.group, ctx.n, ctx.dim)
+        else:
+            step = g.shape[ctx.dim] // ctx.n
+            gx = g.narrow(ctx.dim, ctx.idx * step, step)
+        return gx, None, None, None, None, None
+
+
+class ReduceScatter(torch.autograd.Function):
+    """Forward: the sum over the group of x, this rank's 1/n of it along
+    `dim`. Backward: the gradients of every rank's part gathered."""
+
+    @staticmethod
+    def forward(ctx, x, group, n, dim=0):
+        ctx.group, ctx.n, ctx.dim = group, n, dim
+        return _scattered(x, group, n, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gathered(g, ctx.group, ctx.n, ctx.dim), None, None, None
+
+
+class AllToAll(torch.autograd.Function):
+    """Forward: one all-to-all of x's rows (`send[r]` rows to rank r,
+    `recv[r]` from it; None: equal splits). Backward: the inverse
+    all-to-all, send and receive counts swapped."""
+
+    @staticmethod
+    def forward(ctx, x, group, recv=None, send=None):
+        ctx.group, ctx.recv, ctx.send = group, recv, send
+        return _exchange(x, group, recv, send)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _exchange(g, ctx.group, ctx.send, ctx.recv), None, None, None
+
+
+def _exchange(x: torch.Tensor, group, recv, send) -> torch.Tensor:
+    x = x.contiguous()
+    rows = x.shape[0] if recv is None else sum(recv)
+    out = x.new_empty((rows, *x.shape[1:]))
+    dist.all_to_all_single(out, x, recv, send, group=group)
+    return out
+
+
+class Broadcast(torch.autograd.Function):
+    """Forward: `x` of the group's rank `src` (a global rank) on every
+    rank. Backward: the owner's own gradient, zeros elsewhere: every rank
+    computes with the broadcast tensor whole, as the same replicated
+    compute, so its gradient is whole and equal on every rank and counts
+    once, at the owner."""
+
+    @staticmethod
+    def forward(ctx, x, group, src):
+        ctx.owner = dist.get_rank() == src
+        out = x.clone(memory_format=torch.contiguous_format)
+        dist.broadcast(out, src=src, group=group)
         return out
 
     @staticmethod
     def backward(ctx, g):
-        from repro_torch.distributed.sharding import local_chunk
-
-        g = all_reduce(g.contiguous(), ctx.dp)
-        return local_chunk(g, ctx.mesh, ctx.places).contiguous(), None, None, None
+        return (g if ctx.owner else torch.zeros_like(g)), None, None
 
 
-def _gather(x: torch.Tensor, group, dim: int) -> torch.Tensor:
-    if _size(group) == 1:
-        return x
-    parts = [torch.empty_like(x) for _ in range(_size(group))]
-    dist.all_gather(parts, x.contiguous(), group=group)
-    return torch.cat(parts, dim)
+def copy_to_group(x: torch.Tensor, group) -> torch.Tensor:
+    return x if _size(group) == 1 else CopyToGroup.apply(x, group)
 
 
-def gather_shards(local: torch.Tensor, mesh, places, dp) -> torch.Tensor:
-    """The full tensor of which `local` is this rank's shard under `places`
-    (mesh dims to leave sharded given as Replicate), differentiable: its
-    gradient is reduced over the DP group `dp` back to the shard."""
-    return _GatherShards.apply(local, mesh, places, dp)
+def reduce_from_group(x: torch.Tensor, group) -> torch.Tensor:
+    return x if _size(group) == 1 else ReduceFromGroup.apply(x, group)
+
+
+def gather_dim(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """The ranks' pieces joined along `dim` (backward: this rank's piece)."""
+    n = _size(group)
+    return x if n == 1 else GatherDim.apply(x, group, n, dist.get_rank(group), dim)
+
+
+def all_gather_stack(x: torch.Tensor, group) -> torch.Tensor:
+    """[n, *x.shape]: every rank's `x` in group order (no autograd)."""
+    n = _size(group)
+    return x[None] if n == 1 else _gathered(x[None], group, n, 0)

@@ -1,6 +1,6 @@
 """Tensor-parallel compute on a device mesh: the partitioning GSPMD
-derives for the reference's serving functions from its sharding rules
-(repro/distributed/sharding.py), written out.
+derives for the reference's serving and training functions from its
+sharding rules (repro/distributed/sharding.py), written out.
 
 Each rank holds its shard of every leaf (`Local`: the plain tensor, the
 mesh axes that split it and the whole leaf's shape) and computes on its
@@ -22,6 +22,15 @@ A batch that does not split over the DP axes stays whole on every DP rank
 Every collective here runs on its group even when the group is one rank
 (a (1, 1) mesh runs the mesh code and its collectives, not the unsharded
 functions). Nothing here allocates a whole cache or tier buffer.
+
+The train step differentiates through all of it: each collective has its
+backward rule (distributed/collectives.py), and every place where an
+activation whole on every model rank enters rank-specific compute (a
+column-split projection, the column slice of a D-split one, this rank's
+channels or heads) passes Megatron's f (`TP.copy_model`), so its
+gradient is summed over "model" once. FSDP gathers reduce-scatter their
+gradients over "data"; a scan group broadcast from its owning rank
+counts its (replicated) gradient once, at the owner.
 """
 from __future__ import annotations
 
@@ -29,7 +38,9 @@ from typing import Dict, Optional, Tuple
 
 import torch
 import torch.distributed as dist
+import torch.nn.functional as F
 
+from repro_torch.distributed import collectives as col
 from repro_torch.distributed import sharding as shd
 from repro_torch.models import layers
 
@@ -49,22 +60,74 @@ class Local:
     def __init__(self, t: torch.Tensor, axes: Dict[str, int], shape: tuple, src=None):
         self.t, self.axes, self.shape, self.src = t, axes, tuple(shape), src
 
-    def __getitem__(self, g):
+    @property
+    def dtype(self):
+        return self.t.dtype
+
+    def _group_split(self):
         split = [a for a, d in self.axes.items() if d == 0]
-        rest = {a: d - 1 for a, d in self.axes.items() if d != 0}
-        if not split:
-            return Local(self.t[g], rest, self.shape[1:])
-        if len(split) > 1 or self.src is not None:
+        if len(split) > 1 or (split and self.src is not None):
             raise ValueError(f"the group dim of {self.shape} is split as {self.axes}")
+        return (split[0] if split else None), {a: d - 1 for a, d in self.axes.items() if d}
+
+    def __getitem__(self, g):
+        axis, rest = self._group_split()
+        if axis is None:
+            return Local(self.t[g], rest, self.shape[1:])
         n = self.t.shape[0]
-        return Local(self.t[g % n], rest, self.shape[1:], src=(split[0], g // n))
+        return Local(self.t[g % n], rest, self.shape[1:], src=(axis, g // n))
+
+    def unbind(self) -> list:
+        """`[self[g] for g in range(shape[0])]` from one `torch.unbind` of
+        the local tensor: its backward stacks the groups' gradients in one
+        pass, where indexing group by group adds a zero gradient the size
+        of the whole leaf per group."""
+        axis, rest = self._group_split()
+        parts = torch.unbind(self.t, 0)
+        n = len(parts)
+        return [Local(parts[g % n], rest, self.shape[1:],
+                      src=None if axis is None else (axis, g // n))
+                for g in range(self.shape[0])]
+
+
+def unbind_locals(tree) -> list:
+    """The scan groups of a stacked subtree of `Local`s (`Local.unbind`)."""
+    if isinstance(tree, dict):
+        parts = {k: unbind_locals(v) for k, v in tree.items()}
+        n = len(next(iter(parts.values())))
+        return [{k: part[g] for k, part in parts.items()} for g in range(n)]
+    return tree.unbind()
 
 
 def local_leaf(dt, mesh) -> Local:
     """A DTensor as a `Local` (its local tensor, shared, not copied)."""
+    return local_of(dt.to_local(), dt.placements, mesh)
+
+
+def local_of(t: torch.Tensor, placements, mesh) -> Local:
+    """This rank's shard `t` (a plain tensor) of a leaf placed as
+    `placements` on `mesh`, as a `Local` (the whole shape from the
+    shard's: the rules split only dims that divide)."""
     names = list(mesh.mesh_dim_names)
-    axes = {names[i]: pl.dim for i, pl in enumerate(dt.placements) if pl.is_shard()}
-    return Local(dt.to_local(), axes, tuple(dt.shape))
+    sizes = shd.mesh_shape(mesh)
+    axes, shape = {}, list(t.shape)
+    for i, pl in enumerate(placements):
+        if pl.is_shard():
+            axes[names[i]] = pl.dim
+            shape[pl.dim] *= sizes[names[i]]
+    return Local(t, axes, tuple(shape))
+
+
+def spec_locals(tree, specs, mesh):
+    """A tree of tensors (meta ones: no storage) as `Local`s placed as the
+    spec tree `specs` says (each whole tensor's shape, `t` itself)."""
+    if isinstance(tree, dict):
+        return {k: spec_locals(v, specs[k], mesh) for k, v in tree.items()}
+    axes = {}
+    for d, entry in enumerate(specs):
+        for a in (() if entry is None else (entry,) if isinstance(entry, str) else entry):
+            axes[a] = d
+    return Local(tree, axes, tuple(tree.shape))
 
 
 def local_tree(tree, mesh):
@@ -75,32 +138,10 @@ def local_tree(tree, mesh):
 
 
 # ------------------------------------------------------------- collectives
-def _all_reduce(x: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
-    out = x.contiguous().clone()
-    dist.all_reduce(out, op=op, group=group)
-    return out
-
-
-def _all_gather(x: torch.Tensor, group, n: int, dim: int) -> torch.Tensor:
-    """Every rank's `x` joined along `dim`, in group order."""
-    x = x.movedim(dim, 0).contiguous()
-    out = x.new_empty((n * x.shape[0], *x.shape[1:]))
-    dist.all_gather_into_tensor(out, x, group=group)
-    return out.movedim(0, dim)
-
-
-def _reduce_scatter(x: torch.Tensor, group, n: int) -> torch.Tensor:
-    """The sum over the group of `x` [n * r, ...], this rank's r rows."""
-    out = x.new_empty((x.shape[0] // n, *x.shape[1:]))
-    dist.reduce_scatter_tensor(out, x.contiguous(), group=group)
-    return out
-
-
-def _all_to_all(x: torch.Tensor, group) -> torch.Tensor:
-    """x [n, ...]: row j goes to rank j; returns [n, ...], row j from rank j."""
-    x = x.contiguous()
-    out = torch.empty_like(x)
-    dist.all_to_all_single(out, x, group=group)
+def _max(x: torch.Tensor, group) -> torch.Tensor:
+    """The elementwise max over the group (no gradient: a stabilizer)."""
+    out = x.detach().contiguous().clone()
+    dist.all_reduce(out, op=dist.ReduceOp.MAX, group=group)
     return out
 
 
@@ -135,37 +176,55 @@ class TP:
         return shd.axis_group(self.mesh, axes) if axes else (None, 1, 0)
 
     # ------------------------------------------------------ collectives
+    # each with its backward rule (distributed/collectives.py): a train
+    # step differentiates through them
     def sum_model(self, x):
-        return _all_reduce(x, self.model)
+        """Partial sums over "model" (backward: the identity)."""
+        return col.ReduceFromGroup.apply(x, self.model)
+
+    def sum_copy_model(self, x):
+        """Partial sums over "model" that only rank-specific compute reads
+        (backward: the gradients' sum over "model")."""
+        return col.ReduceCopy.apply(x, self.model)
+
+    def copy_model(self, x):
+        """`x`, whole on every model rank, entering rank-specific compute
+        (backward: the gradients' sum over "model")."""
+        return col.CopyToGroup.apply(x, self.model)
 
     def max_model(self, x):
-        return _all_reduce(x, self.model, dist.ReduceOp.MAX)
+        return _max(x, self.model)
 
     def gather_model(self, x, dim: int):
-        return _all_gather(x, self.model, self.m, dim)
+        """Every model rank's `x` joined along `dim` (backward: this
+        rank's piece of the gradient)."""
+        return col.GatherDim.apply(x, self.model, self.m, self.mi, dim)
 
     def sum_dp(self, x):
         """The sum over the DP shards' rows (replicated rows: `x` itself)."""
-        return _all_reduce(x, self.dp) if self.split else x
+        return col.ReduceFromGroup.apply(x, self.dp) if self.split else x
 
     def gather_dp(self, x):
         """[n_dp, *x.shape]: every DP shard's `x`, in global row order."""
-        return _all_gather(x[None], self.dp, self.n_dp, 0) if self.split else x[None]
+        if not self.split:
+            return x[None]
+        return col.GatherDim.apply(x[None], self.dp, self.n_dp, self.dp_i, 0)
 
     def all_reduce(self, x, grp):
         g, _, _ = grp
-        return x if g is None else _all_reduce(x, g)
+        return x if g is None else col.ReduceFromGroup.apply(x, g)
 
     def all_gather(self, x, grp, dim: int = 0):
-        g, n, _ = grp
-        return x if g is None else _all_gather(x, g, n, dim)
+        g, n, i = grp
+        return x if g is None else col.GatherDim.apply(x, g, n, i, dim)
 
     def reduce_scatter(self, x, grp):
         g, n, _ = grp
-        return x if g is None else _reduce_scatter(x, g, n)
+        return x if g is None else col.ReduceScatter.apply(x, g, n)
 
     def all_to_all_model(self, x):
-        return _all_to_all(x, self.model)
+        """x [m, ...]: row j to model rank j; returns row j from rank j."""
+        return col.AllToAll.apply(x, self.model)
 
     def regroup_model(self, pieces: torch.Tensor) -> torch.Tensor:
         """Blocks split by columns to blocks split by channels. A leaf's
@@ -175,16 +234,14 @@ class TP:
         [r W/m, (r + 1) W/m) of block b for p = b m + r. `pieces` [nb, ...]
         are this rank's, in order; one all-to-all over "model" sends piece
         p to rank r and returns [nb, ...]: this rank's channels of blocks
-        0..nb-1."""
+        0..nb-1 (backward: the inverse all-to-all)."""
         nb, m, j = pieces.shape[0], self.m, self.mi
         dest = [(j * nb + q) % m for q in range(nb)]
         order = sorted(range(nb), key=lambda q: (dest[q], q))
         src = [(b * m + j) // nb for b in range(nb)]  # blocks arrive in src order = b order
         send = torch.cat([pieces[q:q + 1] for q in order])  # device ops only: no host copy
-        out = torch.empty_like(send)
-        dist.all_to_all_single(out, send, [src.count(r) for r in range(m)],
-                               [dest.count(r) for r in range(m)], group=self.model)
-        return out
+        return col.AllToAll.apply(send, self.model, [src.count(r) for r in range(m)],
+                                  [dest.count(r) for r in range(m)])
 
     # ---------------------------------------------------------- weights
     def chunk(self, n: int) -> Tuple[int, int]:
@@ -203,8 +260,7 @@ class TP:
         w, idx = leaf.t, None
         if leaf.src is not None:  # one rank holds this scan group: it sends it
             g, _, _ = shd.axis_group(self.mesh, leaf.src[0])
-            w = w.clone(memory_format=torch.contiguous_format)
-            dist.broadcast(w, src=dist.get_global_rank(g, leaf.src[1]), group=g)
+            w = col.Broadcast.apply(w, g, dist.get_global_rank(g, leaf.src[1]))
         dm = leaf.axes.get("model")
         for axis in self.names:
             d = leaf.axes.get(axis)
@@ -212,8 +268,11 @@ class TP:
                 continue
             if axis != "data":
                 raise ValueError(f"a weight split over {axis!r}: {leaf.axes}")
-            g, n, _ = shd.axis_group(self.mesh, "data")
-            w = _all_gather(w, g, n, d)
+            g, n, i = shd.axis_group(self.mesh, "data")
+            # backward: the reduce-scatter over "data" of the gradients of
+            # the rows each data rank met (its own piece where the rows
+            # are whole on every rank)
+            w = col.GatherDim.apply(w, g, n, i, d, self.split)
             if d == dm:  # ("data", "model") on one dim: data-major pieces
                 idx = self.nested_index(leaf.shape[d], n, self.mi, w.device)
         return w, dm, idx
@@ -241,9 +300,7 @@ class TP:
             return full
         ds = self.sizes["data"]
         order = torch.cat([self.nested_index(n, ds, j, y.device) for j in range(self.m)])
-        out = torch.empty_like(full)
-        out[..., order] = full
-        return out
+        return full.index_select(-1, torch.argsort(order))
 
 
 # ------------------------------------------------------------------ layers
@@ -267,11 +324,18 @@ def embed(tp: TP, table: Local, tokens: torch.Tensor) -> torch.Tensor:
 
 
 def out_proj(tp: TP, x: torch.Tensor, w_leaf: Local, transpose: bool = False,
-             eq: Optional[str] = None) -> torch.Tensor:
+             eq: Optional[str] = None, keep_cols: bool = False):
     """x [..., D] @ w [D, N] (or w [N, D] transposed, a tied table; `eq`
     the einsum to use instead of @) with x whole on every model rank:
     column-parallel over N (each rank's columns gathered over "model"),
-    or split along D (partial sums summed over "model"), or whole."""
+    or split along D (partial sums summed over "model"), or whole. With
+    `keep_cols` (the logits of training's vocab-parallel cross entropy):
+    (y, lo), y this rank's contiguous columns from index lo: a
+    column-parallel y as computed; for a D-split w, the weight regrouped
+    by one all-to-all over "model" from D rows to columns (N padded with
+    zero columns to a multiple of m: this rank's ceil(N/m), past N on the
+    last ranks), which moves w's bytes where summing the partial products
+    would move [..., N] of them; a whole y with lo None."""
     w, dm, idx = tp.weight(w_leaf)
 
     def mm(a, b):
@@ -281,11 +345,23 @@ def out_proj(tp: TP, x: torch.Tensor, w_leaf: Local, transpose: bool = False,
         w = w.T
         dm = None if dm is None else 1 - dm
     d, n = (w_leaf.shape[1], w_leaf.shape[0]) if transpose else w_leaf.shape
+    lo = None
     if dm == 1:
-        return tp.gather_cols(mm(x, w), n, idx)
-    if dm == 0:
-        return tp.sum_model(mm(tp.take(x, -1, d, idx), w))
-    return mm(x, w)
+        y = mm(tp.copy_model(x), w)
+        if keep_cols and idx is None:
+            lo, _ = tp.chunk(n)
+        else:
+            y = tp.gather_cols(y, n, idx)
+    elif dm == 0 and keep_cols and idx is None:
+        step = -(-n // tp.m)
+        pieces = F.pad(w, (0, step * tp.m - n)).unflatten(-1, (tp.m, step)).movedim(-2, 0)
+        y = mm(tp.copy_model(x), tp.all_to_all_model(pieces).flatten(0, 1))
+        lo = tp.mi * step
+    elif dm == 0:
+        y = tp.sum_model(mm(tp.take(tp.copy_model(x), -1, d, idx), w))
+    else:
+        y = mm(x, w)
+    return (y, lo) if keep_cols else y
 
 
 def block_weight(tp: TP, leaf: Local, nb: int, split: bool) -> torch.Tensor:
@@ -302,7 +378,7 @@ def block_weight(tp: TP, leaf: Local, nb: int, split: bool) -> torch.Tensor:
         if not split:
             return w
         lo, n = tp.chunk(blocks)
-        return w.narrow(-1, lo, n)
+        return tp.copy_model(w).narrow(-1, lo, n)
     if dm != last or idx is not None or not split:
         raise ValueError(f"a block weight {leaf.shape} split as {leaf.axes}, channels "
                          f"{'split' if split else 'whole'}")
@@ -318,6 +394,8 @@ def block_cols(tp: TP, x: torch.Tensor, leaf: Local, nb: int, split: bool) -> to
     at one token a row, as decode runs, where a rank's rows are far fewer
     than w's D rows; the weight otherwise (the dry-run's jamba
     prefill_32k holds 2 x 32768 token rows a rank against D = 4096)."""
+    if split:  # this rank's channels: rank-specific compute
+        x = tp.copy_model(x)
     if x.shape[-2] != 1 or "model" not in leaf.axes:
         return (x @ block_weight(tp, leaf, nb, split).flatten(-2)).unflatten(-1, (nb, -1))
     w, dm, idx = tp.weight(leaf)
@@ -363,8 +441,9 @@ def _swiglu(tp: TP, p, x: torch.Tensor, plain) -> torch.Tensor:
     split = w["w_down"][1]
     if not (w["w_gate"][1] == w["w_up"][1] == (None if split is None else split + 1)):
         raise ValueError(f"SwiGLU splits disagree: {p['w_gate'].axes}, {p['w_down'].axes}")
-    y = plain({k: t for k, (t, _, _) in w.items()}, x)
-    return y if split is None else tp.sum_model(y)
+    if split is None:
+        return plain({k: t for k, (t, _, _) in w.items()}, x)
+    return tp.sum_model(plain({k: t for k, (t, _, _) in w.items()}, tp.copy_model(x)))
 
 
 def heads_proj(tp: TP, x: torch.Tensor, w_leaf: Local, eq: str, bias: Optional[Local] = None):
@@ -377,10 +456,11 @@ def heads_proj(tp: TP, x: torch.Tensor, w_leaf: Local, eq: str, bias: Optional[L
     w, dm, idx = tp.weight(w_leaf)
     nd = len(w_leaf.shape)
     if dm == nd - 2:  # heads
-        y = torch.einsum(eq, x, w)
+        y = torch.einsum(eq, tp.copy_model(x), w)
         lo, _ = tp.chunk(w_leaf.shape[-2])
     elif dm == nd - 3:  # contracting D
-        y = tp.sum_model(torch.einsum(eq, tp.take(x, -1, w_leaf.shape[-3], idx), w))
+        xd = tp.take(tp.copy_model(x), -1, w_leaf.shape[-3], idx)
+        y = tp.sum_model(torch.einsum(eq, xd, w))
         lo = None
     elif dm is None:
         y, lo = torch.einsum(eq, x, w), None
@@ -407,11 +487,12 @@ def heads_out(tp: TP, o: torch.Tensor, lo: Optional[int], wo: Local, eq: str) ->
     if dm == len(wo.shape) - 3:
         first, n = tp.chunk(h)
         if lo is None:  # every head here: take this rank's
-            o = o.narrow(-2, first, n)
+            o = tp.copy_model(o).narrow(-2, first, n)
         elif lo != first:
             raise ValueError(f"heads from {lo}, wo's from {first}")
         return tp.sum_model(torch.einsum(eq, o, w))
     if lo is not None:
         raise ValueError(f"{o.shape[-2]} local heads but wo holds all {h}: {wo.axes}")
-    y = torch.einsum(eq, o, w)
-    return y if dm is None else tp.gather_cols(y, wo.shape[-1], idx)
+    if dm is None:
+        return torch.einsum(eq, o, w)
+    return tp.gather_cols(torch.einsum(eq, tp.copy_model(o), w), wo.shape[-1], idx)

@@ -122,7 +122,7 @@ def _qkv(p: Params, x: torch.Tensor, positions: torch.Tensor, theta: float):
 
 # ------------------------------------------------- grouped core attention
 def _grouped_attention(q, k, v, *, causal: bool = False, valid=None,
-                       q_chunk: int = 1024, q_offset=None):
+                       q_chunk: int = 1024, q_offset=None, seq_parallel: bool = True):
     """q [B, Sq, H, hd]; k / v [B, Sk, Kv, hd_{k,v}] -> [B, Sq, H, hd_v].
 
     Exact softmax per query row, over query chunks of `q_chunk` rows so the
@@ -132,9 +132,10 @@ def _grouped_attention(q, k, v, *, causal: bool = False, valid=None,
     usable keys (pad keys of a masked prefill, a decode ring's filled
     slots). Scores are taken in the inputs' dtype and then scaled in fp32;
     the softmax is fp32 and cast to v's dtype for the value product, as in
-    the reference."""
-    if (_SEQ_PARALLEL is not None and causal and q_offset is None and valid is None
-            and q.shape[1] == k.shape[1]):
+    the reference. `seq_parallel=False` keeps `set_sequence_parallel` out
+    (the mesh path decides its own split: `_mesh_attention`)."""
+    if (seq_parallel and _SEQ_PARALLEL is not None and causal and q_offset is None
+            and valid is None and q.shape[1] == k.shape[1]):
         sp = _seq_parallel_attention(q, k, v, q_chunk=q_chunk)
         if sp is not None:
             return sp
@@ -502,10 +503,11 @@ def fill_seq_cache(tp, cache, val, heads_lo, token_mask):
         c[:, :s] = val
 
 
-def _kv_for_heads(q_lo, nq, k, v, k_lo, cfg):
+def _kv_for_heads(tp, q_lo, nq, k, v, k_lo, cfg):
     """K / V of this rank's query heads [q_lo, q_lo + nq): the local KV
     heads when both split, the groups they read (or, where the rank's
-    heads cut a group, one KV head per query head) when only q does."""
+    heads cut a group, one KV head per query head) when only q does (K /
+    V whole on every rank then enter rank-specific compute)."""
     if q_lo is None:
         if k_lo is not None:
             raise ValueError("KV heads split over 'model' but query heads whole")
@@ -515,6 +517,7 @@ def _kv_for_heads(q_lo, nq, k, v, k_lo, cfg):
         if k_lo != q_lo // g or k.shape[2] * g != nq:
             raise ValueError(f"query heads from {q_lo} do not read KV heads from {k_lo}")
         return k, v
+    k, v = tp.copy_model(k), tp.copy_model(v)
     if q_lo % g == 0 and nq % g == 0:
         return k.narrow(2, q_lo // g, nq // g), v.narrow(2, q_lo // g, nq // g)
     idx = (q_lo + torch.arange(nq, device=k.device)) // g
@@ -533,16 +536,33 @@ def _qkv_mesh(tp, p, x, positions, theta):
     return apply_rope(q, positions, theta), q_lo, apply_rope(k, positions, theta), v, k_lo
 
 
-def gqa_prefill_mesh(tp, p, cfg, x, positions, token_mask, cache_k, cache_v, causal=True):
+def _mesh_attention(tp, q, q_lo, k, v, causal, valid):
+    """`_grouped_attention` of this rank's heads of q over k / v (the
+    same heads' K / V). With every head on every rank (q_lo None: heads
+    that do not divide "model") the query rows split over "model" instead
+    where they divide it, as the reference's shard_map splits them: this
+    rank's S/m rows against the whole K / V, then the rows gathered."""
+    s = q.shape[1]
+    if not (q_lo is None and tp.m > 1 and s % tp.m == 0):
+        return _grouped_attention(q, k, v, causal=causal, valid=valid, seq_parallel=False)
+    n = s // tp.m
+    q, k, v = (tp.copy_model(t) for t in (q, k, v))
+    out = _grouped_attention(q.narrow(1, tp.mi * n, n), k, v, causal=causal, valid=valid,
+                             q_chunk=min(1024, n), q_offset=tp.mi * n, seq_parallel=False)
+    return tp.gather_model(out, 1)
+
+
+def gqa_prefill_mesh(tp, p, cfg, x, positions, token_mask, cache_k=None, cache_v=None,
+                     causal=True):
     """`gqa_forward` (masked) on a mesh, its K/V written into the rows'
     sharded cache (`fill_seq_cache`); with no cache (an encoder's self-
-    attention, causal=False) nothing is written. x [B, S, D] this rank's
-    rows; p's leaves `Local`. Returns out [B, S, D]."""
+    attention, causal=False, or training) nothing is written. x [B, S, D]
+    this rank's rows; p's leaves `Local`. Returns out [B, S, D]."""
     from repro_torch.distributed import tensor_parallel as tpl
 
     q, q_lo, k, v, k_lo = _qkv_mesh(tp, p, x, positions, cfg.rope_theta)
-    ka, va = _kv_for_heads(q_lo, q.shape[2], k, v, k_lo, cfg)
-    out = _grouped_attention(q, ka, va, causal=causal, valid=token_mask)
+    ka, va = _kv_for_heads(tp, q_lo, q.shape[2], k, v, k_lo, cfg)
+    out = _mesh_attention(tp, q, q_lo, ka, va, causal, token_mask)
     if cache_k is not None:
         fill_seq_cache(tp, cache_k, k, k_lo, token_mask)
         fill_seq_cache(tp, cache_v, v, k_lo, token_mask)
@@ -583,10 +603,11 @@ def _mla_latents_mesh(tp, p, cfg, x, positions):
     return q_nope, q_rope, q_lo, ckv, krope
 
 
-def mla_prefill_mesh(tp, p, cfg, x, positions, token_mask, cache_ckv, cache_krope):
+def mla_prefill_mesh(tp, p, cfg, x, positions, token_mask, cache_ckv=None, cache_krope=None):
     """`mla_forward` (expanded) on a mesh: this rank's heads of q and of
     wkv_b's per-head K/V, wo row-parallel; the latents (whole on every
-    rank) cut to this rank's key shard of the cache. Returns out [B, S, D]."""
+    rank) cut to this rank's key shard of the cache (with no cache, as
+    training runs, nothing is written). Returns out [B, S, D]."""
     from repro_torch.distributed import tensor_parallel as tpl
 
     m = cfg.mla
@@ -595,12 +616,14 @@ def mla_prefill_mesh(tp, p, cfg, x, positions, token_mask, cache_ckv, cache_krop
     if kv_lo != q_lo:
         raise ValueError(f"wq and wkv_b split apart: {p['wq'].axes}, {p['wkv_b'].axes}")
     k_nope, v = kvb.split([m.qk_nope_head_dim, m.v_head_dim], dim=-1)
-    k = torch.cat([k_nope, krope[:, :, None, :].expand(*k_nope.shape[:3],
-                                                        m.qk_rope_head_dim)], dim=-1)
-    out = _grouped_attention(torch.cat([q_nope, q_rope], dim=-1), k, v, causal=True,
-                             valid=token_mask)
-    fill_seq_cache(tp, cache_ckv, ckv, None, token_mask)
-    fill_seq_cache(tp, cache_krope, krope, None, token_mask)
+    kr = krope if q_lo is None else tp.copy_model(krope)  # shared by this rank's heads
+    k = torch.cat([k_nope, kr[:, :, None, :].expand(*k_nope.shape[:3],
+                                                     m.qk_rope_head_dim)], dim=-1)
+    out = _mesh_attention(tp, torch.cat([q_nope, q_rope], dim=-1), q_lo, k, v, True,
+                          token_mask)
+    if cache_ckv is not None:
+        fill_seq_cache(tp, cache_ckv, ckv, None, token_mask)
+        fill_seq_cache(tp, cache_krope, krope, None, token_mask)
     return tpl.heads_out(tp, out, q_lo, p["wo"], "bshk,hkd->bsd")
 
 
@@ -659,6 +682,25 @@ def fill_cross_mesh(tp, p, enc_out, cache_ck, cache_cv):
         raise ValueError(f"wk and wv split apart: {p['wk'].axes}, {p['wv'].axes}")
     fill_seq_cache(tp, cache_ck, k, k_lo, None)
     fill_seq_cache(tp, cache_cv, v, v_lo, None)
+
+
+def cross_attention_train_mesh(tp, p, cfg, x, enc_out):
+    """Cross attention of x [B, S, D] over the encoder output [B, F, D]
+    with no cache (training): q, K and V heads-parallel (K / V projected
+    from `enc_out`, no bias, no RoPE), each rank's heads over every frame
+    (or, where the heads do not divide, its query rows: `_mesh_attention`),
+    then wo. Returns out [B, S, D]."""
+    from repro_torch.distributed import tensor_parallel as tpl
+
+    eq = "bsd,dhk->bshk"
+    q, q_lo = tpl.heads_proj(tp, x, p["wq"], eq, p.get("bq"))
+    k, k_lo = tpl.heads_proj(tp, enc_out, p["wk"], eq)
+    v, v_lo = tpl.heads_proj(tp, enc_out, p["wv"], eq)
+    if k_lo != v_lo:
+        raise ValueError(f"wk and wv split apart: {p['wk'].axes}, {p['wv'].axes}")
+    ka, va = _kv_for_heads(tp, q_lo, q.shape[2], k, v, k_lo, cfg)
+    out = _mesh_attention(tp, q, q_lo, ka, va, False, None)
+    return tpl.heads_out(tp, out, q_lo, p["wo"], "bshk,hkd->bsd")
 
 
 def cross_attention_mesh(tp, p, cfg, x, cache_ck, cache_cv):

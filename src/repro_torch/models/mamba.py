@@ -196,7 +196,9 @@ def _decode(p: Params, cfg, x, z, state, reduce=None):
 # scan and the depthwise conv are local. The collectives: in_proj's
 # regroup ([x | z] column chunks to this rank's channels of each half,
 # `tpl.block_cols`), one all-reduce of x_proj's partial (dt_in, B, C)
-# [B, S, dtr + 2N], and out_proj's row-parallel sum.
+# [B, S, dtr + 2N], and out_proj's row-parallel sum. In training the
+# split comes from the rules' layout of a state the step never allocates
+# (its `Local`s on the meta device), and the forward starts from zeros.
 def _mesh_leaves(tp, p, state):
     """(split, {leaf: this rank's tensor}): whether "model" splits the
     channels, and the per-channel leaves (x_proj's rows) as held; the
@@ -220,7 +222,8 @@ def _mesh_in(tp, p, xz, state):
 
     split, lp = _mesh_leaves(tp, p, state)
     x, z = tpl.block_cols(tp, xz, p["in_proj"], 2, split).unbind(-2)
-    return split, lp, x, z, (tp.sum_model if split else None)
+    # x_proj's (dt_in, B, C) partial sums feed this rank's channels only
+    return split, lp, x, z, (tp.sum_copy_model if split else None)
 
 
 def _mesh_out(tp, p, y, split: bool):

@@ -414,12 +414,8 @@ def _encoder_layer(cfg: ModelConfig, p: Params, x: torch.Tensor, positions: torc
     return x + mlp(p["ffn"], rmsnorm(p["norm2"], x, cfg.norm_eps))
 
 
-def _no_gather(tree, prefix, stacked=False):
-    return tree
-
-
 def _run_encoder(params: Params, cfg: ModelConfig, frames: torch.Tensor,
-                 remat: bool = False, gather=_no_gather) -> torch.Tensor:
+                 remat: bool = False) -> torch.Tensor:
     """The encoder stack over frames [B, F, D], then its final norm
     (reference :380). With `remat` each layer is activation-checkpointed,
     as `forward_train` checkpoints the decoder's groups: the same values,
@@ -430,11 +426,11 @@ def _run_encoder(params: Params, cfg: ModelConfig, frames: torch.Tensor,
     x = frames
 
     def layer(p, x):
-        return _encoder_layer(cfg, gather(p, ("encoder", "stack", "slot0"), True), x, positions)
+        return _encoder_layer(cfg, p, x, positions)
 
     for p in unbind_tree(enc["stack"]["slot0"], cfg.encdec.n_encoder_layers):
         x = checkpoint(layer, p, x, use_reentrant=False) if remat else layer(p, x)
-    return rmsnorm(gather(enc["final_norm"], ("encoder", "final_norm")), x, cfg.norm_eps)
+    return rmsnorm(enc["final_norm"], x, cfg.norm_eps)
 
 
 def _cross_kv(layer_p: Params, enc_out: torch.Tensor):
@@ -452,8 +448,7 @@ def _logits(params: Params, cfg: ModelConfig, x: torch.Tensor):
     return lm_head(params["head"], x)
 
 
-def forward_train(params: Params, cfg: ModelConfig, batch, remat: bool = True,
-                  gather=_no_gather):
+def forward_train(params: Params, cfg: ModelConfig, batch, remat: bool = True):
     """The training forward (reference :407): batch {"tokens": [B, S]
     int, and an encoder-decoder model's "frames" [B, F, D] in the params'
     dtype}, no cache, every MoE layer through the flat `moe_forward` at
@@ -465,23 +460,18 @@ def forward_train(params: Params, cfg: ModelConfig, batch, remat: bool = True,
     non-reentrant): only its input is kept, and its forward, the MoE
     kernels included, runs again in the backward pass (the reference
     saves its matmul outputs without batch dims as well); a layer group's
-    cross K/V are taken inside it, so the recompute rebuilds them.
-
-    `gather(subtree, path, stacked=False)` turns the stored params of the
-    subtree at `path` (one scan group's slice of it when `stacked`) into
-    the tensors a layer computes with, just before their use: the mesh
-    train step gathers its shards there, so a layer group's weights are
-    gathered inside its checkpoint and gathered again for the recompute."""
+    cross K/V are taken inside it, so the recompute rebuilds them. On a
+    device mesh see `mesh_forward_train`."""
     tokens = batch["tokens"]
     unrolled_idx, n_groups, period = stack_plan(cfg)
-    x = embed(gather(params["embed"], ("embed",)), tokens)
+    x = embed(params["embed"], tokens)
     positions = torch.arange(tokens.shape[1], dtype=torch.int32, device=x.device)[None, :]
     e = cfg.moe.n_experts if cfg.moe is not None else 1
     no_moe = torch.zeros((e,), dtype=torch.int32, device=x.device)
 
     enc_out = None
     if cfg.encdec is not None:
-        enc_out = _run_encoder(params, cfg, batch.get("frames"), remat, gather)
+        enc_out = _run_encoder(params, cfg, batch.get("frames"), remat)
 
     def layer(sig, lp, x, enc_out):
         cross_kv = None if enc_out is None else _cross_kv(lp, enc_out)
@@ -489,12 +479,10 @@ def forward_train(params: Params, cfg: ModelConfig, batch, remat: bool = True,
 
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for li in unrolled_idx:
-        lp = gather(params[f"layer{li}"], (f"layer{li}",))
-        x, aux, _ = layer(layer_signature(cfg, li), lp, x, enc_out)
+        x, aux, _ = layer(layer_signature(cfg, li), params[f"layer{li}"], x, enc_out)
         aux_total = aux_total if aux is None else aux_total + aux
 
     def group(x, aux_sum, p, enc_out):
-        p = gather(p, ("stack",), True)
         counts = []
         for j, sig in enumerate(period):
             x, aux, c = layer(sig, p[f"slot{j}"], x, enc_out)
@@ -510,10 +498,7 @@ def forward_train(params: Params, cfg: ModelConfig, batch, remat: bool = True,
         else:
             x, aux_total, counts = group(x, aux_total, p, enc_out)
         counts_all.append(counts)
-    out = {k: gather(params[k], (k,)) for k in ("final_norm", "head") if k in params}
-    if cfg.tie_embeddings:
-        out["embed"] = gather(params["embed"], ("embed",))
-    return _logits(out, cfg, x), aux_total, torch.cat(counts_all)
+    return _logits(params, cfg, x), aux_total, torch.cat(counts_all)
 
 
 def _layers(params: Params, cfg: ModelConfig, cache: Params, tiered: Params | None,
@@ -667,10 +652,14 @@ MESH_RECURRENT = {
 
 
 def _apply_layer_mesh(tp, cfg, sig, p, x, positions, cache, pos, token_mask, tiered_state,
-                      cold_capacity_frac):
+                      cold_capacity_frac, train: bool = False, enc_out=None):
     """`apply_layer` on a mesh, contiguous layout (x this rank's rows,
     every `Local` leaf this rank's shard; a recurrent layer's new state
-    written over its shard in place): (x, expert counts [E] or None)."""
+    written over its shard in place): (x, aux loss or None, expert counts
+    [E] or None). With `train` the cacheless full mode: `cache` holds a
+    recurrent layer's state layout only (meta `Local`s), nothing is
+    written, cross attention projects K / V from the encoder output
+    `enc_out`, and the flat MoE runs at the config's capacity factor."""
     from repro_torch.distributed import tensor_parallel as tpl
     from repro_torch.serving.tiered_moe import tiered_moe_forward_mesh
 
@@ -681,8 +670,12 @@ def _apply_layer_mesh(tp, cfg, sig, p, x, positions, cache, pos, token_mask, tie
         state = cache["state"]
         y, new = (decode(tp, p["mixer"], cfg, h, state) if pos is not None
                   else forward(tp, p["mixer"], cfg, h, state, token_mask))
-        for key, val in new.items():
-            state[key].t.copy_(val)
+        if not train:
+            for key, val in new.items():
+                state[key].t.copy_(val)
+    elif train:
+        fn = {"attn": attn.gqa_prefill_mesh, "mla": attn.mla_prefill_mesh}[mixer]
+        y = fn(tp, p["mixer"], cfg, h, positions, token_mask)
     else:
         a, b = (cache[key] for key in MIXERS[mixer].cache_shapes(cfg, 0))
         fn = {("attn", True): attn.gqa_decode_mesh, ("mla", True): attn.mla_decode_mesh,
@@ -694,8 +687,10 @@ def _apply_layer_mesh(tp, cfg, sig, p, x, positions, cache, pos, token_mask, tie
     x = x + y
     if "cross" in p:
         hc = rmsnorm(tpl.whole(p["norm_cross"]), x, cfg.norm_eps)
-        x = x + attn.cross_attention_mesh(tp, p["cross"], cfg, hc, cache["ck"], cache["cv"])
-    counts = None
+        x = x + (attn.cross_attention_train_mesh(tp, p["cross"], cfg, hc, enc_out) if train
+                 else attn.cross_attention_mesh(tp, p["cross"], cfg, hc, cache["ck"],
+                                                cache["cv"]))
+    aux = counts = None
     if ffn != "none":
         h2 = rmsnorm(tpl.whole(p["norm2"]), x, cfg.norm_eps)
         if ffn == "moe" and tiered_state is not None:
@@ -705,11 +700,11 @@ def _apply_layer_mesh(tp, cfg, sig, p, x, positions, cache, pos, token_mask, tie
             out = moe_lib.moe_forward_mesh(tp, p["ffn"], cfg, h2,
                                            full_capacity=pos is not None or token_mask is not None,
                                            token_mask=token_mask)
-            y, counts = out.y, out.expert_counts
+            y, aux, counts = out.y, out.aux_loss, out.expert_counts
         else:
             y = tpl.mlp(tp, p["ffn"], h2)
         x = x + y
-    return x, counts
+    return x, aux, counts
 
 
 def _mesh_local(tp, params, cache, tiered):
@@ -727,8 +722,8 @@ def _mesh_walk(tp, cfg, local, x, positions, pos, token_mask, cold_capacity_frac
     no_moe = torch.zeros((e,), dtype=torch.int32, device=x.device)
     counts_all = []
     for sig, p, c, ts in _layers(local[0], cfg, local[1], local[2]):
-        x, counts = _apply_layer_mesh(tp, cfg, sig, p, x, positions, c, pos, token_mask, ts,
-                                      cold_capacity_frac)
+        x, _, counts = _apply_layer_mesh(tp, cfg, sig, p, x, positions, c, pos, token_mask, ts,
+                                         cold_capacity_frac)
         counts_all.append(no_moe if counts is None else counts)
     return x, torch.stack(counts_all)
 
@@ -742,22 +737,102 @@ def _mesh_logits(tp, params, cfg, x):
     return tpl.out_proj(tp, x, params["head"]["w"])
 
 
-def _mesh_encoder(tp, params, cfg, frames):
+def _mesh_encoder(tp, params, cfg, frames, remat: bool = False):
     """`_run_encoder` on a mesh over this rank's rows of frames [B, F, D]:
     each layer's self-attention heads-parallel (non-causal, RoPE at the
-    frames' positions), its FFN column- then row-parallel."""
+    frames' positions), its FFN column- then row-parallel. With `remat`
+    (training) each layer is activation-checkpointed."""
     from repro_torch.distributed import tensor_parallel as tpl
 
     enc = params["encoder"]
     positions = torch.arange(frames.shape[1], dtype=torch.int32, device=frames.device)[None, :]
-    x = frames
-    for g in range(cfg.encdec.n_encoder_layers):
-        p = index_tree(enc["stack"]["slot0"], g)
+
+    def layer(p, x):
         h = rmsnorm(tpl.whole(p["norm1"]), x, cfg.norm_eps)
-        x = x + attn.gqa_prefill_mesh(tp, p["mixer"], cfg, h, positions, None, None, None,
-                                      causal=False)
-        x = x + tpl.mlp(tp, p["ffn"], rmsnorm(tpl.whole(p["norm2"]), x, cfg.norm_eps))
+        x = x + attn.gqa_prefill_mesh(tp, p["mixer"], cfg, h, positions, None, causal=False)
+        return x + tpl.mlp(tp, p["ffn"], rmsnorm(tpl.whole(p["norm2"]), x, cfg.norm_eps))
+
+    x = frames
+    for p in tpl.unbind_locals(enc["stack"]["slot0"]):
+        x = checkpoint(layer, p, x, use_reentrant=False) if remat else layer(p, x)
     return rmsnorm(tpl.whole(enc["final_norm"]), x, cfg.norm_eps)
+
+
+def _train_states(tp, cfg):
+    """The recurrent layers' state layout as the rules place a cache of the
+    global batch (`cache_pspecs`), in the cache tree's layout: meta
+    `Local`s, which say how "model" splits each layer's channels and hold
+    no storage (training runs every layer from its init state)."""
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.distributed import tensor_parallel as tpl
+
+    like = init_states(cfg, tp.batch, device="meta")
+    return tpl.spec_locals(like, shd.cache_pspecs(like, tp.mesh), tp.mesh)
+
+
+def mesh_forward_train(tp, params, cfg: ModelConfig, batch):
+    """`forward_train` on a device mesh, GSPMD's partitioning of the
+    reference's training forward written out (distributed/tensor_parallel.py),
+    differentiable through every collective: `params` a tree of `Local`s
+    (this rank's shards), batch {"tokens", and "frames"} this rank's rows
+    of the global batch of `tp.batch` rows. The embedding is vocab-
+    parallel (or D-split), attention heads-parallel (query rows split
+    over "model" where the heads do not divide), the MLPs column- then
+    row-parallel, Mamba and xLSTM channel-parallel as the rules split
+    their state, the flat MoE as `moe_forward_mesh` places it at the
+    config's capacity factor. Each scan group (and each encoder layer) is
+    activation-checkpointed, non-reentrant: its weights' FSDP gathers and
+    broadcasts run inside it and again in its recompute. Returns (this
+    rank's logits: its vocab columns from index `lo` (`tpl.out_proj`'s
+    `keep_cols`: a vocab-split head's, or a D-split head's partial sums
+    reduce-scattered over the padded vocab), else [B/dp, S, V] with lo
+    None; the aux loss (the whole batch's on every rank, its gradient
+    this rank's part); the expert counts [n_groups * period, E] int32 of
+    the whole batch, stacked as `forward_train` stacks them)."""
+    from repro_torch.distributed import tensor_parallel as tpl
+
+    tokens = batch["tokens"]
+    unrolled_idx, n_groups, period = stack_plan(cfg)
+    x = tpl.embed(tp, params["embed"]["table"], tokens)
+    positions = torch.arange(tokens.shape[1], dtype=torch.int32, device=x.device)[None, :]
+    e = cfg.moe.n_experts if cfg.moe is not None else 1
+    no_moe = torch.zeros((e,), dtype=torch.int32, device=x.device)
+    enc_out = None
+    if cfg.encdec is not None:
+        check_frames(params, cfg, batch.get("frames"))
+        enc_out = _mesh_encoder(tp, params, cfg, batch["frames"], remat=True)
+    states = _train_states(tp, cfg)
+
+    def layer(sig, p, st, x, enc_out):
+        return _apply_layer_mesh(tp, cfg, sig, p, x, positions, st, None, None, None, 0.0,
+                                 train=True, enc_out=enc_out)
+
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for li in unrolled_idx:
+        x, aux, _ = layer(layer_signature(cfg, li), params[f"layer{li}"],
+                          states[f"layer{li}"], x, enc_out)
+        aux_total = aux_total if aux is None else aux_total + aux
+
+    def group(x, aux_sum, p, st, enc_out):
+        counts = []
+        for j, sig in enumerate(period):
+            x, aux, c = layer(sig, p[f"slot{j}"], st[f"slot{j}"], x, enc_out)
+            aux_sum = aux_sum if aux is None else aux_sum + aux
+            counts.append(no_moe if c is None else c)
+        return x, aux_sum, torch.stack(counts)
+
+    counts_all = []
+    for g, p in enumerate(tpl.unbind_locals(params["stack"])):
+        x, aux_total, counts = checkpoint(group, x, aux_total, p, index_tree(states["stack"], g),
+                                          enc_out, use_reentrant=False)
+        counts_all.append(counts)
+    x = rmsnorm(tpl.whole(params["final_norm"]), x, cfg.norm_eps)
+    if cfg.tie_embeddings:
+        logits, lo = tpl.out_proj(tp, x, params["embed"]["table"], transpose=True,
+                                  keep_cols=True)
+    else:
+        logits, lo = tpl.out_proj(tp, x, params["head"]["w"], keep_cols=True)
+    return logits, lo, aux_total, torch.cat(counts_all)
 
 
 def _mesh_prefill(params, cfg, tokens, cache_len, tiered, cold_capacity_frac, token_mask, mesh,

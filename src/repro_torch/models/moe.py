@@ -18,7 +18,12 @@ program computes on the whole batch: the global dispatch ranks each
 shard's assignments after those of the shards before it (an all-gather
 of the per-expert counts) against the capacity of all the tokens, the
 expert counts are summed over the shards, and the aux loss is the whole
-batch's on every shard, its gradient each shard's own part. With
+batch's on every shard, its gradient each shard's own part. Where the
+capacity is at most a shard's tokens, each shard places its assignments
+at their global rows of the [E, capacity] buffers and the expert FFN
+runs split over the DP shards by rows (a reduce-scatter of the buffers,
+an all-gather of the outputs); otherwise each shard runs its own
+assignments' rows, at most its token count per expert. With
 `set_moe_sharding_hints` (the reference's layout constraint (dp, ep,
 None, None) on the grouped buffers, :45-58) and the routed expert weights
 given as this rank's E/m experts, each "model" rank runs the expert FFN
@@ -40,6 +45,8 @@ import torch.nn.functional as F
 
 from repro_torch.distributed import sharding as shd
 from repro_torch.distributed.collectives import (
+    GatherDim,
+    ReduceScatter,
     all_gather_stack,
     all_reduce,
     copy_to_group,
@@ -163,7 +170,7 @@ def moe_forward(p: Params, cfg, x: torch.Tensor, *, capacity_factor=None,
                 full_capacity: bool = False, grouped: bool | None = None,
                 token_mask: torch.Tensor | None = None,
                 backend: str | None = None, logits: torch.Tensor | None = None,
-                shared: bool = True) -> MoEOutput:
+                shared: bool = True, partial=None) -> MoEOutput:
     """Routed MoE over x [B, S, D]. The global dispatch (the default, as
     in the reference) sorts all B*S*k assignments at once; the grouped
     one sorts each batch row's own and runs [B*E] buffer groups over the
@@ -175,10 +182,16 @@ def moe_forward(p: Params, cfg, x: torch.Tensor, *, capacity_factor=None,
     id E, so the stable sort parks them after every real one. `backend`
     overrides `cfg.moe_backend` for this call. `logits` [B*S, E] fp32
     are the router's, computed by the caller (the mesh path's split
-    router); `shared=False` leaves the shared experts to the caller."""
+    router); `shared=False` leaves the shared experts to the caller.
+    `partial`: a process group over which the expert FFN's outputs are
+    partial sums (the mesh path's routed experts split over F): the
+    tokens and combine weights enter them through f (their gradients
+    summed over it) and the outputs are summed over it, as under expert
+    parallelism."""
     kind = moe_backend(cfg, backend)
     fwd = _moe_forward_grouped if grouped else _moe_forward_global
-    return fwd(p, cfg, x, capacity_factor, full_capacity, token_mask, kind, logits, shared)
+    return fwd(p, cfg, x, capacity_factor, full_capacity, token_mask, kind, logits, shared,
+               partial)
 
 
 def _capacity(n: int, k: int, e: int, cf: float) -> int:
@@ -225,7 +238,8 @@ def _bincount(x: torch.Tensor, n: int) -> torch.Tensor:
 
 
 def _moe_forward_global(p, cfg, x, capacity_factor, full_capacity, token_mask=None,
-                        kind: str = "auto", logits=None, shared: bool = True) -> MoEOutput:
+                        kind: str = "auto", logits=None, shared: bool = True,
+                        partial=None) -> MoEOutput:
     mo = cfg.moe
     e, k = mo.n_experts, mo.top_k
     b, s, d = x.shape
@@ -247,34 +261,49 @@ def _moe_forward_global(p, cfg, x, capacity_factor, full_capacity, token_mask=No
     se, st, sw = a_key[order], a_tok[order], w.reshape(-1)[order]
     pos = torch.arange(t * k, device=x.device) - torch.searchsorted(se, se)
     rows = cap  # buffer rows per expert
+    split_rows = False
     if dp is None:
         keep = (pos < cap) & (se < e)
     else:
         # the global sort puts the shards before this one first
         before = all_gather_stack(_bincount(a_key, e + 1), dp[0])[:dp[2]]
-        keep = (pos + before.sum(0)[se] < cap) & (se < e)
-        rows = min(cap, t)  # a shard holds at most t assignments per expert
-    slot = torch.where(keep, se * rows + pos, e * rows)  # the overflow row is dropped
-
+        gpos = pos + before.sum(0)[se]
+        keep = (gpos < cap) & (se < e)
+        # rows at their global places, the experts' rows split over DP, where
+        # the [E, cap] buffers moved are no larger than the [E, t] ones each
+        # shard would compute on alone (the dry-run's granite and jamba
+        # train cells: cap > t, where moving them costs more than the rows)
+        split_rows = cap <= t
+        if split_rows:
+            rows = -(-cap // dp[1]) * dp[1]
+            pos = gpos
+        else:
+            rows = t  # a shard holds at most t assignments per expert
     ep = _experts(p, e)
-    if ep is not None:  # each rank's experts give a part of these gradients
-        flat, sw = copy_to_group(flat, ep[2]), copy_to_group(sw, ep[2])
+    lo, n_local = (0, e) if ep is None else ep[:2]
+    if ep is not None:  # buffers for this rank's experts only
+        keep = keep & (se >= lo) & (se < lo + n_local)
+    # the overflow row is dropped
+    slot = torch.where(keep, (se - lo) * rows + pos, n_local * rows)
+
+    part = ep[2] if ep is not None else partial
+    if part is not None:  # each rank's experts give a part of these gradients
+        flat, sw = copy_to_group(flat, part), copy_to_group(sw, part)
     # index_select, not x[idx]: its backward is one index_add, where fancy
     # indexing's sorts the indices first (a third of a train step's device time)
-    buf = x.new_zeros(e * rows + 1, d).index_put((slot,), flat.index_select(0, st))
-    h = buf[: e * rows].reshape(e, rows, d)
-    if ep is None:
-        o = expert_ffn(h, p["w_gate"], p["w_up"], p["w_down"], backend=kind, decode=(s == 1))
-    else:
-        lo, n_local, _ = ep
-        o = _pad_experts(expert_ffn(h[lo:lo + n_local], p["w_gate"], p["w_up"], p["w_down"],
-                                    backend=kind, decode=(s == 1)), lo, e, 0)
-    obuf = torch.cat([o.reshape(e * rows, d), o.new_zeros(1, d)])
+    buf = x.new_zeros(n_local * rows + 1, d).index_put((slot,), flat.index_select(0, st))
+    h = buf[: n_local * rows].reshape(n_local, rows, d)
+    if split_rows:  # each row filled on one shard: the sum is that shard's row
+        h = ReduceScatter.apply(h, dp[0], dp[1], 1)
+    o = expert_ffn(h, p["w_gate"], p["w_up"], p["w_down"], backend=kind, decode=(s == 1))
+    if split_rows:  # every shard's combine reads every row (backward: reduce-scatter)
+        o = GatherDim.apply(o, dp[0], dp[1], dp[2], 1, True)
+    obuf = torch.cat([o.reshape(n_local * rows, d), o.new_zeros(1, d)])
 
     contrib = obuf.index_select(0, slot) * (sw * keep)[:, None].to(o.dtype)
     y = x.new_zeros(t, d).index_add(0, st, contrib).reshape(b, s, d)
-    if ep is not None:
-        y = reduce_from_group(y, ep[2])
+    if part is not None:
+        y = reduce_from_group(y, part)
     if mo.n_shared and shared:
         y = y + shared_ffn(p["shared"], x)
     aux, counts = _aux_and_counts(mo, probs, a_exp, live, t, token_mask, dp)
@@ -293,7 +322,7 @@ def _pad_experts(o: torch.Tensor, lo: int, e: int, dim: int) -> torch.Tensor:
 
 def _moe_forward_grouped(p, cfg, x, capacity_factor, full_capacity=False,
                          token_mask=None, kind: str = "auto", logits=None,
-                         shared: bool = True) -> MoEOutput:
+                         shared: bool = True, partial=None) -> MoEOutput:
     """Per-row dispatch: [B, S, D] -> buffers [B, E, C, D] -> expert FFN
     -> combine, every sort row-local. The [B*E] buffer groups run over
     the one [E, D, F] weight tensor through group -> expert rows
@@ -322,9 +351,10 @@ def _moe_forward_grouped(p, cfg, x, capacity_factor, full_capacity=False,
 
     rows = torch.arange(b, device=x.device)[:, None]
     ep = _experts(p, e)
+    part = ep[2] if ep is not None else partial
     xs = x
-    if ep is not None:  # each rank's experts give a part of these gradients
-        xs, sw = copy_to_group(x, ep[2]), copy_to_group(sw, ep[2])
+    if part is not None:  # each rank's experts give a part of these gradients
+        xs, sw = copy_to_group(x, part), copy_to_group(sw, part)
     xk = torch.gather(xs, 1, st[..., None].expand(-1, -1, d))  # [B, S*k, D]
     buf = x.new_zeros(b, e * cap + 1, d).index_put((rows, slot), xk)
     if ep is None:
@@ -344,8 +374,8 @@ def _moe_forward_grouped(p, cfg, x, capacity_factor, full_capacity=False,
     contrib = contrib * (sw * keep)[..., None].to(o.dtype)
     y = x.new_zeros(b * s, d).index_add(0, (st + rows * s).reshape(-1),
                                         contrib.reshape(-1, d)).reshape(b, s, d)
-    if ep is not None:
-        y = reduce_from_group(y, ep[2])
+    if part is not None:
+        y = reduce_from_group(y, part)
     if mo.n_shared and shared:
         y = y + shared_ffn(p["shared"], x)
     flat_live = None if live is None else live.reshape(-1)
@@ -357,13 +387,14 @@ def _moe_forward_grouped(p, cfg, x, capacity_factor, full_capacity=False,
 def moe_forward_mesh(tp, p, cfg, x: torch.Tensor, *, full_capacity: bool,
                      token_mask: torch.Tensor | None = None,
                      backend: str | None = None) -> MoEOutput:
-    """The flat routed MoE on a serving mesh (`tp`, p's leaves `Local`):
-    the router split over D (partial logits summed over "model"), the
-    global dispatch over the DP shards, and the routed experts as the
-    rules place them: E over "model" runs this rank's E/m experts (the
-    hinted expert-parallel dispatch, outputs summed over "model"), F over
-    "model" gives partial sums; the shared experts column- then
-    row-parallel."""
+    """The flat routed MoE on a mesh (`tp`, p's leaves `Local`), serving
+    or training: the router split over D (partial logits summed over
+    "model"), the global dispatch over the DP shards, and the routed
+    experts as the rules place them: E over "model" runs this rank's E/m
+    experts (the hinted expert-parallel dispatch, outputs summed over
+    "model"), F over "model" gives partial sums (summed alike); the shared
+    experts column- then row-parallel. The aux loss is the whole batch's,
+    its gradient this DP shard's part (`_aux_and_counts`)."""
     from repro_torch.distributed import tensor_parallel as tpl
 
     b, s, d = x.shape
@@ -375,8 +406,9 @@ def moe_forward_mesh(tp, p, cfg, x: torch.Tensor, *, full_capacity: bool,
     with moe_sharding_hints(), shd.use_mesh(tp.mesh, tp.batch):
         out = moe_forward({key: w for key, (w, _, _) in ws.items()}, cfg, x,
                           full_capacity=full_capacity, token_mask=token_mask,
-                          backend=backend, logits=logits, shared=False)
-    y = out.y if split != 2 else tp.sum_model(out.y)
+                          backend=backend, logits=logits, shared=False,
+                          partial=tp.model if split == 2 else None)
+    y = out.y
     if cfg.moe.n_shared:
         y = y + tpl.shared_ffn(tp, p["shared"], x)
     return MoEOutput(y, out.aux_loss, out.expert_counts)

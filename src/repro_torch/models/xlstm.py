@@ -264,8 +264,9 @@ def _mlstm_mesh(tp, p, cfg, x, state, token_mask=None, init: bool = False):
         mine = tp.reduce_scatter(pieces.movedim(-2, 0), (tp.model, tp.m, tp.mi))[0]
         widths = [comps[n].shape[-1] // tp.m for n in own]
         got = dict(zip(own, mine.split(widths, -1)))
-        if common:
-            shared = tp.sum_model(torch.cat([comps[n] for n in common], -1))
+        if common:  # the key layout's recurrence is rank-specific: both ways summed
+            total = tp.sum_copy_model if kind == "keys" else tp.sum_model
+            shared = total(torch.cat([comps[n] for n in common], -1))
             got.update(zip(common, shared.split([comps[n].shape[-1] for n in common], -1)))
     else:
         got = comps
@@ -290,7 +291,7 @@ def _mlstm_mesh(tp, p, cfg, x, state, token_mask=None, init: bool = False):
         num, nq = tot[..., :-1], tot[..., -1]
     hseq = (num / _mlstm_den(nq)[..., None]).reshape(b, s, nh * dh)
     if c < nh * dh:  # every head's channels here: this rank's Di/m of them
-        hseq = hseq.narrow(-1, tp.mi * c, c)
+        hseq = tp.copy_model(hseq).narrow(-1, tp.mi * c, c)
     y = (hseq * og).to(x.dtype) * F.silu(z.float()).to(x.dtype)
     out = y @ w["down"][0]
     return (tp.sum_model(out) if split else out), st
@@ -347,7 +348,8 @@ def _slstm_mesh(tp, p, cfg, x, state, token_mask=None, init: bool = False):
         r = tpl.block_weight(tp, p["r"], 4, split).flatten(-2).to(dt)
         bias = tpl.block_weight(tp, p["b"], 4, split).flatten(-2)
 
-        def pre(t, h):
+        def pre(t, h):  # the whole h against this rank's gate columns
+            h = tp.copy_model(h) if split else h
             return (xin[:, t] + h.to(dt) @ r).float() + bias
     hs = []
     for t in range(s):

@@ -7,20 +7,27 @@ parameter leaves, so a step is a function of (params, opt_state, batch)
 as the reference's is.
 
 On a device mesh (`make_train_step(..., mesh=)`) the step computes what
-the reference's one program (GSPMD) computes on the global batch. Params
-and AdamW moments are stored as DTensors with the `tree_pspecs` /
-`opt_state_pspecs` placements. Each rank takes its rows of the global
-batch (split over the DP axes); each layer group's weights are gathered
-just before use, inside its checkpoint (the routed experts stay this
-rank's E/m under `set_moe_sharding_hints`); every rank's loss is its
-rows' share of the cross entropy plus the whole batch's aux loss, and
-each gathered weight's gradient is summed over the DP shards and cut
-back to its shard. AdamW then updates the shards, with the clip norm and
-the int8 scale taken over the whole leaves. Kernels see plain local
-tensors, never DTensors. On the card the MoE layers' grouped GEMMs, their
-recompute and their dX products run the hand-written `moe_gemm` kernel
-(kernels/moe_gemm/kernel.py); the reference cannot differentiate its
-Pallas kernel and trains through its einsums.
+the reference's one program (GSPMD) computes on the global batch, and
+partitions it as GSPMD partitions the reference's program under
+`tree_pspecs`: params and AdamW moments are stored as DTensors with the
+`tree_pspecs` / `opt_state_pspecs` placements, each rank takes its rows
+of the global batch (split over the DP axes), and the forward and the
+backward run on the shards (`models.model.mesh_forward_train`,
+distributed/tensor_parallel.py): attention heads, Mamba / xLSTM
+channels, the MLPs' F and the vocab split over "model", FSDP weights
+gathered over "data" just before use inside each layer group's
+checkpoint and gathered again for its recompute, every collective
+differentiable (distributed/collectives.py). The cross entropy is
+vocab-parallel where the head splits the vocab, so the logits are never
+gathered; every rank's loss is its rows' share of it plus the whole
+batch's aux loss (its gradient the rank's part), and every leaf's
+gradient is summed over the DP shards once (an FSDP weight's by its
+gather's reduce-scatter over "data"). AdamW then updates the shards, with
+the clip norm and the int8 scale taken over the whole leaves. Kernels see
+plain local tensors, never DTensors. On the card the MoE layers' grouped
+GEMMs, their recompute and their dX products run the hand-written
+`moe_gemm` kernel (kernels/moe_gemm/kernel.py); the reference cannot
+differentiate its Pallas kernel and trains through its einsums.
 """
 from __future__ import annotations
 
@@ -30,8 +37,8 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed import sharding as shd
-from repro_torch.distributed.collectives import all_reduce, gather_shards
-from repro_torch.models.model import forward_train, init_params
+from repro_torch.distributed import tensor_parallel as tpl
+from repro_torch.models.model import forward_train, init_params, mesh_forward_train
 from repro_torch.training.optimizer import AdamWConfig, adamw_init, adamw_update
 from repro_torch.tree import leaves, leaves_with_path, tree_map, unflatten
 
@@ -66,94 +73,74 @@ def value_and_grad(params: Params, cfg: ModelConfig, batch: Dict[str, Any]):
     return loss.detach(), metrics, unflatten(params, grads)
 
 
-class _Gather:
-    """forward_train's `gather` on a mesh: each leaf of a subtree (this
-    rank's shard, a plain tensor) gathered to the full tensor, or, for a
-    routed expert weight sharded over the expert dim under the MoE hints,
-    to this rank's E/m experts. `places`: {path: DTensor placements}."""
-
-    def __init__(self, mesh, places):
-        from repro_torch.models.moe import _SHARDING_HINTS
-
-        self.mesh, self.places = mesh, places
-        self.dp, self.dp_n, _ = shd.dp_group(mesh)
-        self.sizes = tuple(mesh.shape)
-        self.ep = None
-        if _SHARDING_HINTS is not None:
-            self.ep = list(mesh.mesh_dim_names).index(_SHARDING_HINTS[1])
-        self.cache = {}
-
-    def _places(self, path: tuple, leaf, stacked: bool):
-        from torch.distributed.tensor import Replicate, Shard
-
-        lead = 1 if stacked else 0  # one scan group: the group dim is never sharded
-        places = []
-        for pl in self.places[path]:
-            assert not (stacked and pl == Shard(0)), path
-            places.append(Shard(pl.dim - lead) if pl.is_shard() else pl)
-        routed = path[-1] in ("w_gate", "w_up", "w_down") and "shared" not in path
-        if (self.ep is not None and routed and leaf.dim() >= 3
-                and places[self.ep] == Shard(leaf.dim() - 3)):
-            places[self.ep] = Replicate()  # the expert dim stays this rank's
-        return places
-
-    def _leaf(self, path: tuple, leaf, stacked: bool):
-        key = (path, stacked)
-        if key not in self.cache:  # None: nothing to gather, no gradient to reduce
-            places = self._places(path, leaf, stacked)
-            moves = self.dp_n > 1 or any(
-                p.is_shard() and n > 1 for p, n in zip(places, self.sizes))
-            self.cache[key] = places if moves else None
-        places = self.cache[key]
-        return leaf if places is None else gather_shards(leaf, self.mesh, places, self.dp)
-
-    def __call__(self, tree, prefix: tuple, stacked: bool = False):
-        flat = [self._leaf(prefix + path, leaf, stacked) for path, leaf in leaves_with_path(tree)]
-        return unflatten(tree, flat)
+def vocab_parallel_cross_entropy(tp, logits: torch.Tensor, labels: torch.Tensor,
+                                 lo: int, vocab: int) -> torch.Tensor:
+    """`cross_entropy` of logits split over "model" by vocab: this rank's
+    columns [B, S, n] from vocab index `lo` (those at `vocab` or past it
+    are padding, left out). The row max over "model" (detached: a
+    stabilizer), the sum of exps summed over "model", and each label's
+    logit from the rank that holds it, summed: the whole [B, S, V] logits
+    are never gathered. Every rank returns the same scalar."""
+    lf = logits.float()
+    n = lf.shape[-1]
+    if lo + n > vocab:
+        real = lo + torch.arange(n, device=lf.device) < vocab
+        lf = torch.where(real, lf, torch.full_like(lf, float("-inf")))
+    top = tp.max_model(lf.max(-1).values)
+    lse = torch.log(tp.sum_model(torch.exp(lf - top[..., None]).sum(-1))) + top
+    rel = labels.long() - lo
+    mine = (rel >= 0) & (rel < n)
+    picked = torch.gather(lf, -1, rel.clamp(0, n - 1)[..., None])[..., 0]
+    picked = tp.sum_model(torch.where(mine, picked, torch.zeros_like(picked)))
+    return torch.mean(lse - picked)
 
 
-def _whole_stacks(params: Params, mesh, places):
-    """(params, places) with every stacked leaf whose scan-group dim the
-    rules split (a dense MLP [L, D, F] read as experts when the layer count
-    divides the axis) gathered along it, so each scan group can be taken:
-    its gradient flows back as this rank's groups (the later gathers sum
-    it over the DP shards)."""
-    from torch.distributed.tensor import Replicate
-
-    from repro_torch.distributed.collectives import gather_dim
-
-    places = dict(places)
-    flat = []
-    for path, leaf in leaves_with_path(params):
-        pl = places[path]
-        if path[0] == "stack" and any(p.is_shard() and p.dim == 0 for p in pl):
-            pl = list(pl)
-            for i in reversed(range(len(pl))):  # inner mesh dims first
-                if pl[i].is_shard() and pl[i].dim == 0:
-                    leaf = gather_dim(leaf, mesh.get_group(i), 0)
-                    pl[i] = Replicate()
-            places[path] = pl
-        flat.append(leaf)
-    return unflatten(params, flat), places
+def _sum_over_dp(tp, grads, places):
+    """Every leaf's gradient summed over the DP shards once: a leaf split
+    over "data" had its gradient reduce-scattered over "data" by its FSDP
+    gather's backward, so only the other DP axes ("pod") remain; any other
+    leaf sums over every DP axis. Rows whole on every DP rank (`tp.split`
+    false) are counted once: nothing is summed."""
+    if not tp.split:
+        return grads
+    dp = [a for a in tp.names if a in ("pod", "data")]
+    out = []
+    for g, pl in zip(grads, places):
+        split = {tp.names[i] for i, q in enumerate(pl) if q.is_shard()}
+        grp = tp.group([a for a in dp if not (a == "data" and "data" in split)])
+        out.append(tp.all_reduce(g, grp))
+    return out
 
 
 def mesh_value_and_grad(params: Params, cfg: ModelConfig, batch: Dict[str, Any], mesh,
                         places):
     """`value_and_grad` on a mesh: params a tree of this rank's shards
     (plain tensors) placed as `places` says ({path: DTensor placements}),
-    batch the global batch. Returns the whole batch's (loss, metrics) and
-    this rank's shard of every leaf's gradient."""
+    batch the global batch. The forward and backward run partitioned
+    (`mesh_forward_train`): each rank's loss is its rows' share of the
+    cross entropy (vocab-parallel where the head splits the vocab) plus
+    the aux loss (whole, its gradient this rank's part), and each leaf's
+    gradient comes out as its shard's, summed over the DP shards. Returns
+    the whole batch's (loss, metrics) and this rank's shard of every
+    leaf's gradient."""
     tracked = tree_map(lambda p: p.detach().requires_grad_(), params)
-    _, n_dp, _ = shd.dp_group(mesh)
-    local = {k: shd.shard_rows(v, mesh) for k, v in batch.items()}
-    with shd.use_mesh(mesh), torch.enable_grad():
-        stacks, places = _whole_stacks(tracked, mesh, places)
-        logits, aux, counts = forward_train(stacks, cfg, local, gather=_Gather(mesh, places))
-        ce_part = cross_entropy(logits, local["labels"]) * (1.0 / n_dp)  # rows' share
-        flat = leaves(tracked)
+    flat = leaves(tracked)
+    paths = [path for path, _ in leaves_with_path(tracked)]
+    local = unflatten(tracked, [tpl.local_of(t, places[path], mesh)
+                                for path, t in zip(paths, flat)])
+    b = batch["tokens"].shape[0]
+    tp = tpl.TP(mesh, b)
+    rows = {k: shd.shard_rows(v, mesh) for k, v in batch.items()}
+    with shd.use_mesh(mesh, b), torch.enable_grad():
+        logits, lo, aux, counts = mesh_forward_train(tp, local, cfg, rows)
+        ce_rows = (cross_entropy(logits, rows["labels"]) if lo is None
+                   else vocab_parallel_cross_entropy(tp, logits, rows["labels"], lo,
+                                                     cfg.vocab_size))
+        ce_part = ce_rows * (1.0 / tp.n_dp)  # these rows' share
         grads = torch.autograd.grad(ce_part + aux, flat, allow_unused=True)
     grads = [torch.zeros_like(p) if g is None else g for p, g in zip(flat, grads)]
-    ce = all_reduce(ce_part.detach(), shd.dp_group(mesh)[0])
+    grads = _sum_over_dp(tp, grads, [places[path] for path in paths])
+    ce = tp.sum_dp(ce_part.detach())
     metrics = {"ce": ce, "aux": aux.detach(), "expert_counts": counts}
     return ce + aux.detach(), metrics, unflatten(params, grads)
 

@@ -165,6 +165,27 @@ def test_fake_trace_matches_gloo_run_and_divides_flops(gloo_cells):
     assert mem["argument_size_in_bytes"] > 0 and mem["temp_size_in_bytes"] > 0
 
 
+def test_fake_train_trace_matches_gloo_run_and_splits_flops(gloo_cells):
+    """granite-moe's smoke train cell (forward, backward and AdamW of the
+    mesh step) on a fake (2, 2) world records the collectives (kinds,
+    counts, bytes) of a real gloo run of the same step, and its rank's
+    FLOPs are at most 0.3 of the unsharded step's: rows over "data" and
+    every split matmul over "model" halve them twice (about 0.25; the
+    router's fp32 logits and the norms stay whole per row)."""
+    import torch_mesh_serve_worker as worker
+
+    c = worker.DRYRUN_CELLS["granite_train"]
+    cfg = worker.port_cfg(c["arch"])
+    traced = dryrun.trace_cell(cfg, "train", c["batch"], c["seq"], {"data": 2, "model": 2})
+    _assert_same_collectives(traced, gloo_cells["granite_train"])
+    assert traced["collectives"]["counts"]["all-reduce"] > 0
+    whole = dryrun.trace_cell(cfg, "train", c["batch"], c["seq"], None)
+    assert whole["collectives"]["count"] == 0
+    ratio = traced["cost"]["flops"] / whole["cost"]["flops"]
+    assert 0 < ratio <= 0.3, ratio
+    assert traced["memory"]["temp_size_in_bytes"] < whole["memory"]["temp_size_in_bytes"]
+
+
 def test_dryrun_cli_traces_granite_decode_on_256_ranks(tmp_path):
     """The CLI's default trace of one cell on the single-pod mesh: a fake
     world of 256 ranks, within 60 s."""

@@ -34,7 +34,7 @@ ENTRY_FILES = ["examples/quickstart_torch.py", "examples/serve_moe_offload_torch
                "examples/train_small_moe_torch.py", "examples/simulate_paper_torch.py",
                "tools/export_trace_torch.py", "tools/train_probe.py",
                "tools/dist_probe.py", "tools/gemv_probe.py", "tools/mla_probe.py",
-               "tools/serve_pair.py"]
+               "tools/serve_pair.py", "tools/mesh_train_probe.py"]
 
 
 def test_port_imports_no_jax_and_nothing_of_repro():

@@ -7,8 +7,10 @@ Reads its inputs from IO_DIR (written by the test), holds what compares
 the port with itself (local shard shapes, the hinted grouped dispatch vs
 the unhinted one with its gradients, a checkpoint restored onto another
 mesh), and has rank 0 write what the test compares with the JAX package
-(train states, sequence-parallel attention, compressed reduces). Any
-failed check raises, so the rank exits non-zero."""
+(train states of every TRAIN_CASES arch, sequence-parallel attention,
+compressed reduces). With WORLD 1 it runs the one-rank (1, 1) check
+instead (`one_rank`: the mesh step bitwise equal to the unsharded one).
+Any failed check raises, so the rank exits non-zero."""
 import dataclasses
 import datetime
 import json
@@ -20,7 +22,9 @@ import torch
 import torch.distributed as dist
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
+from chip_smoke import keep_groups  # noqa: E402
 from repro_torch.checkpoint import restore, save  # noqa: E402
 from repro_torch.configs import get_config, reduce_for_smoke  # noqa: E402
 from repro_torch.data.pipeline import SyntheticCorpus  # noqa: E402
@@ -47,19 +51,91 @@ from repro_torch.tree import leaves_with_path, tree_map  # noqa: E402
 B, S, STEPS = 4, 32, 2
 CAPACITY_FACTOR = 1.0  # granite's smoke batch then drops assignments at capacity
 GRAD_CLIP = 0.1  # below the first step's gradient norm: the clip binds
-# name -> (mesh shape, dim names, compression, MoE hints and sequence
-# parallelism, microbatches)
+GRANITE = "granite-moe-1b-a400m"
+DENSE = ("llama3.2-3b", "phi4-mini-3.8b", "qwen2.5-32b", "chameleon-34b", "granite-20b")
+MESHES = {"2x2": ((2, 2), ("data", "model")), "1x4": ((1, 4), ("data", "model")),
+          "2x1x2": ((2, 1, 2), ("pod", "data", "model"))}
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainCase:
+    arch: str
+    mesh: str = "2x2"
+    compression: str = "none"
+    hints: bool = False  # the MoE hints and sequence parallelism on
+    n_micro: int = 1
+    fsdp: bool = False  # params also split over "data"
+    config: tuple = ()  # (field, value) pairs over the smoke config
+    moe: tuple = ()  # (field, value) pairs over its MoE config
+
+
+# every assigned arch group, 2 steps each against the reference's
+# make_train_step on the whole batch (the test)
 TRAIN_CASES = {
-    "2x2": ((2, 2), ("data", "model"), "none", True, 1),
-    "2x1x2": ((2, 1, 2), ("pod", "data", "model"), "int8_ef", False, 2),
+    # GQA, the flat MoE expert-parallel under the hints; capacity drops
+    "2x2": TrainCase(GRANITE, hints=True),
+    # int8 compression with error feedback, 2 microbatches, across pods
+    "2x1x2": TrainCase(GRANITE, "2x1x2", "int8_ef", n_micro=2),
+    # tied table (vocab-parallel head), the MLP stack split over its layers
+    "llama3.2-3b": TrainCase("llama3.2-3b"),
+    # MQA (KV D-split, 48 query heads split), FSDP: wk nested over
+    # ("data", "model"), every weight gathered over "data"
+    "granite-20b/fsdp": TrainCase("granite-20b", fsdp=True),
+    # 6 query heads on 4 ranks: D-split projections, query rows over
+    # "model" under sequence parallelism; vocab 258: the D-split head
+    "phi4-mini-3.8b/1x4": TrainCase("phi4-mini-3.8b", "1x4", hints=True,
+                                    config=(("vocab_size", 258),)),
+    # MLA, shared experts, dense layer 0
+    "deepseek": TrainCase("deepseek-v2-236b", hints=True),
+    # Mamba channel-parallel (in_proj regrouped), GQA, MoE
+    "jamba": TrainCase("jamba-v0.1-52b", hints=True),
+    # mLSTM over heads, sLSTM over channels
+    "xlstm": TrainCase("xlstm-125m"),
+    # 2 heads on 4 ranks: the mLSTM state along the key index
+    "xlstm/dh/1x4": TrainCase("xlstm-125m", "1x4", config=(("n_heads", 2), ("n_kv_heads", 2))),
+    # the encoder, cacheless heads-parallel cross attention
+    "seamless": TrainCase("seamless-m4t-large-v2"),
+    # 6 experts on 4 ranks: the routed experts split over F (partial sums)
+    "granite-moe/F/1x4": TrainCase(GRANITE, "1x4", hints=True, moe=(("n_experts", 6),)),
 }
 
 
+def case_cfg(case: TrainCase):
+    """The case's smoke config in fp32 (the dense archs at their
+    published G; granite at CAPACITY_FACTOR)."""
+    cfg = reduce_for_smoke(get_config(case.arch))
+    if case.arch in DENSE:
+        cfg = keep_groups(cfg, get_config(case.arch))
+    cfg = dataclasses.replace(cfg, param_dtype="float32", compute_dtype="float32",
+                              moe_backend="ref", **dict(case.config))
+    if case.arch == GRANITE:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=CAPACITY_FACTOR, **dict(case.moe)))
+    return cfg
+
+
 def granite_cfg():
-    cfg = reduce_for_smoke(get_config("granite-moe-1b-a400m"))
-    return dataclasses.replace(cfg, param_dtype="float32", compute_dtype="float32",
-                               moe=dataclasses.replace(cfg.moe,
-                                                       capacity_factor=CAPACITY_FACTOR))
+    return case_cfg(TRAIN_CASES["2x2"])
+
+
+def case_params(cfg):
+    """The params every case starts from (the test bridges them to the
+    reference): the port's seeded init on the CPU."""
+    return init_params(0, cfg, device="cpu")
+
+
+def case_batch(cfg, i: int) -> dict:
+    """Batch i of the case's corpus (seed 0), frames for seamless."""
+    batch = SyntheticCorpus(cfg.vocab_size, seed=0).batch(i, B, S)
+    if cfg.encdec is not None:
+        rng = np.random.default_rng(100 + i)
+        batch["frames"] = (rng.standard_normal((B, cfg.encdec.frontend_frames, cfg.d_model))
+                           * 0.02).astype(np.float32)
+    return batch
+
+
+def state_dir(io: Path, name: str) -> Path:
+    return io / ("state_" + name.replace("/", "_"))
 
 
 def deepseek_cfg():
@@ -70,40 +146,76 @@ def deepseek_cfg():
 def train_cases(io: Path, rank: int, results: dict) -> None:
     """Each case: the state sharded on its mesh, one mesh value-and-grad
     (loss, counts) on batch 0, then STEPS mesh train steps; the final
-    state is saved whole (rank 0 writes)."""
-    cfg = granite_cfg()
-    like = init_params(0, cfg, device="cpu")
-    params = restore(str(io / "params"), 0, like)
-    corpus = SyntheticCorpus(cfg.vocab_size, seed=0)
-    for name, (shape, names, comp, hints, n_micro) in TRAIN_CASES.items():
-        mesh = make_mesh(shape, names, "cpu")
-        set_moe_sharding_hints(enable=hints)
-        att.set_sequence_parallel(mesh if hints else None)
-        opt_cfg = AdamWConfig(compression=comp, grad_clip=GRAD_CLIP)
+    state is saved whole (rank 0 writes). The (2, 2) granite step records
+    its collectives (`dims` of each all-gather, for the test's check that
+    no model-split leaf is gathered whole)."""
+    from repro_torch.launch.dryrun import CollectiveCounter
+
+    for name, case in TRAIN_CASES.items():
+        cfg = case_cfg(case)
+        params = case_params(cfg)
+        mesh = make_mesh(*MESHES[case.mesh], "cpu")
+        set_moe_sharding_hints(enable=case.hints)
+        att.set_sequence_parallel(mesh if case.hints else None)
+        opt_cfg = AdamWConfig(compression=case.compression, grad_clip=GRAD_CLIP)
+        threshold = shd.FSDP_THRESHOLD
+        if case.fsdp:  # the smoke config far below it: store it as a large arch's
+            shd.FSDP_THRESHOLD = 0
         ps, os_ = shard_train_state(params, adamw_init(params, opt_cfg), mesh, cfg)
         specs = shd.tree_pspecs(params, mesh, cfg)
+        shd.FSDP_THRESHOLD = threshold
         for path, t in leaves_with_path(ps):  # every shard the shape its spec gives
             spec = shd.spec_leaves(specs)[path]
             assert tuple(t.to_local().shape) == shd.shard_shape(tuple(t.shape), spec, mesh)
             results["shard_shapes"] = results.get("shard_shapes", 0) + 1
-        batch0 = {k: torch.as_tensor(v) for k, v in corpus.batch(0, B, S).items()}
+        batch0 = {k: torch.as_tensor(v) for k, v in case_batch(cfg, 0).items()}
         places = {p: list(t.placements) for p, t in leaves_with_path(ps)}
         local = tree_map(lambda t: t.to_local(), ps)
         loss, metrics, _ = mesh_value_and_grad(local, cfg, batch0, mesh, places)
         results[f"{name}/loss0"] = float(loss)
         results[f"{name}/counts0"] = metrics["expert_counts"].tolist()
-        step = make_train_step(cfg, opt_cfg, n_micro, mesh=mesh)
+        step = make_train_step(cfg, opt_cfg, case.n_micro, mesh=mesh)
         losses = []
         for i in range(STEPS):
-            batch = {k: torch.as_tensor(v) for k, v in corpus.batch(i, B, S).items()}
-            ps, os_, out = step(ps, os_, batch)
+            batch = {k: torch.as_tensor(v) for k, v in case_batch(cfg, i).items()}
+            with CollectiveCounter() as coll:
+                ps, os_, out = step(ps, os_, batch)
+            if name == "2x2" and i == 0:
+                results["2x2/gathers"] = [n for kind, _, n in coll.calls if kind == "all-gather"]
             losses.append(float(out["loss"]))
         results[f"{name}/losses"] = losses
-        save(str(io / f"state_{name}"), STEPS, {"params": ps, "opt": os_})
+        save(str(state_dir(io, name)), STEPS, {"params": ps, "opt": os_})
         set_moe_sharding_hints(enable=False)
         att.set_sequence_parallel(None)
         if name == "2x2":
             reshard(io, cfg, ps, os_, results)
+
+
+def one_rank(io: Path, results: dict) -> None:
+    """The (1, 1) mesh (one gloo rank) against the unsharded step: granite
+    and jamba at fp32 smoke size, STEPS steps at AdamW's defaults; every
+    param and moment leaf bitwise equal (the card's gate at 1e-6 relative
+    runs this on NCCL)."""
+    mesh = make_mesh((1, 1), ("data", "model"), "cpu")
+    for arch in (GRANITE, "jamba-v0.1-52b"):
+        cfg = case_cfg(TrainCase(arch))
+        params = init_params(0, cfg, device="cpu")
+        opt_cfg = AdamWConfig()
+        plain = make_train_step(cfg, opt_cfg)
+        p, o = params, adamw_init(params, opt_cfg)
+        step = make_train_step(cfg, opt_cfg, mesh=mesh)
+        mp, mo = shard_train_state(params, adamw_init(params, opt_cfg), mesh, cfg)
+        for i in range(STEPS):
+            batch = {k: torch.as_tensor(v) for k, v in case_batch(cfg, i).items()}
+            p, o, out = plain(p, o, batch)
+            mp, mo, mout = step(mp, mo, batch)
+            assert torch.equal(out["loss"], mout["loss"]), (arch, i)
+        n = 0
+        for want, got in ((p, mp), (o["m"], mo["m"]), (o["v"], mo["v"])):
+            for (path, a), (_, b) in zip(leaves_with_path(want), leaves_with_path(got)):
+                assert torch.equal(a, b.full_tensor()), (arch, path)
+                n += 1
+        results[f"one_rank/{arch}"] = n
 
 
 def reshard(io: Path, cfg, ps, os_, results: dict) -> None:
@@ -210,10 +322,13 @@ def main(rank: int, world: int, init_file: str, io_dir: str) -> None:
                             world_size=world, timeout=datetime.timedelta(seconds=60))
     io = Path(io_dir)
     results = {"arrays": {}}
-    train_cases(io, rank, results)
-    grouped_hints(rank, results)
-    seq_parallel(io, rank, results)
-    reduces(io, rank, results)
+    if world == 1:
+        one_rank(io, results)
+    else:
+        train_cases(io, rank, results)
+        grouped_hints(rank, results)
+        seq_parallel(io, rank, results)
+        reduces(io, rank, results)
     dist.barrier()
     if rank == 0:
         np.savez(io / "out_arrays.npz", **results.pop("arrays"))

@@ -98,6 +98,9 @@ DRYRUN_CELLS = {
     "jamba": dict(arch="jamba-v0.1-52b", kind="decode", batch=4, seq=16, sizes=(2, 2, 4)),
     "seamless": dict(arch="seamless-m4t-large-v2", kind="prefill", batch=4, seq=16,
                      sizes=None),
+    # the mesh train step (forward, backward, AdamW) under the MoE hints
+    "granite_train": dict(arch="granite-moe-1b-a400m", kind="train", batch=4, seq=1024,
+                          sizes=None),
 }
 
 
