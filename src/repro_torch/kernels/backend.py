@@ -13,20 +13,28 @@ A CUDA tensor on a card that is not sm_90 raises: the kernels are built
 for `sm_90a` only, and nothing falls back to the plain version behind
 the caller's back.
 
-Observability: `set_kernel_tracer` installs a process-global
-`repro_torch.obs.Tracer`; the op layer brackets each call with
-`kernel_span`, under the reference's op names (`paged_decode_gqa`,
-`paged_prefill_gqa`, `paged_decode_mla`, `paged_prefill_mla` in
-models/attention.py; `grouped_expert_matmul`, `grouped_expert_ffn`,
-`cold_expert_ffn`, `mha` in the kernels' ops.py), one span per op call.
+Observability: the op layer brackets each call with `kernel_span`, on
+the process-global tracer of `repro_torch.obs.trace` (installed by
+`resolve_obs`; `set_kernel_tracer` is `install_tracer`), under the
+reference's op names (`paged_decode_gqa`, `paged_prefill_gqa`,
+`paged_decode_mla`, `paged_prefill_mla` in models/attention.py;
+`grouped_expert_matmul`, `grouped_expert_ffn`, `cold_expert_ffn`, `mha`
+in the kernels' ops.py), one span per op call, with the call's shape.
 Unlike the JAX package (where the span runs once per trace), the port
-runs eagerly, so the span brackets every call.
+runs eagerly, so the span brackets every call. The span's `backend` is
+the kind the op's own `use_kernel` resolved inside it ("ref" when the op
+ran its plain version without asking).
 """
 from __future__ import annotations
 
 import contextlib
+from typing import Optional
 
 import torch
+
+from repro_torch.obs.trace import NULL_SPAN, active_tracer, install_tracer
+
+set_kernel_tracer = install_tracer  # the process-global slot, under its earlier name
 
 __all__ = [
     "CHOICES",
@@ -85,6 +93,13 @@ def use_kernel(choice: str, t: torch.Tensor, *, op: str = "kernel") -> bool:
     """True when `op` must launch its CUDA kernel on tensor `t`, False
     when it runs its plain PyTorch version. Raises where the choice
     cannot be honored (a CPU tensor under "cuda", a non-Hopper card)."""
+    kernel = _resolve_kind(choice, t, op)
+    if _OPEN_KERNEL_ARGS is not None:  # inside a kernel span: its backend
+        _OPEN_KERNEL_ARGS["backend"] = "cuda" if kernel else "ref"
+    return kernel
+
+
+def _resolve_kind(choice: str, t: torch.Tensor, op: str) -> bool:
     resolve_backend(choice)
     if choice == "ref":
         return False
@@ -107,36 +122,51 @@ def wants_grad(*ts) -> bool:
 
 
 # --------------------------------------------------------------- tracing
-# Process-global kernel tracer, installed by repro_torch.obs.resolve_obs
-# whenever a stack resolves with tracing enabled (the last one wins).
-_KERNEL_TRACER = None
+# the args of the innermost open kernel span, where `use_kernel` writes
+# the kind it resolved (None while no kernel span is open)
+_OPEN_KERNEL_ARGS = None
 
 
-class _NullSpan:
-    __slots__ = ()
+# what the leading dims of the tensor an op's span is given count
+_SHAPE_DIMS = {
+    "paged_decode_gqa": ("rows",), "paged_decode_mla": ("rows",),
+    "paged_prefill_gqa": ("rows", "chunk"), "paged_prefill_mla": ("rows", "chunk"),
+    "grouped_expert_matmul": ("rows",), "mha": ("rows", "chunk"),
+    "grouped_expert_ffn": ("slots", "rows"), "cold_expert_ffn": ("slots", "rows"),
+}
+
+
+def kernel_span(op: str, t: torch.Tensor, tables: Optional[torch.Tensor] = None):
+    """Span `kernel.<op>` around one op call on the installed tracer
+    (NULL_SPAN when off). Args: the call's shape, read off `t` (`rows`,
+    and `chunk` tokens a row or `slots` of an expert op, as `_SHAPE_DIMS`
+    says) and a paged op's `tables` (`blocks`, the table width), and the
+    `backend` ("cuda" | "ref") that the op's `use_kernel` resolves inside
+    it."""
+    tr = active_tracer()
+    if tr is None:
+        return NULL_SPAN
+    shape = dict(zip(_SHAPE_DIMS[op], t.shape))
+    if tables is not None:
+        shape["blocks"] = tables.shape[1]
+    return _KernelSpan(tr.span(f"kernel.{op}", cat="kernel", backend="ref", **shape))
+
+
+class _KernelSpan:
+    """A kernel span open as the innermost one, where `use_kernel`
+    writes the kind it resolves."""
+
+    __slots__ = ("span", "prev")
+
+    def __init__(self, span):
+        self.span = span
 
     def __enter__(self):
-        return self
+        global _OPEN_KERNEL_ARGS
+        self.prev, _OPEN_KERNEL_ARGS = _OPEN_KERNEL_ARGS, self.span.args
+        return self.span.__enter__()
 
     def __exit__(self, *exc):
-        return False
-
-
-_NULL_SPAN = _NullSpan()
-
-
-def set_kernel_tracer(tracer) -> None:
-    """Install (or clear, with None) the tracer `kernel_span` emits to."""
-    global _KERNEL_TRACER
-    _KERNEL_TRACER = tracer
-
-
-def kernel_span(op: str, choice: str, t: torch.Tensor):
-    """Span `kernel.<op>` around one op call whose kernel family resolves
-    `choice` on tensor `t`, with the resolved kind ("cuda" | "ref") as its
-    `backend` argument, on the installed tracer (no-op when off)."""
-    tr = _KERNEL_TRACER
-    if tr is None or not tr.enabled:
-        return _NULL_SPAN
-    kind = "cuda" if use_kernel(choice, t, op=op) else "ref"
-    return tr.span(f"kernel.{op}", cat="kernel", backend=kind)
+        global _OPEN_KERNEL_ARGS
+        _OPEN_KERNEL_ARGS = self.prev
+        return self.span.__exit__(*exc)

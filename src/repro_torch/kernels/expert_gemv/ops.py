@@ -19,7 +19,7 @@ def cold_expert_ffn(x, w1, w3, w2, *, backend: str = "auto"):
     reads ragged panels in place (TMA zero-fills them), and W2 in place
     in either layout: a tier buffer's transposed view or a row-major
     [E, F, D] parameter (the flat MoE's decode step)."""
-    with kernel_span("cold_expert_ffn", backend, x):
+    with kernel_span("cold_expert_ffn", x):
         f = w1.shape[-1]
         bf = panel_width(f)
         if x.dtype == torch.float32 and f % bf:

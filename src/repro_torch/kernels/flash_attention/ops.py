@@ -24,7 +24,7 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = Tru
     def heads_first(t):
         return t.transpose(1, 2).reshape(b * h, t.shape[1], dh).contiguous()
 
-    with kernel_span("mha", backend, q):
+    with kernel_span("mha", q):
         o = flash_attention(heads_first(q), heads_first(k), heads_first(v), causal=causal,
                             backend=backend)
     return o.reshape(b, h, sq, dh).transpose(1, 2)

@@ -66,7 +66,7 @@ def grouped_expert_matmul(
     order = torch.argsort(expert_of, stable=True)
     xs, se = x[order], expert_of[order].long()
     group_sizes = torch.bincount(se, minlength=e)
-    with kernel_span("grouped_expert_matmul", backend, x):
+    with kernel_span("grouped_expert_matmul", x):
         if resolve_backend(backend) == "ref":
             ys = moe_gemm_groups_ref(xs, w, group_sizes)
         else:
@@ -97,7 +97,7 @@ def grouped_expert_ffn(
 ) -> torch.Tensor:
     """[G, C, D] -> [G, C, D], group g using expert group_expert[g]'s
     weights (identity when None)."""
-    with kernel_span("grouped_expert_ffn", backend, h):
+    with kernel_span("grouped_expert_ffn", h):
         g, c, d = h.shape
         f = w_gate.shape[-1]
         c_pad = _round_up(c, bm)

@@ -316,7 +316,7 @@ def gqa_decode_paged(p: Params, cfg, x, pool_k, pool_v, tables, pos):
     _paged_write(pool_v, tables, pos, v[:, 0])
     kvh = pool_k.shape[2]
     qk = q[:, 0].reshape(b, kvh, q.shape[2] // kvh, q.shape[3])
-    with kernel_span("paged_decode_gqa", cfg.paged_attn_backend, qk):
+    with kernel_span("paged_decode_gqa", qk, tables):
         out = paged_decode_gqa(qk, pool_k, pool_v, tables, pos,
                                backend=cfg.paged_attn_backend)
     out = out.reshape(b, 1, q.shape[2], q.shape[3])
@@ -339,7 +339,7 @@ def gqa_prefill_paged(p: Params, cfg, x, pool_k, pool_v, tables, past_len,
     lengths = token_mask.sum(-1).to(torch.int32)
     kvh = pool_k.shape[2]
     qk = q.reshape(b, c, kvh, q.shape[2] // kvh, q.shape[3]).contiguous()
-    with kernel_span("paged_prefill_gqa", cfg.paged_attn_backend, qk):
+    with kernel_span("paged_prefill_gqa", qk, tables):
         out = paged_prefill_gqa(qk, pool_k, pool_v, tables, past_len, lengths,
                                 backend=cfg.paged_attn_backend)
     out = out.reshape(b, c, q.shape[2], q.shape[3]).to(x.dtype)
@@ -382,7 +382,7 @@ def mla_decode_paged(p: Params, cfg, x, pool_ckv, pool_krope, tables, pos):
     q_lat, q_rope, ckv_new, krope_new, wv_b = _mla_project(p, cfg, x, pos[:, None])
     _paged_write(pool_ckv, tables, pos, ckv_new[:, 0])
     _paged_write(pool_krope, tables, pos, krope_new[:, 0])
-    with kernel_span("paged_decode_mla", cfg.paged_attn_backend, q_lat):
+    with kernel_span("paged_decode_mla", q_lat, tables):
         o_lat = paged_decode_mla(q_lat[:, 0], q_rope[:, 0], pool_ckv, pool_krope, tables,
                                  pos, scale=_mla_scale(cfg), backend=cfg.paged_attn_backend)
     return _mla_out(p, o_lat[:, None], wv_b, x.dtype), pool_ckv, pool_krope
@@ -397,7 +397,7 @@ def mla_prefill_paged(p: Params, cfg, x, pool_ckv, pool_krope, tables, past_len,
     paged_scatter(pool_ckv, tables, positions, token_mask, ckv_new)
     paged_scatter(pool_krope, tables, positions, token_mask, krope_new)
     lengths = token_mask.sum(-1).to(torch.int32)
-    with kernel_span("paged_prefill_mla", cfg.paged_attn_backend, q_lat):
+    with kernel_span("paged_prefill_mla", q_lat, tables):
         o_lat = paged_prefill_mla(q_lat, q_rope, pool_ckv, pool_krope, tables, past_len,
                                   lengths, scale=_mla_scale(cfg),
                                   backend=cfg.paged_attn_backend)

@@ -50,6 +50,7 @@ from repro_torch.models.layers import (
     torch_dtype,
     unembed,
 )
+from repro_torch.obs.trace import NULL_SPAN, active_tracer
 
 Sig = Tuple[str, str]  # (mixer, ffn)
 
@@ -324,6 +325,7 @@ def apply_layer(
     tiered_state: Params | None = None,
     cold_capacity_frac: float = 0.25,
     cross_kv: Tuple[torch.Tensor, torch.Tensor] | None = None,  # training's (ck, cv)
+    layer: int | None = None,  # its index in execution order: the spans' `layer`
 ):
     """One layer. Decode when `pos` is given (x [B, 1, D]), full-sequence
     otherwise (x [B, S, D], `token_mask`): over the paged pools (a chunk
@@ -337,8 +339,27 @@ def apply_layer(
     cross attention then attends, non-causally and with no key mask, over
     the encoder's K/V: the cache's `ck` / `cv`, or `cross_kv` in the
     cacheless mode. Returns (x, aux loss (fp32 scalar; None without a
-    flat MoE), expert_counts [E] int32 or None)."""
+    flat MoE), expert_counts [E] int32 or None). With a tracer installed
+    (repro_torch.obs.trace), the mixer runs in a `layer.mixer` span, a
+    dense FFN in `layer.ffn`."""
     h = rmsnorm(p["norm1"], x, cfg.norm_eps)
+    tr = active_tracer()
+    with tr.span("layer.mixer", cat="model", layer=layer, kind=sig[0]) if tr else NULL_SPAN:
+        y = _mixer(cfg, sig, p, x, h, positions, cache, tables, pos, past_len, token_mask)
+    x = x + y
+    if "cross" in p:
+        kv = cross_kv if cache is None else (cache["ck"], cache["cv"])
+        hc = rmsnorm(p["norm_cross"], x, cfg.norm_eps)
+        yc, _ = attn.gqa_forward(p["cross"], cfg, hc, positions, kv_override=kv,
+                                 causal=False)
+        x = x + yc
+    return _ffn(cfg, sig, p, x, token_mask, tiered_state, cold_capacity_frac,
+                decode=pos is not None, layer=layer)
+
+
+def _mixer(cfg, sig, p, x, h, positions, cache, tables, pos, past_len, token_mask):
+    """A layer's mixer over its normed input h (see `apply_layer`): its
+    output y, the cache or state written in place."""
     m = MIXERS[sig[0]]
     if m.init_state is not None:
         y, new = (m.decode(p["mixer"], cfg, h, cache["state"]) if pos is not None
@@ -365,18 +386,10 @@ def apply_layer(
                 if token_mask is not None:  # pad entries zeroed
                     val = val * token_mask[(...,) + (None,) * (val.ndim - 2)].to(val.dtype)
                 cache[key][:, :s] = val
-    x = x + y
-    if "cross" in p:
-        kv = cross_kv if cache is None else (cache["ck"], cache["cv"])
-        hc = rmsnorm(p["norm_cross"], x, cfg.norm_eps)
-        yc, _ = attn.gqa_forward(p["cross"], cfg, hc, positions, kv_override=kv,
-                                 causal=False)
-        x = x + yc
-    return _ffn(cfg, sig, p, x, token_mask, tiered_state, cold_capacity_frac,
-                decode=pos is not None)
+    return y
 
 
-def _ffn(cfg, sig, p, x, token_mask, tiered_state, cold_capacity_frac, decode):
+def _ffn(cfg, sig, p, x, token_mask, tiered_state, cold_capacity_frac, decode, layer=None):
     """A layer's FFN half: (x, aux loss or None, expert_counts [E] int32 or None).
     Routed experts run through the TriMoE tiers when `tiered_state` is
     given, else through the flat `moe_forward` (reference :362-377):
@@ -391,7 +404,7 @@ def _ffn(cfg, sig, p, x, token_mask, tiered_state, cold_capacity_frac, decode):
 
             y_moe, counts = tiered_moe_forward(
                 p["ffn"], tiered_state, cfg, h2,
-                cold_capacity_frac=cold_capacity_frac, token_mask=token_mask,
+                cold_capacity_frac=cold_capacity_frac, token_mask=token_mask, layer=layer,
             )
             x = x + y_moe
         elif ffn == "moe":
@@ -400,7 +413,9 @@ def _ffn(cfg, sig, p, x, token_mask, tiered_state, cold_capacity_frac, decode):
                                       token_mask=token_mask)
             x, aux, counts = x + out.y, out.aux_loss, out.expert_counts
         else:
-            x = x + mlp(p["ffn"], h2)
+            tr = active_tracer()
+            with tr.span("layer.ffn", cat="model", layer=layer) if tr else NULL_SPAN:
+                x = x + mlp(p["ffn"], h2)
     return x, aux, counts
 
 
@@ -442,10 +457,12 @@ def _cross_kv(layer_p: Params, enc_out: torch.Tensor):
 
 
 def _logits(params: Params, cfg: ModelConfig, x: torch.Tensor):
-    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    if cfg.tie_embeddings:
-        return unembed(params["embed"], x)
-    return lm_head(params["head"], x)
+    tr = active_tracer()
+    with tr.span("model.head", cat="model") if tr else NULL_SPAN:
+        x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+        if cfg.tie_embeddings:
+            return unembed(params["embed"], x)
+        return lm_head(params["head"], x)
 
 
 def forward_train(params: Params, cfg: ModelConfig, batch, remat: bool = True):
@@ -548,9 +565,9 @@ def _walk(params, cfg, x, positions, cache, tiered, cold_capacity_frac, states=N
     e = cfg.moe.n_experts if cfg.moe is not None else 1
     no_moe = torch.zeros((e,), dtype=torch.int32, device=x.device)
     counts_all = []
-    for sig, p, c, ts in _layers(params, cfg, cache, tiered, states):
+    for li, (sig, p, c, ts) in enumerate(_layers(params, cfg, cache, tiered, states)):
         x, _, counts = apply_layer(cfg, sig, p, x, positions, cache=c, tiered_state=ts,
-                                   cold_capacity_frac=cold_capacity_frac, **layer_kw)
+                                   cold_capacity_frac=cold_capacity_frac, layer=li, **layer_kw)
         counts_all.append(no_moe if counts is None else counts)
     return x, torch.stack(counts_all), cache if states is None else states
 

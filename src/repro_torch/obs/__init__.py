@@ -3,7 +3,8 @@
 One `Observability` bundle per serving stack: a `MetricsRegistry`
 (obs/metrics.py) every stat facade (LoopStats / EngineStats /
 PredictorStats) registers into, and a `Tracer` (obs/trace.py) the loop,
-engine, scheduler/tier channel, and kernel op wrappers emit spans to.
+engine, scheduler/tier channel, model layers, tiered MoE and kernel op
+wrappers emit spans to.
 
 Resolution follows the same precedence rule as `SchedulerPolicy`
 (core/policy.resolve_policy) and the kernel backends
@@ -38,6 +39,7 @@ from repro_torch.obs.metrics import (  # noqa: F401  (public re-exports)
 from repro_torch.obs.trace import (  # noqa: F401
     NULL_SPAN,
     Tracer,
+    install_tracer,
     load_trace,
     validate_trace_events,
 )
@@ -93,9 +95,9 @@ def resolve_obs(cfg=None, obs=None, *, caller: str = "ServingLoop"
     `cfg.obs` beats defaults. Accepts an `Observability` (adopted
     as-is, sharing its registry/tracer) or an `ObsConfig` (a fresh
     bundle is built). When the resolved tracer is enabled, it is also
-    installed as the process-global kernel tracer
-    (kernels/backend.set_kernel_tracer) so op wrappers annotate the
-    same timeline."""
+    installed as the process-global tracer (obs/trace.py
+    `install_tracer`), so the model, MoE and kernel op layers annotate
+    the same timeline."""
     choice = obs
     if choice is None and cfg is not None:
         choice = getattr(cfg, "obs", None)
@@ -111,7 +113,5 @@ def resolve_obs(cfg=None, obs=None, *, caller: str = "ServingLoop"
             f"got {type(choice).__name__}"
         )
     if out.tracer.enabled:
-        from repro_torch.kernels.backend import set_kernel_tracer
-
-        set_kernel_tracer(out.tracer)
+        install_tracer(out.tracer)
     return out

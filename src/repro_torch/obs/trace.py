@@ -20,16 +20,33 @@ context manager and `instant()`/`counter()` return immediately — no
 event dicts, no clock reads, no allocation beyond the call itself —
 so tracing can stay compiled into the hot path (the serving_bench
 overhead gate runs with tracing disabled). Timestamps are
-`time.perf_counter()` relative to tracer construction, in microseconds.
+`time.perf_counter()` relative to tracer construction, in microseconds;
+`reset()` drops the events and keeps that origin, and
+`Tracer.perf_counter_s` maps a timestamp back to `time.perf_counter()`
+seconds.
 
-Zero dependencies (json/threading/time only).
+One process-global slot holds the tracer the model, MoE and kernel code
+emit to (`install_tracer`, done by `repro_torch.obs.resolve_obs` when a
+stack resolves with tracing on; `active_tracer` reads it). Those layers
+reach it there, so no signature carries a tracer.
+
+On the profiler's clock: while a `torch.profiler` (or any torch
+profiler) records, every span of an enabled tracer also opens a range
+named `trimoe.<span name>` on the profiler's own timeline, beside the
+kernels the span launched, and its event carries `profiled: true`. The
+range is a function-scope record (as an aten op's), so the profiler
+draws no device-side copy of it: device activity stays the kernels',
+copies' and sets'.
+
+Imports json/threading/time only; torch is imported on the first span
+of an enabled tracer.
 """
 from __future__ import annotations
 
 import json
 import threading
 import time
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Optional
 
 
 class _NullSpan:
@@ -46,11 +63,32 @@ class _NullSpan:
 
 NULL_SPAN = _NullSpan()
 
+RANGE_PREFIX = "trimoe."  # the profiler ranges' names: trimoe.<span name>
+_perf_counter = time.perf_counter
+_get_ident = threading.get_ident
+
+# torch's "is a profiler recording" and its function-scope record, bound
+# on the first span of an enabled tracer (never true / None without torch)
+_PROFILER_ON = None
+_RECORD = None
+
+
+def _bind_profiler():
+    global _PROFILER_ON, _RECORD
+    try:
+        import torch
+        from torch._C._profiler import _RecordFunctionFast
+
+        _PROFILER_ON, _RECORD = torch._C._autograd._profiler_enabled, _RecordFunctionFast
+    except (ImportError, AttributeError):
+        _PROFILER_ON = bool  # bool() is False
+    return _PROFILER_ON
+
 
 class _Span:
     """One open "X" span; the event is recorded at __exit__."""
 
-    __slots__ = ("_tr", "name", "cat", "args", "_t0")
+    __slots__ = ("_tr", "name", "cat", "args", "_t0", "_range")
 
     def __init__(self, tr: "Tracer", name: str, cat: str, args: dict):
         self._tr = tr
@@ -59,19 +97,28 @@ class _Span:
         self.args = args
 
     def __enter__(self):
-        self._t0 = self._tr._now_us()
+        self._range = None
+        if (_PROFILER_ON or _bind_profiler())():
+            self._range = _RECORD(RANGE_PREFIX + self.name)
+            self._range.__enter__()
+            self.args["profiled"] = True
+        self._t0 = _perf_counter()
         return self
 
     def __exit__(self, *exc):
+        t1 = _perf_counter()
         tr = self._tr
+        if self._range is not None:
+            self._range.__exit__(None, None, None)
+        ts = (self._t0 - tr._t0) * 1e6
         ev: Dict[str, Any] = {
             "name": self.name,
             "cat": self.cat,
             "ph": "X",
-            "ts": self._t0,
-            "dur": tr._now_us() - self._t0,
+            "ts": ts,
+            "dur": (t1 - tr._t0) * 1e6 - ts,
             "pid": tr.pid,
-            "tid": threading.get_ident(),
+            "tid": _get_ident(),
         }
         if self.args:
             ev["args"] = self.args
@@ -161,8 +208,40 @@ class Tracer:
         return path
 
     def reset(self) -> None:
+        """Drop the recorded events; the clock keeps its origin."""
         self.events.clear()
-        self._t0 = time.perf_counter()
+
+    def perf_counter_s(self, ts_us: float) -> float:
+        """The `time.perf_counter()` reading of event timestamp `ts_us`."""
+        return self._t0 + ts_us * 1e-6
+
+
+# ------------------------------------------------- the process-global slot
+_INSTALLED: Optional[Tracer] = None
+
+
+def install_tracer(tracer: Optional[Tracer]) -> None:
+    """Install (or clear, with None) the process-global tracer that model,
+    MoE and kernel code emit to (the last stack resolved with tracing on
+    wins)."""
+    global _INSTALLED
+    _INSTALLED = tracer
+
+
+def active_tracer() -> Optional[Tracer]:
+    """The installed tracer if it is enabled, else None: callers write
+    `tr.span(...) if tr else NULL_SPAN`, so a disabled path builds no
+    arguments, reads no clock and allocates nothing."""
+    tr = _INSTALLED
+    return tr if tr is not None and tr.enabled else None
+
+
+def sync_span(tr: Optional[Tracer], what: str):
+    """A `sync` span of `tr` around one host<->device copy that blocks the
+    host (`what` names it); NULL_SPAN when `tr` is None or disabled."""
+    if tr is None or not tr.enabled:
+        return NULL_SPAN
+    return _Span(tr, "sync", "sync", {"what": what})
 
 
 def validate_trace_events(events: List[Dict[str, Any]]) -> List[str]:

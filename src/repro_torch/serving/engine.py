@@ -44,6 +44,7 @@ from repro_torch.models.model import (
 )
 from repro_torch.obs import resolve_obs
 from repro_torch.obs.metrics import RegistryStats
+from repro_torch.obs.trace import sync_span
 from repro_torch.serving.kv_cache import SlotKVCache, gather_slots, scatter_slots
 from repro_torch.serving.paged_kv import PagedKVCache
 from repro_torch.serving.tiered_moe import (
@@ -239,19 +240,25 @@ class TriMoEServingEngine:
             return self.tiered[name]
         return index_tree(self.tiered["stack"][name], g)
 
-    def _dev(self, a, dtype=torch.int32) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(a), dtype=dtype, device=self.device)
+    def _dev(self, a, what: str, dtype=torch.int32) -> torch.Tensor:
+        """Host array `a` on the device: a pageable upload, which blocks
+        the host until the stream drains (a `sync` span, `what`)."""
+        with sync_span(self._tr, what):
+            return torch.as_tensor(np.asarray(a), dtype=dtype, device=self.device)
 
     # ----------------------------------------------------------- stepping
     def step(self, tokens, pos: int):
         """Full-batch decode of every cache row at one position, then a
         synchronous replan."""
         logits, _, counts = decode_step(
-            self.params, self.cfg, self._dev(tokens), self.cache, self._dev(pos),
-            tiered=self.tiered, cold_capacity_frac=self.cold_capacity_frac,
+            self.params, self.cfg, self._dev(tokens, "tokens"), self.cache,
+            self._dev(pos, "positions"), tiered=self.tiered,
+            cold_capacity_frac=self.cold_capacity_frac,
         )
         self.stats.steps += 1
-        self.replan(counts.cpu().numpy())
+        with sync_span(self._tr, "expert_counts"):
+            counts = counts.cpu().numpy()
+        self.replan(counts)
         return logits
 
     def step_slots(self, tokens, pos, slot_indices, live=None):
@@ -264,9 +271,9 @@ class TriMoEServingEngine:
             live = np.ones((len(slot_indices),), bool)
         sub = self.kv.gather(slot_indices)
         logits, sub, counts = decode_step(
-            self.params, self.cfg, self._dev(tokens), sub, self._dev(pos),
+            self.params, self.cfg, self._dev(tokens, "tokens"), sub, self._dev(pos, "positions"),
             tiered=self.tiered, cold_capacity_frac=self.cold_capacity_frac,
-            token_mask=self._dev(live, torch.bool),
+            token_mask=self._dev(live, "live", torch.bool),
         )
         self.kv.scatter(sub, slot_indices)
         self.stats.steps += 1
@@ -288,7 +295,7 @@ class TriMoEServingEngine:
         )
         if lengths is None:
             prompts = np.asarray(prompts, np.int32)
-            logits, sub = prefill(self.params, self.cfg, self._dev(prompts),
+            logits, sub = prefill(self.params, self.cfg, self._dev(prompts, "tokens"),
                                   cache_len=self.kv.seq_len, tiered=self.tiered,
                                   cold_capacity_frac=self.cold_capacity_frac)
             self.kv.scatter(sub, slot_indices)
@@ -310,10 +317,10 @@ class TriMoEServingEngine:
             toks[:nr] = prompts[c0:c0 + nr]
             lens[:nr] = lengths[c0:c0 + nr]
             token_mask = np.arange(width)[None, :] < lens[:, None]
-            logits, sub = prefill(self.params, self.cfg, self._dev(toks),
+            logits, sub = prefill(self.params, self.cfg, self._dev(toks, "tokens"),
                                   cache_len=self.kv.seq_len, tiered=self.tiered,
                                   cold_capacity_frac=self.cold_capacity_frac,
-                                  token_mask=self._dev(token_mask, torch.bool))
+                                  token_mask=self._dev(token_mask, "token_mask", torch.bool))
             if nr < r:  # drop the dummy rows before scattering
                 sub = gather_slots(sub, list(range(nr)))
             self.kv.scatter(sub, list(slot_indices[c0:c0 + nr]))
@@ -348,10 +355,10 @@ class TriMoEServingEngine:
         # the group's recurrent state rows move as the contiguous layout's do
         sub = gather_slots(self.kv.slot_state, slot_indices)
         logits, _, sub, counts = decode_step_paged(
-            self.params, self.cfg, self._dev(tokens), self.kv.pools, sub,
-            self._dev(tables), self._dev(pos), tiered=self.tiered,
+            self.params, self.cfg, self._dev(tokens, "tokens"), self.kv.pools, sub,
+            self._dev(tables, "tables"), self._dev(pos, "positions"), tiered=self.tiered,
             cold_capacity_frac=self.cold_capacity_frac,
-            token_mask=self._dev(live, torch.bool),
+            token_mask=self._dev(live, "live", torch.bool),
         )
         scatter_slots(self.kv.slot_state, sub, slot_indices)
         self.stats.steps += 1
@@ -393,8 +400,9 @@ class TriMoEServingEngine:
             self._check_chunk_writes(tables, past, lens, np.arange(r) < nr)
             token_mask = np.arange(width)[None, :] < lens[:, None]
             logits, _, row_states = prefill_paged(
-                self.params, self.cfg, self._dev(toks), self.kv.pools,
-                self._dev(tables), self._dev(past), self._dev(token_mask, torch.bool),
+                self.params, self.cfg, self._dev(toks, "tokens"), self.kv.pools,
+                self._dev(tables, "tables"), self._dev(past, "positions"),
+                self._dev(token_mask, "token_mask", torch.bool),
                 tiered=self.tiered, cold_capacity_frac=self.cold_capacity_frac,
             )
             if nr < r:  # drop the dummy rows before scattering state
@@ -463,8 +471,9 @@ class TriMoEServingEngine:
         # arch (a chunk would restart its layers from the init state, not
         # the rows'), as the loop's spec gate refuses one
         logits, _, counts = decode_verify(
-            self.params, self.cfg, self._dev(toks), self.kv.pools, self._dev(tables),
-            self._dev(past), self._dev(token_mask, torch.bool), tiered=self.tiered,
+            self.params, self.cfg, self._dev(toks, "tokens"), self.kv.pools,
+            self._dev(tables, "tables"), self._dev(past, "positions"),
+            self._dev(token_mask, "token_mask", torch.bool), tiered=self.tiered,
             cold_capacity_frac=self.cold_capacity_frac,
         )
         self.stats.steps += 1
@@ -547,10 +556,11 @@ class TriMoEServingEngine:
             decided = self.predictor.decided[li]
             if li not in self._host_layout:
                 state = self._get_state(key)
-                self._host_layout[li] = (
-                    state["expert_tier"].cpu().numpy().copy(),
-                    state["expert_slot"].cpu().numpy().copy(),
-                )
+                with sync_span(self._tr, "tier_layout"):
+                    tier = state["expert_tier"].cpu().numpy().copy()
+                with sync_span(self._tr, "tier_layout"):
+                    slot = state["expert_slot"].cpu().numpy().copy()
+                self._host_layout[li] = (tier, slot)
             cur_tier, cur_slot = self._host_layout[li]
             moves = np.nonzero(decided != cur_tier)[0]
             if len(moves) == 0:

@@ -19,6 +19,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.model import init_cache
+from repro_torch.obs.trace import active_tracer, sync_span
 
 
 def cache_spec(cfg: ModelConfig, batch: int, seq: int):
@@ -43,7 +44,10 @@ def _map(tree, fn):
 
 
 def _index(slot_indices, device) -> torch.Tensor:
-    return torch.as_tensor(slot_indices, dtype=torch.long).to(device)
+    """The slot ids on `device`: a pageable upload on a card, which blocks
+    the host until the stream drains (a `sync` span)."""
+    with sync_span(active_tracer(), "slot_index"):
+        return torch.as_tensor(slot_indices, dtype=torch.long).to(device)
 
 
 def batch_axis(top_key: str) -> int:

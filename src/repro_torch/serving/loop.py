@@ -29,6 +29,7 @@ from repro_torch.models.layers import Params
 from repro_torch.models.model import check_decoder_only, resolve_device
 from repro_torch.obs import resolve_obs
 from repro_torch.obs.metrics import RegistryStats, pct
+from repro_torch.obs.trace import NULL_SPAN, sync_span
 from repro_torch.serving.batching import BucketTable, Request, ZigzagBatcher
 from repro_torch.serving.engine import (
     TriMoEServingEngine,
@@ -335,6 +336,7 @@ class ServingLoop:
         self._pending_counts = None  # previous group's realized loads
         self._planned: list = []  # plans drawn but not yet applied
         self._steps_since_replan = 0  # policy.replan_every cadence
+        self._step_no = 0  # step_once calls: the `step` span's index
 
     # ------------------------------------------------------------ intake
     def submit(self, req: Request) -> None:
@@ -405,7 +407,9 @@ class ServingLoop:
             for i in filled:  # exact-length path
                 r = self.batcher.slots[i].request
                 logits = self.engine.prefill_slots(r.prompt[None, :], [i])
-                self._record_first(r, int(torch.argmax(logits[0], -1)), i)
+                with sync_span(self._tr, "first_token"):
+                    first = int(torch.argmax(logits[0], -1))
+                self._record_first(r, first, i)
             return
         # same-bucket admissions share one padded masked prefill; under
         # the paged layout rows are keyed by their UNCACHED suffix length
@@ -433,7 +437,8 @@ class ServingLoop:
                     self.kv.commit_prompt(i, self.batcher.slots[i].request.prompt)
             else:
                 logits = self.engine.prefill_slots(prompts, slots, lengths=lengths)
-            firsts = torch.argmax(logits, -1).cpu().numpy()
+            with sync_span(self._tr, "first_tokens"):
+                firsts = torch.argmax(logits, -1).cpu().numpy()
             for row, i in enumerate(slots):
                 self._record_first(self.batcher.slots[i].request, int(firsts[row]), i)
 
@@ -480,7 +485,8 @@ class ServingLoop:
             t.done += n
             if t.done == t.req.prompt_len:
                 if firsts is None:
-                    firsts = torch.argmax(logits, -1).cpu().numpy()
+                    with sync_span(self._tr, "first_tokens"):
+                        firsts = torch.argmax(logits, -1).cpu().numpy()
                 self.batcher.slots[t.slot].prefilling = False
                 self.kv.commit_prompt(t.slot, t.req.prompt)
                 self._record_first(t.req, int(firsts[row]), t.slot)
@@ -529,7 +535,8 @@ class ServingLoop:
             self._planned = []
         if self._pending_counts is None:
             return
-        counts = self._pending_counts.cpu().numpy()
+        with sync_span(self._tr, "expert_counts"):
+            counts = self._pending_counts.cpu().numpy()
         self._pending_counts = None
         eng.observe(counts)
         self._steps_since_replan += 1
@@ -552,7 +559,8 @@ class ServingLoop:
         """One scheduling iteration: admit, one piggyback prefill chunk,
         one zigzag-group decode step, then the replan flush."""
         tr = self._tr
-        with tr.span("step"):
+        self._step_no += 1
+        with tr.span("step", step=self._step_no) if tr.enabled else NULL_SPAN:
             self._admit()
             self._prefill_step()
             gb = self.batcher.next_group()
@@ -570,11 +578,13 @@ class ServingLoop:
                 self._flush_replan()
                 return
             _, idxs, toks, pos, live = gb
+            decode = (tr.span("decode", rows=len(idxs), live=int(np.count_nonzero(live)))
+                      if tr.enabled else NULL_SPAN)
             if self.spec:
-                with tr.span("decode"):
+                with decode:
                     self._spec_step(idxs, toks, pos, live)
                 return
-            with tr.span("decode"):
+            with decode:
                 if self.paged:
                     for row, i in enumerate(idxs):
                         if live[row]:
@@ -590,7 +600,8 @@ class ServingLoop:
                 # while this group's step runs on the device
                 self._flush_replan()
                 self._pending_counts = counts
-                nxt = torch.argmax(logits, -1).cpu().numpy()
+                with sync_span(tr, "next_tokens"):
+                    nxt = torch.argmax(logits, -1).cpu().numpy()
             live_idx = [i for i, alive in zip(idxs, live) if alive]
             self.batcher.record(live_idx, nxt[live])
             self.stats.decode_steps += 1
@@ -648,7 +659,8 @@ class ServingLoop:
             # zigzag overlap, exactly as the plain decode step
             self._flush_replan()
             self._pending_counts = counts
-            nxt = torch.argmax(logits, -1).cpu().numpy()  # [W, Kp]
+            with sync_span(tr, "next_tokens"):
+                nxt = torch.argmax(logits, -1).cpu().numpy()  # [W, Kp]
         st.decode_steps += 1
         if n_drafted:
             st.spec_steps += 1

@@ -20,6 +20,7 @@ import torch.distributed as dist
 from repro_torch.hardware import TPU_V5E
 from repro_torch.models.layers import Params, dense_init, torch_dtype
 from repro_torch.models.moe import expert_ffn, moe_backend, router_topk, shared_ffn
+from repro_torch.obs.trace import NULL_SPAN, active_tracer
 
 HOT_T, WARM_T, COLD_T = 0, 1, 2
 TIER_KEYS = ("hot", "warm", "cold")
@@ -161,44 +162,59 @@ def tiered_moe_forward(
     cold_capacity_frac: float = 0.25,
     token_mask: Optional[torch.Tensor] = None,  # [B, S] or [B*S] bool
     backend: Optional[str] = None,
+    layer: Optional[int] = None,  # the layer's index: the `moe` span's arg
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (y [B, S, D], expert_counts [E] int32). Masked tokens are
     excluded from dispatch and counts; the cold tier runs at
-    `cold_capacity_frac` of the dropless capacity (1.0 = dropless)."""
+    `cold_capacity_frac` of the dropless capacity (1.0 = dropless). With
+    a tracer installed (repro_torch.obs.trace) the call is a `moe` span
+    holding `moe.route` (router, top-k, tier and slot lookup), one
+    `moe.tier` per tier (dispatch, the expert FFN, the gather) and
+    `moe.combine` (the combine and the shared experts)."""
+    tr = active_tracer()
+    if tr is None:
+        return _tiered_moe(p, state, cfg, x, cold_capacity_frac, token_mask, backend, None)
+    with tr.span("moe", cat="moe", layer=layer, tokens=x.shape[0] * x.shape[1]):
+        return _tiered_moe(p, state, cfg, x, cold_capacity_frac, token_mask, backend, tr)
+
+
+def _tiered_moe(p, state, cfg, x, cold_capacity_frac, token_mask, backend, tr):
     mo = cfg.moe
     e, k = mo.n_experts, mo.top_k
     b, s, d = x.shape
     kind = moe_backend(cfg, backend)
     t = b * s
     flat = x.reshape(t, d)
-    logits = flat.float() @ p["router"]
-    _, w, idx = router_topk(logits, k)
-
-    a_tok = torch.arange(t, device=x.device).repeat_interleave(k)
-    a_exp = idx.reshape(-1)
-    a_w = w.reshape(-1)
-    a_live = None
-    if token_mask is not None:
-        a_live = token_mask.reshape(t).repeat_interleave(k)
-    a_tier = state["expert_tier"][a_exp]
-    a_slot = state["expert_slot"][a_exp].long()
+    with tr.span("moe.route", cat="moe") if tr else NULL_SPAN:
+        logits = flat.float() @ p["router"]
+        _, w, idx = router_topk(logits, k)
+        a_tok = torch.arange(t, device=x.device).repeat_interleave(k)
+        a_exp = idx.reshape(-1)
+        a_w = w.reshape(-1)
+        a_live = None
+        if token_mask is not None:
+            a_live = token_mask.reshape(t).repeat_interleave(k)
+        a_tier = state["expert_tier"][a_exp]
+        a_slot = state["expert_slot"][a_exp].long()
 
     contrib = None  # [t*k, D]: each assignment's weighted expert output
     for tid, key in enumerate(TIER_KEYS):
-        n_slots = state[key].shape[0]
-        cap = t if tid != COLD_T else _cold_capacity(t, mo.top_k, cold_capacity_frac)
-        in_tier = a_tier == tid
-        if a_live is not None:
-            in_tier = in_tier & a_live
-        h, dst, ok = _dispatch_tier(flat, a_tok, a_slot, in_tier, n_slots, cap)
-        o = _tier_ffn(state[key], h, kind, decode=(s == 1))
-        obuf = torch.cat([o.reshape(n_slots * cap, d), o.new_zeros((1, d))])
-        c = obuf[dst] * (a_w * ok).to(o.dtype)[:, None]
-        # an assignment lives in one tier: the other tiers add exact zeros
-        contrib = c if contrib is None else contrib + c
-    y = _combine(contrib, x, k)
-    if mo.n_shared:
-        y = y + shared_ffn(p["shared"], x)
+        with tr.span("moe.tier", cat="moe", tier=key) if tr else NULL_SPAN:
+            n_slots = state[key].shape[0]
+            cap = t if tid != COLD_T else _cold_capacity(t, mo.top_k, cold_capacity_frac)
+            in_tier = a_tier == tid
+            if a_live is not None:
+                in_tier = in_tier & a_live
+            h, dst, ok = _dispatch_tier(flat, a_tok, a_slot, in_tier, n_slots, cap)
+            o = _tier_ffn(state[key], h, kind, decode=(s == 1))
+            obuf = torch.cat([o.reshape(n_slots * cap, d), o.new_zeros((1, d))])
+            c = obuf[dst] * (a_w * ok).to(o.dtype)[:, None]
+            # an assignment lives in one tier: the other tiers add exact zeros
+            contrib = c if contrib is None else contrib + c
+    with tr.span("moe.combine", cat="moe") if tr else NULL_SPAN:
+        y = _combine(contrib, x, k)
+        if mo.n_shared:
+            y = y + shared_ffn(p["shared"], x)
     return y, _counts(a_exp, a_live, e)
 
 

@@ -6,19 +6,26 @@ trip with span nesting, kernel spans, the `resolve_obs` precedence
 rule), then parity with the JAX package: the same fp32 granite smoke
 serve traced in both gives the same span, instant and counter-track
 names, `kernel.<op>` spans under the reference's op-layer names, and
-snapshots with equal keys and equal non-timing values.
+snapshots with equal keys and equal non-timing values. Then the spans
+the port has beyond the reference's (PORT_ONLY_SPANS: the model layers,
+the tiered MoE's phases and the blocking host<->device copies), their
+nesting in a decode step, the disabled path, and the `trimoe.<span>`
+ranges that put every span on torch.profiler's clock.
 
 The reference's kernel spans fire when its jitted ops trace, so a shape
 already compiled in the same process emits none: its `kernel.*` names
 are held to be a subset of the port's, which fire on every call.
 """
+import collections
 import dataclasses
 import json
+import tracemalloc
 import warnings
 
 import jax
 import numpy as np
 import pytest
+import torch
 
 import repro_torch.configs as tcfgs
 from repro.configs import get_config, reduce_for_smoke
@@ -32,7 +39,7 @@ from repro_torch.bridge import to_torch
 from repro_torch.core.policy import SchedulerPolicy
 from repro_torch.core.tiers import TierThresholds
 from repro_torch.kernels.backend import set_kernel_tracer
-from repro_torch.models.model import init_params
+from repro_torch.models.model import init_params, layer_signature
 from repro_torch.obs import (
     NULL_SPAN,
     MetricsRegistry,
@@ -42,8 +49,10 @@ from repro_torch.obs import (
     pct,
     resolve_obs,
 )
+from repro_torch.obs import trace as obs_trace
 from repro_torch.obs.trace import load_trace, validate_trace_events
 from repro_torch.serving.batching import Request
+from repro_torch.serving.kv_cache import tree_leaves
 from repro_torch.serving.loop import LoopStats, ServingLoop
 from repro_torch.serving.tiered_moe import TierSizes
 
@@ -53,6 +62,9 @@ ARCH = "granite-moe-1b-a400m"
 # chunks, the expert GEMV on decode steps
 SERVE_OPS = {"kernel.paged_prefill_gqa", "kernel.paged_decode_gqa",
              "kernel.grouped_expert_ffn", "kernel.cold_expert_ffn"}
+# spans the port has and the reference has not: below the engine call
+PORT_ONLY_SPANS = {"layer.mixer", "layer.ffn", "model.head", "moe", "moe.route",
+                   "moe.tier", "moe.combine", "sync"}
 
 
 @pytest.fixture(scope="module")
@@ -305,15 +317,20 @@ def _arg_keys(loop, ph) -> set:
 
 
 def test_trace_families_match_reference(traced_pair):
-    """Spans ("X"), instants ("i"), counter tracks ("C") and metadata
-    ("M") carry the same names in both packages, the migrations'
-    `tier_migration` instants and the tier counter tracks included."""
+    """Spans ("X") carry the reference's names plus the port's own below
+    the engine call (PORT_ONLY_SPANS); instants ("i"), counter tracks
+    ("C") and metadata ("M") the same names in both packages, the
+    migrations' `tier_migration` instants and the tier counter tracks
+    included."""
     jl, tl = traced_pair
     want, got = _names(jl), _names(tl)
     assert sorted(got) == sorted(want)
     kernel = {n for n in got["X"] if n.startswith("kernel.")}
+    # the port's spans are the reference's plus exactly its documented
+    # port-only ones (granite has no dense FFN layer: no `layer.ffn`)
     assert {n for n in got["X"] - kernel} == {n for n in want["X"]
-                                              if not n.startswith("kernel.")}
+                                              if not n.startswith("kernel.")} | (
+        PORT_ONLY_SPANS - {"layer.ffn"})
     for ph in ("i", "C", "M"):
         assert got[ph] == want[ph], ph
     for ph in ("i", "C"):  # instants and counter tracks carry the same fields
@@ -342,3 +359,177 @@ def test_snapshots_equal_but_timing(traced_pair):
     assert got["engine.migrations"] > 0 and got["serving.prefill_chunks"] > 0
     assert dataclasses.asdict(tl.kv.stats) == dataclasses.asdict(jl.kv.stats)
     assert tl.kv.stats.hits > 0  # the shared prefix hit the radix
+
+
+# ------------------------------------- spans below the engine call
+@pytest.fixture(scope="module")
+def traced_serves():
+    """One traced fp32 serve per smoke arch, one decode group: granite
+    (GQA, every layer MoE), deepseek (MLA, a dense layer 0, shared
+    experts), jamba (Mamba mixers, rows' state through the slot index)."""
+    out = {}
+    for arch in ("granite-moe-1b-a400m", "deepseek-v2-236b", "jamba-v0.1-52b"):
+        cfg = _f32(tcfgs.reduce_for_smoke(tcfgs.get_config(arch)))
+        loop = _loop((cfg, init_params(0, cfg, device="cpu")), obs=ObsConfig(trace=True))
+        _serve(loop, _requests(cfg, n=3, new_tokens=4, seed=5))
+        set_kernel_tracer(None)
+        out[arch] = (cfg, loop, list(loop.obs.tracer.events))
+    return out
+
+
+def _inside(events, outer, name):
+    """The `name` spans inside span `outer` (same thread)."""
+    t0, t1 = outer["ts"], outer["ts"] + outer["dur"]
+    return [e for e in events if e.get("ph") == "X" and e["name"] == name
+            and e["tid"] == outer["tid"] and t0 <= e["ts"] and e["ts"] + e["dur"] <= t1]
+
+
+ARCHS = ("granite-moe-1b-a400m", "deepseek-v2-236b", "jamba-v0.1-52b")
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_decode_step_holds_layer_and_moe_spans(traced_serves, arch):
+    """Every decode step holds one `layer.mixer` span per layer (its
+    `layer` and `kind` args) and one `moe` span per MoE layer, each `moe`
+    one route, three tiers and one combine; a dense layer a `layer.ffn`;
+    the step one `model.head`."""
+    cfg, loop, events = traced_serves[arch]
+    decodes = [e for e in events if e["name"] == "decode"]
+    assert decodes and all(e["args"]["rows"] == 2 for e in decodes)
+    sigs = [layer_signature(cfg, i) for i in range(cfg.n_layers)]
+    moe_layers = [i for i, sig in enumerate(sigs) if sig[1] == "moe"]
+    dense = [i for i, sig in enumerate(sigs) if sig[1] not in ("moe", "none")]
+    for d in decodes:
+        mixers = _inside(events, d, "layer.mixer")
+        assert [m["args"]["layer"] for m in mixers] == list(range(cfg.n_layers))
+        assert [m["args"]["kind"] for m in mixers] == [sig[0] for sig in sigs]
+        moes = _inside(events, d, "moe")
+        assert [m["args"]["layer"] for m in moes] == moe_layers
+        assert all(m["args"]["tokens"] == 2 for m in moes)
+        for m in moes:
+            assert len(_inside(events, m, "moe.route")) == 1
+            assert [t["args"]["tier"] for t in _inside(events, m, "moe.tier")] == [
+                "hot", "warm", "cold"]
+            assert len(_inside(events, m, "moe.combine")) == 1
+        assert [f["args"]["layer"] for f in _inside(events, d, "layer.ffn")] == dense
+        assert len(_inside(events, d, "model.head")) == 1
+    assert validate_trace_events(loop.obs.tracer.to_trace_events()) == []
+
+
+def _sync_counts(events, outer):
+    return collections.Counter(e["args"]["what"] for e in _inside(events, outer, "sync"))
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_sync_spans_at_each_blocking_copy(traced_serves, arch):
+    """A paged decode step's blocking copies, each a `sync` span: the four
+    uploads of its inputs (tokens, tables, positions, live rows), the
+    sampled tokens read back, the previous step's expert counts read
+    before its replan (every step but the first), the tier tables on the
+    planner's first pass (two per MoE layer, once), and for a recurrent
+    arch the slot index uploaded for each state leaf gathered and
+    scattered."""
+    cfg, loop, events = traced_serves[arch]
+    decodes = sorted((e for e in events if e["name"] == "decode"), key=lambda e: e["ts"])
+    n_moe = sum(cfg.uses_moe_layer(i) for i in range(cfg.n_layers))
+    leaves = sum(1 for _ in tree_leaves(loop.kv.slot_state))
+    assert (leaves > 0) == (arch.startswith("jamba"))
+    layout = 0
+    for i, d in enumerate(decodes):
+        got = _sync_counts(events, d)
+        layout += got.pop("tier_layout", 0)
+        want = {"tokens": 1, "tables": 1, "positions": 1, "live": 1, "next_tokens": 1}
+        if i:
+            want["expert_counts"] = 1
+        if leaves:
+            want["slot_index"] = 2 * leaves
+        assert dict(got) == want, (i, got)
+    assert layout == 2 * n_moe
+    # prefill chunks upload their inputs and read their first tokens too
+    for p in (e for e in events if e["name"] in ("prefill_chunk", "admit")):
+        got = _sync_counts(events, p)
+        if got:
+            assert {"tokens", "tables", "positions", "token_mask"} <= set(got)
+
+
+def test_disabled_path_reads_no_clock_opens_no_range(setup, monkeypatch):
+    """Tracing off: no span reads the tracer's clock, none opens a
+    `trimoe.` range under torch.profiler, and the spans below the engine
+    call allocate nothing."""
+    def no_clock(*_):
+        raise AssertionError("a disabled span read the clock")
+
+    monkeypatch.setattr(Tracer, "_now_us", no_clock)
+    monkeypatch.setattr(obs_trace, "_perf_counter", no_clock)
+    loop = _loop(setup)
+    assert obs_trace.active_tracer() is None
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        _serve(loop, _requests(setup[0], n=2, seed=3))
+    assert loop.obs.tracer.events == []
+    assert not [e.name for e in prof.events() if e.name.startswith(obs_trace.RANGE_PREFIX)]
+    # the disabled forms the model, MoE, kernel and copy sites use
+    from repro_torch.kernels.backend import kernel_span
+
+    t = torch.zeros(2, 3, 4)
+    tr = obs_trace.active_tracer()
+
+    def spans():
+        for _ in range(2000):
+            with tr.span("moe", layer=1, tokens=2) if tr else obs_trace.NULL_SPAN:
+                pass
+            with obs_trace.sync_span(None, "tokens"), obs_trace.sync_span(loop._tr, "live"):
+                pass
+            with kernel_span("cold_expert_ffn", t, t):
+                pass
+
+    spans()  # warm
+    tracemalloc.start()
+    try:
+        before = tracemalloc.get_traced_memory()[0]
+        spans()
+        grown = tracemalloc.get_traced_memory()[0] - before
+    finally:
+        tracemalloc.stop()
+    assert grown < 2000, grown  # not one object a call
+
+
+def test_spans_sit_on_the_profiler_clock(setup):
+    """Under torch.profiler every span of an enabled tracer is also a
+    `trimoe.<name>` range: the same spans in the same order, each as long
+    as the Tracer's event, at the same offsets from the first, so the
+    two timelines share one clock (the ranges carry `profiled`)."""
+    loop = _loop(setup, obs=ObsConfig(trace=True))
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        _serve(loop, _requests(setup[0], n=2, seed=9))
+    spans = sorted((e for e in loop.obs.tracer.events if e["ph"] == "X"),
+                   key=lambda e: (e["ts"], -e["dur"]))
+    pre = obs_trace.RANGE_PREFIX
+    ranges = sorted((e for e in prof.events() if e.name.startswith(pre)),
+                    key=lambda e: (e.time_range.start, -e.time_range.end))
+    assert len(spans) > 100 and all(e["args"]["profiled"] for e in spans)
+    assert [pre + e["name"] for e in spans] == [r.name for r in ranges]
+    # microseconds; the range opens just before the span's first clock
+    # read and closes just after its last (a preempted host may stretch
+    # one pair, hence the loose bound on each and the tight median)
+    t0, r0 = spans[0]["ts"], ranges[0].time_range.start
+    dur = np.array([(r.time_range.end - r.time_range.start) - e["dur"]
+                    for e, r in zip(spans, ranges)])
+    off = np.array([(r.time_range.start - r0) - (e["ts"] - t0) for e, r in zip(spans, ranges)])
+    assert dur.min() >= -1.0 and np.median(dur) <= 50 and dur.max() <= 5e3, dur
+    assert np.median(np.abs(off)) <= 50 and np.abs(off).max() <= 5e3, off
+
+
+def test_reset_keeps_the_clock():
+    tr = Tracer(enabled=True)
+    with tr.span("step"):
+        pass
+    first = tr.events[0]["ts"]
+    tr.reset()
+    assert tr.events == []
+    with tr.span("step"):
+        pass
+    assert tr.events[0]["ts"] >= first
+    import time
+
+    now = time.perf_counter()
+    assert abs(tr.perf_counter_s(tr.events[0]["ts"]) - now) < 1.0

@@ -6,9 +6,14 @@ Runs the port's serving loop on a smoke-scale MoE config with
 `ObsConfig(trace=True)` and writes three files:
 
   * a Chrome/Perfetto-loadable `trace_event` JSON with the nested
-    step/admit/prefill_chunk/decode/replan/migrate spans, a
-    `kernel.<op>` span around every kernel op call (the reference's op
-    names; `backend` "cuda" on the card, "ref" on the CPU), the
+    step/admit/prefill_chunk/decode/replan/migrate spans; below the
+    engine call the port's own: `layer.mixer` per layer (`layer`,
+    `kind`), `layer.ffn` per dense FFN, `moe` per tiered MoE call
+    (`layer`, `tokens`) holding `moe.route`, one `moe.tier` per tier and
+    `moe.combine`, `model.head`, and a `sync` span (`what`) around each
+    host<->device copy that blocks the host; a `kernel.<op>` span around
+    every kernel op call (the reference's op names, the call's shape;
+    `backend` "cuda" on the card, "ref" on the CPU); the
     tier/{experts,predicted_load} counter tracks, and the
     tier_migration / thrash instants;
   * a metrics snapshot JSON: the loop's `MetricsRegistry.snapshot()`
@@ -39,9 +44,13 @@ import sys
 # script mode: tools/ itself is not a package
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "src"))
 
-# span families the exported timeline must carry (the reference's:
-# nested step/prefill/decode/replan spans + tier-migration instants)
-REQUIRED_SPANS = ("step", "prefill_chunk", "decode", "replan")
+# span families the exported timeline must carry: the reference's
+# (nested step/prefill/decode/replan spans + tier-migration instants),
+# then the port's below the engine call (`layer.ffn` only where a layer
+# has a dense FFN, which the default granite has not)
+REQUIRED_SPANS = ("step", "prefill_chunk", "decode", "replan",
+                  "layer.mixer", "moe", "moe.route", "moe.tier", "moe.combine",
+                  "model.head", "sync")
 REQUIRED_INSTANTS = ("tier_migration",)
 
 
