@@ -8,6 +8,8 @@ assignments per tier into [n_slots, cap, D] buffers, runs the tier's
 expert FFN (kernels/expert_gemv on decode steps, kernels/moe_gemm on
 prefill chunks, reading the buffer views in place) and combines.
 Migrations swap weights between buffers in place between steps.
+A decode call on a card replays a CUDA graph of that work
+(`DecodeGraphs`): one graph launch instead of ~60 small ones.
 """
 from __future__ import annotations
 
@@ -18,9 +20,11 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.hardware import TPU_V5E
+from repro_torch.kernels.backend import wants_grad
+from repro_torch.kernels.expert_gemv.kernel import expert_ffn_gemv
 from repro_torch.models.layers import Params, dense_init, torch_dtype
 from repro_torch.models.moe import expert_ffn, moe_backend, router_topk, shared_ffn
-from repro_torch.obs.trace import NULL_SPAN, active_tracer
+from repro_torch.obs.trace import NULL_SPAN, active_tracer, install_tracer
 
 HOT_T, WARM_T, COLD_T = 0, 1, 2
 TIER_KEYS = ("hot", "warm", "cold")
@@ -164,18 +168,31 @@ def tiered_moe_forward(
     backend: Optional[str] = None,
     layer: Optional[int] = None,  # the layer's index: the `moe` span's arg
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Returns (y [B, S, D], expert_counts [E] int32). Masked tokens are
-    excluded from dispatch and counts; the cold tier runs at
-    `cold_capacity_frac` of the dropless capacity (1.0 = dropless). With
-    a tracer installed (repro_torch.obs.trace) the call is a `moe` span
-    holding `moe.route` (router, top-k, tier and slot lookup), one
-    `moe.tier` per tier (dispatch, the expert FFN, the gather) and
-    `moe.combine` (the combine and the shared experts)."""
+    """Returns (y [B, S, D], expert_counts [E] int32), tensors of the
+    call's own. Masked tokens are excluded from dispatch and counts; the
+    cold tier runs at `cold_capacity_frac` of the dropless capacity (1.0 =
+    dropless). A decode call (S == 1) on a card that autograd does not
+    record replays a CUDA graph of the body (`DecodeGraphs`), captured at
+    its key's first call; prefill and verify chunks, the CPU and calls
+    made inside another capture run eagerly. With a tracer installed
+    (repro_torch.obs.trace) the call is a `moe` span, its `graph` arg
+    "eager", "capture" or "replay"; an eager call's span holds
+    `moe.route` (router, top-k, tier and slot lookup), one `moe.tier` per
+    tier (dispatch, the expert FFN, the gather) and `moe.combine` (the
+    combine and the shared experts). A capture or replay emits nothing
+    inside its span: no Python runs the body's parts one by one."""
     tr = active_tracer()
-    if tr is None:
-        return _tiered_moe(p, state, cfg, x, cold_capacity_frac, token_mask, backend, None)
-    with tr.span("moe", cat="moe", layer=layer, tokens=x.shape[0] * x.shape[1]):
-        return _tiered_moe(p, state, cfg, x, cold_capacity_frac, token_mask, backend, tr)
+    key = DECODE_GRAPHS.key(p, state, cfg, x, cold_capacity_frac, token_mask, backend)
+    mode = "eager" if key is None else "replay" if key in DECODE_GRAPHS else "capture"
+    with (tr.span("moe", cat="moe", layer=layer, tokens=x.shape[0] * x.shape[1], graph=mode)
+          if tr else NULL_SPAN):
+        if mode == "eager":
+            return _tiered_moe(p, state, cfg, x, cold_capacity_frac, token_mask, backend, tr)
+        if mode == "replay":
+            return DECODE_GRAPHS.replay(key, x, token_mask)
+        return DECODE_GRAPHS.capture(
+            key, lambda xs, ms: _tiered_moe(p, state, cfg, xs, cold_capacity_frac, ms, backend,
+                                            None), x, token_mask)
 
 
 def _tiered_moe(p, state, cfg, x, cold_capacity_frac, token_mask, backend, tr):
@@ -188,12 +205,13 @@ def _tiered_moe(p, state, cfg, x, cold_capacity_frac, token_mask, backend, tr):
     with tr.span("moe.route", cat="moe") if tr else NULL_SPAN:
         logits = flat.float() @ p["router"]
         _, w, idx = router_topk(logits, k)
-        a_tok = torch.arange(t, device=x.device).repeat_interleave(k)
+        # each token's k assignments in a row (no host sync: capturable)
+        a_tok = torch.arange(t * k, device=x.device) // k
         a_exp = idx.reshape(-1)
         a_w = w.reshape(-1)
         a_live = None
         if token_mask is not None:
-            a_live = token_mask.reshape(t).repeat_interleave(k)
+            a_live = token_mask.reshape(t)[a_tok]
         a_tier = state["expert_tier"][a_exp]
         a_slot = state["expert_slot"][a_exp].long()
 
@@ -233,6 +251,129 @@ def _counts(a_exp: torch.Tensor, a_live, e: int) -> torch.Tensor:
     one = (torch.ones_like(a_exp, dtype=torch.int32) if a_live is None
            else a_live.to(torch.int32))
     return torch.zeros((e,), dtype=torch.int32, device=a_exp.device).index_add_(0, a_exp, one)
+
+
+# ------------------------------------------------------- decode graphs
+class _Graph(NamedTuple):
+    """One captured decode call: the graph, its static input (x, mask)
+    and output (y, counts) buffers, and the GEMV launches it holds."""
+    graph: torch.cuda.CUDAGraph
+    x: torch.Tensor
+    mask: Optional[torch.Tensor]
+    y: torch.Tensor
+    counts: torch.Tensor
+    launches: int
+
+
+def _leaves(tree) -> list:
+    if isinstance(tree, dict):
+        return [t for k in sorted(tree) for t in _leaves(tree[k])]
+    return [tree] if isinstance(tree, torch.Tensor) else []
+
+
+def graph_key(p, state, cfg, x, cold_capacity_frac, token_mask, backend) -> tuple:
+    """What a decode call's graph depends on: the address, shape, strides
+    and dtype of every tensor its body reads (router, shared experts,
+    tier buffers, routing tables), x's shape, dtype and device, the mask's
+    dtype (or its absence) and the settings the body branches on."""
+    mo = cfg.moe
+    return (tuple(x.shape), x.dtype, x.device,
+            None if token_mask is None else token_mask.dtype,
+            float(cold_capacity_frac), moe_backend(cfg, backend),
+            mo.n_experts, mo.top_k, mo.n_shared,
+            tuple((t.data_ptr(), tuple(t.shape), t.stride(), t.dtype)
+                  for t in _leaves(p) + _leaves(state)))
+
+
+class DecodeGraphs:
+    """CUDA graphs of `tiered_moe_forward`'s decode calls, one per
+    `graph_key`, captured at the key's first call and replayed at every
+    later one. Migrations write the tier buffers and routing tables in
+    place, so a replay reads the current layout; a rebound tensor gives a
+    new key. All graphs share one memory pool: replays run in order on
+    one stream, so their intermediates may share memory, while each graph
+    keeps its static buffers. A replay copies x (and the mask) into the
+    graph's inputs and returns clones of its outputs: the loop keeps a
+    step's counts while the other zigzag group's step replays the same
+    graph."""
+
+    def __init__(self):
+        self._graphs: Dict[tuple, _Graph] = {}
+        self._pool = None
+        self._streams: Dict[torch.device, torch.cuda.Stream] = {}
+
+    def __len__(self) -> int:
+        return len(self._graphs)
+
+    def __contains__(self, key) -> bool:
+        return key in self._graphs
+
+    def clear(self) -> None:
+        """Drop every graph. Their pool goes with them (its memory returns
+        to the cache), so later captures start a new one."""
+        self._graphs.clear()
+        self._pool = None
+
+    @staticmethod
+    def key(p, state, cfg, x, cold_capacity_frac, token_mask, backend) -> Optional[tuple]:
+        """The call's `graph_key`, or None where the call runs eagerly:
+        not a decode call, not on a card, recorded by autograd, or made
+        while the stream captures (an enclosing capture takes it as is)."""
+        if x.shape[1] != 1 or not x.is_cuda or torch.cuda.is_current_stream_capturing():
+            return None
+        if wants_grad(x, *_leaves(p), *_leaves(state)):
+            return None
+        return graph_key(p, state, cfg, x, cold_capacity_frac, token_mask, backend)
+
+    def replay(self, key, x: torch.Tensor, token_mask) -> Tuple[torch.Tensor, torch.Tensor]:
+        g = self._graphs[key]
+        g.x.copy_(x)
+        if g.mask is not None:
+            g.mask.copy_(token_mask.reshape(-1))
+        g.graph.replay()
+        expert_ffn_gemv.launches += g.launches
+        return g.y.clone(), g.counts.clone()
+
+    def capture(self, key, body, x: torch.Tensor, token_mask) -> Tuple[torch.Tensor, torch.Tensor]:
+        """A key's first call: `body(x, mask)` run eagerly on the capture
+        stream (the call's result, and the warm-up a capture needs), then
+        captured there into the shared pool. Neither emits a span."""
+        cur = torch.cuda.current_stream(x.device)
+        side = self._streams.get(x.device)
+        if side is None:
+            side = self._streams[x.device] = torch.cuda.Stream(x.device)
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        sx = x.clone(memory_format=torch.contiguous_format)
+        smask = None if token_mask is None else token_mask.reshape(-1).clone()
+        tr = active_tracer()
+        if tr is not None:
+            install_tracer(None)
+        side.wait_stream(cur)
+        try:
+            with torch.cuda.stream(side):
+                y, counts = body(sx, smask)
+                n0 = expert_ffn_gemv.launches
+                graph = torch.cuda.CUDAGraph()
+                graph.capture_begin(pool=self._pool)
+                try:
+                    gy, gcounts = body(sx, smask)
+                finally:
+                    graph.capture_end()
+                # a capture launches nothing: each replay counts the launches
+                launches, expert_ffn_gemv.launches = expert_ffn_gemv.launches - n0, n0
+        finally:
+            if tr is not None:
+                install_tracer(tr)
+        cur.wait_stream(side)
+        y.record_stream(cur)
+        counts.record_stream(cur)
+        self._graphs[key] = _Graph(graph, sx, smask, gy, gcounts, launches)
+        return y, counts
+
+
+# the process's decode graphs: one pool for every layer's calls
+DECODE_GRAPHS = DecodeGraphs()
 
 
 # ------------------------------------------------------ on a device mesh

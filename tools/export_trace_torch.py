@@ -9,9 +9,11 @@ Runs the port's serving loop on a smoke-scale MoE config with
     step/admit/prefill_chunk/decode/replan/migrate spans; below the
     engine call the port's own: `layer.mixer` per layer (`layer`,
     `kind`), `layer.ffn` per dense FFN, `moe` per tiered MoE call
-    (`layer`, `tokens`) holding `moe.route`, one `moe.tier` per tier and
-    `moe.combine`, `model.head`, and a `sync` span (`what`) around each
-    host<->device copy that blocks the host; a `kernel.<op>` span around
+    (`layer`, `tokens`, `graph`) holding `moe.route`, one `moe.tier` per
+    tier and `moe.combine` when it runs eagerly (a decode call replayed
+    from a CUDA graph on the card holds none), `model.head`, and a `sync`
+    span (`what`) around each host<->device copy that blocks the host; a
+    `kernel.<op>` span around
     every kernel op call (the reference's op names, the call's shape;
     `backend` "cuda" on the card, "ref" on the CPU); the
     tier/{experts,predicted_load} counter tracks, and the
