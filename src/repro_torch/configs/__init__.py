@@ -10,6 +10,7 @@ from __future__ import annotations
 from repro_torch.configs import (
     chameleon_34b,
     deepseek_v2_236b,
+    deepseek_v3_671b,
     glm_4_5_air,
     granite_20b,
     granite_moe_1b_a400m,
@@ -34,6 +35,7 @@ from repro_torch.configs.base import (
     MoEConfig,
     ShapeSpec,
     XLSTMConfig,
+    YarnScaling,
     reduce_for_smoke,
     shape_applicable,
 )
@@ -72,6 +74,7 @@ _REGISTRY: dict[str, ModelConfig] = {
         granite_moe_1b_a400m,
         qwen3_235b_a22b,
         glm_4_5_air,
+        deepseek_v3_671b,
     )
 }
 
@@ -118,7 +121,7 @@ def cells(include_inapplicable: bool = False):
 __all__ = [
     "ALL_SHAPES", "ASSIGNED", "SIM_WORKLOADS", "DECODE_32K", "LONG_500K",
     "PREFILL_32K", "TRAIN_4K", "EncDecConfig", "MambaConfig", "MLAConfig",
-    "ModelConfig", "MoEConfig", "ShapeSpec", "XLSTMConfig", "cells",
+    "ModelConfig", "MoEConfig", "ShapeSpec", "XLSTMConfig", "YarnScaling", "cells",
     "get_config", "get_shape", "list_archs", "reduce_for_smoke",
     "shape_applicable",
 ]

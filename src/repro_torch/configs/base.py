@@ -31,6 +31,31 @@ class MoEConfig:
     # serving tier sizing (TriMoE): slots per tier; scheduler fills them.
     n_hot_slots: int = 0  # 0 => n_shared + max(1, n_experts // 16)
     n_warm_frac: float = 0.30  # paper §3.1: ~30% warm
+    # "first_k_dense" pattern: dense FFN in layers [0, first_k_dense)
+    first_k_dense: int = 1
+    # routing: "softmax" (softmax, top-k, renormalized) or "noaux_tc"
+    # (DeepSeek-V3: sigmoid scores; the top-k of score + bias within the
+    # `topk_group` best of `n_group` groups, a group scored by its two
+    # highest; weights the unbiased scores renormalized, times routed_scale)
+    router: str = "softmax"
+    n_group: int = 1
+    topk_group: int = 1
+    routed_scale: float = 1.0
+    # the share of an expert-parallel layer held here: experts
+    # [held_from, held_from + n_experts) of `n_routed` the router scores
+    # (0 => n_experts: every expert held). Assignments to experts held
+    # elsewhere are not dispatched, weighted or counted.
+    n_routed: int = 0
+    held_from: int = 0
+
+    @property
+    def routed(self) -> int:
+        """The router's width: every routed expert of the layer."""
+        return self.n_routed or self.n_experts
+
+    @property
+    def holds_share(self) -> bool:
+        return self.routed != self.n_experts
 
 
 @dataclass(frozen=True)
@@ -41,7 +66,26 @@ class MLAConfig:
     qk_nope_head_dim: int = 128
     qk_rope_head_dim: int = 64
     v_head_dim: int = 128
-    q_lora_rank: int = 0  # 0 => direct q projection
+    q_lora_rank: int = 0  # 0 => direct q projection; else wq_a, RMSNorm, wq_b
+    kv_norm: bool = False  # RMSNorm on the KV latent before it is cached
+    yarn: Optional["YarnScaling"] = None  # None => plain RoPE
+
+
+@dataclass(frozen=True)
+class YarnScaling:
+    """YaRN rope scaling (DeepSeek-V2/V3's `rope_scaling` of type "yarn"):
+    frequencies ramped between interpolated (/ factor) and extrapolated
+    ones over the dims whose rotations at the original context lie
+    between `beta_slow` and `beta_fast`; the softmax scale times
+    mscale(factor, mscale_all_dim)^2, cos / sin times
+    mscale(factor, mscale) / mscale(factor, mscale_all_dim)."""
+
+    factor: float = 40.0
+    original_max_position_embeddings: int = 4096
+    beta_fast: float = 32.0
+    beta_slow: float = 1.0
+    mscale: float = 1.0
+    mscale_all_dim: float = 1.0
 
 
 @dataclass(frozen=True)
@@ -141,6 +185,8 @@ class ModelConfig:
             return layer_idx % 2 == 1
         if p == "all_but_first":
             return layer_idx > 0
+        if p == "first_k_dense":
+            return layer_idx >= self.moe.first_k_dense
         raise ValueError(f"unknown moe layer_pattern {p!r}")
 
     def uses_attention_layer(self, layer_idx: int) -> bool:
@@ -167,12 +213,17 @@ class ModelConfig:
                 if self.mla is not None:
                     m = self.mla
                     qd = self.n_heads * (m.qk_nope_head_dim + m.qk_rope_head_dim)
-                    total += d * qd  # q
+                    if m.q_lora_rank:  # q_a, its norm, q_b
+                        total += d * m.q_lora_rank + m.q_lora_rank + m.q_lora_rank * qd
+                    else:
+                        total += d * qd  # q
                     total += d * (m.kv_lora_rank + m.qk_rope_head_dim)  # kv_a
                     total += m.kv_lora_rank * self.n_heads * (
                         m.qk_nope_head_dim + m.v_head_dim
                     )  # kv_b
                     total += self.n_heads * m.v_head_dim * d  # o
+                    if m.kv_norm:
+                        total += m.kv_lora_rank
                 else:
                     total += d * self.n_heads * hd  # q
                     total += 2 * d * self.n_kv_heads * hd  # k,v
@@ -194,9 +245,7 @@ class ModelConfig:
                 mo = self.moe
                 per_exp = 3 * d * mo.d_expert
                 total += (mo.n_experts + mo.n_shared) * per_exp
-                total += d * mo.n_experts  # router
-                if self.name.startswith("deepseek"):
-                    pass
+                total += d * mo.routed  # router
             else:
                 if self.d_ff > 0:
                     total += 3 * d * self.d_ff  # SwiGLU
@@ -256,6 +305,26 @@ LONG_500K = ShapeSpec("long_500k", 524288, 1, "decode")
 ALL_SHAPES: Sequence[ShapeSpec] = (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)
 
 
+def refuse_on_mesh(cfg: ModelConfig, what: str) -> None:
+    """The mesh paths run MLA with a direct q projection, no latent norm
+    and plain RoPE, and the softmax router over every expert held: raise
+    for any other configuration before `what` computes anything."""
+    m, mo = cfg.mla, cfg.moe
+    found = []
+    if m is not None and m.q_lora_rank:
+        found.append(f"q_lora_rank {m.q_lora_rank}")
+    if m is not None and m.kv_norm:
+        found.append("a KV-latent norm")
+    if m is not None and m.yarn is not None:
+        found.append("YaRN")
+    if mo is not None and mo.router != "softmax":
+        found.append(f"the {mo.router} router")
+    if mo is not None and mo.holds_share:
+        found.append(f"a share of {mo.n_experts} of {mo.routed} experts")
+    if found:
+        raise ValueError(f"{what} on a mesh does not run {', '.join(found)} ({cfg.name})")
+
+
 def shape_applicable(cfg: ModelConfig, shape: ShapeSpec) -> tuple[bool, str]:
     """Whether an (arch, shape) cell is well-defined, with a reason if not."""
     if shape.name == "long_500k" and not cfg.subquadratic:
@@ -279,10 +348,12 @@ def reduce_for_smoke(cfg: ModelConfig) -> ModelConfig:
         kw["moe"] = replace(
             cfg.moe, n_experts=min(8, cfg.moe.n_experts), d_expert=32,
             top_k=min(2, cfg.moe.top_k), n_shared=min(1, cfg.moe.n_shared),
+            n_group=min(4, cfg.moe.n_group), topk_group=min(2, cfg.moe.topk_group),
+            n_routed=0, held_from=0,
         )
     if cfg.mla is not None:
-        kw["mla"] = MLAConfig(kv_lora_rank=32, qk_nope_head_dim=16,
-                              qk_rope_head_dim=8, v_head_dim=16)
+        kw["mla"] = replace(cfg.mla, kv_lora_rank=32, qk_nope_head_dim=16, qk_rope_head_dim=8,
+                            v_head_dim=16, q_lora_rank=min(24, cfg.mla.q_lora_rank))
     if cfg.mamba is not None:
         kw["mamba"] = MambaConfig(d_state=8, d_conv=4, expand=2)
     if cfg.xlstm is not None:

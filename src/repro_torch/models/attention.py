@@ -46,7 +46,16 @@ from repro_torch.kernels.paged_attention import (
     paged_prefill_gqa,
     paged_prefill_mla,
 )
-from repro_torch.models.layers import Params, apply_rope, dense_init, torch_dtype
+from repro_torch.configs.base import refuse_on_mesh
+from repro_torch.models.layers import (
+    Params,
+    apply_rope,
+    dense_init,
+    init_rmsnorm,
+    rmsnorm,
+    torch_dtype,
+    yarn_mscale,
+)
 
 NEG_INF = -1e30
 
@@ -84,17 +93,22 @@ def init_mla(gen: torch.Generator, cfg, lead=()) -> Params:
     m, d = cfg.mla, cfg.d_model
     dt = torch_dtype(cfg.param_dtype)
     h = cfg.n_heads
-    return {
-        # q: direct projection to nope + rope dims per head
-        "wq": dense_init(gen, (d, h, m.qk_nope_head_dim + m.qk_rope_head_dim), dt,
-                         lead=lead),
-        # kv_a: down-projection to the latent + the shared rope key
-        "wkv_a": dense_init(gen, (d, m.kv_lora_rank + m.qk_rope_head_dim), dt, lead=lead),
-        # kv_b: latent -> per-head (k_nope, v)
-        "wkv_b": dense_init(gen, (m.kv_lora_rank, h, m.qk_nope_head_dim + m.v_head_dim),
-                            dt, lead=lead),
-        "wo": dense_init(gen, (h, m.v_head_dim, d), dt, lead=lead),
-    }
+    dq = m.qk_nope_head_dim + m.qk_rope_head_dim
+    if m.q_lora_rank:  # q: down to the q latent, RMSNorm, up to nope + rope per head
+        p = {"wq_a": dense_init(gen, (d, m.q_lora_rank), dt, lead=lead),
+             "q_norm": init_rmsnorm(m.q_lora_rank, dt, gen.device, lead),
+             "wq_b": dense_init(gen, (m.q_lora_rank, h, dq), dt, lead=lead)}
+    else:  # q: direct projection to nope + rope dims per head
+        p = {"wq": dense_init(gen, (d, h, dq), dt, lead=lead)}
+    # kv_a: down-projection to the latent + the shared rope key
+    p["wkv_a"] = dense_init(gen, (d, m.kv_lora_rank + m.qk_rope_head_dim), dt, lead=lead)
+    if m.kv_norm:
+        p["kv_norm"] = init_rmsnorm(m.kv_lora_rank, dt, gen.device, lead)
+    # kv_b: latent -> per-head (k_nope, v)
+    p["wkv_b"] = dense_init(gen, (m.kv_lora_rank, h, m.qk_nope_head_dim + m.v_head_dim),
+                            dt, lead=lead)
+    p["wo"] = dense_init(gen, (h, m.v_head_dim, d), dt, lead=lead)
+    return p
 
 
 def gqa_cache_shapes(cfg, n_tokens: int) -> dict:
@@ -122,7 +136,8 @@ def _qkv(p: Params, x: torch.Tensor, positions: torch.Tensor, theta: float):
 
 # ------------------------------------------------- grouped core attention
 def _grouped_attention(q, k, v, *, causal: bool = False, valid=None,
-                       q_chunk: int = 1024, q_offset=None, seq_parallel: bool = True):
+                       q_chunk: int = 1024, q_offset=None, seq_parallel: bool = True,
+                       scale=None):
     """q [B, Sq, H, hd]; k / v [B, Sk, Kv, hd_{k,v}] -> [B, Sq, H, hd_v].
 
     Exact softmax per query row, over query chunks of `q_chunk` rows so the
@@ -133,16 +148,17 @@ def _grouped_attention(q, k, v, *, causal: bool = False, valid=None,
     slots). Scores are taken in the inputs' dtype and then scaled in fp32;
     the softmax is fp32 and cast to v's dtype for the value product, as in
     the reference. `seq_parallel=False` keeps `set_sequence_parallel` out
-    (the mesh path decides its own split: `_mesh_attention`)."""
+    (the mesh path decides its own split: `_mesh_attention`). `scale`
+    replaces the scores' hd^-0.5."""
     if (seq_parallel and _SEQ_PARALLEL is not None and causal and q_offset is None
             and valid is None and q.shape[1] == k.shape[1]):
-        sp = _seq_parallel_attention(q, k, v, q_chunk=q_chunk)
+        sp = _seq_parallel_attention(q, k, v, q_chunk=q_chunk, scale=scale)
         if sp is not None:
             return sp
     b, sq, h, hdk = q.shape
     sk, kvh = k.shape[1], k.shape[2]
     qg = q.reshape(b, sq, kvh, h // kvh, hdk)
-    scale = hdk ** -0.5
+    scale = hdk ** -0.5 if scale is None else scale
     kpos = torch.arange(sk, device=q.device)
     vmask = None
     if valid is not None:
@@ -166,7 +182,7 @@ def _grouped_attention(q, k, v, *, causal: bool = False, valid=None,
     return out.reshape(b, sq, h, -1)
 
 
-def _seq_parallel_attention(q, k, v, *, q_chunk: int):
+def _seq_parallel_attention(q, k, v, *, q_chunk: int, scale=None):
     """Causal self-attention with the query rows split over the mesh dim:
     this rank's S/m rows against the whole K/V, then the rows gathered
     in rank order. Each rank's rows give a part of q's, k's and v's
@@ -180,7 +196,7 @@ def _seq_parallel_attention(q, k, v, *, q_chunk: int):
     n = sq // m
     q, k, v = (copy_to_group(t, group) for t in (q, k, v))
     out = _grouped_attention(q[:, idx * n:(idx + 1) * n], k, v, causal=True,
-                             q_chunk=min(q_chunk, n), q_offset=idx * n)
+                             q_chunk=min(q_chunk, n), q_offset=idx * n, scale=scale)
     return gather_dim(out, group, 1)
 
 
@@ -232,12 +248,9 @@ def mla_forward(p: Params, cfg, x, positions, token_mask=None):
     query per KV head. Returns (out [B, S, D], (ckv [B, S, r], krope
     [B, S, rd])), the tokens' cache entries."""
     m = cfg.mla
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
-    q_nope, q_rope = q.split([m.qk_nope_head_dim, m.qk_rope_head_dim], dim=-1)
-    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
-    kv_a = torch.einsum("bsd,dr->bsr", x, p["wkv_a"])
-    ckv, krope = kv_a.split([m.kv_lora_rank, m.qk_rope_head_dim], dim=-1)
-    krope = apply_rope(krope[:, :, None, :], positions, cfg.rope_theta)  # [B, S, 1, rd]
+    q_nope, q_rope = _mla_q(p, cfg, x, positions)
+    ckv, krope = _mla_kv(p, cfg, x, positions)
+    krope = krope[:, :, None, :]  # [B, S, 1, rd]
     if _SEQ_PARALLEL is not None:
         # absorbed: attend over the latent (r + rd wide) instead of the
         # expanded per-head K/V (reference :267)
@@ -248,6 +261,8 @@ def mla_forward(p: Params, cfg, x, positions, token_mask=None):
         # _grouped_attention scales by (r + rd)^-0.5; correct it to d_qk^-0.5
         d_qk = m.qk_nope_head_dim + m.qk_rope_head_dim
         q_eff = q_eff * ((m.kv_lora_rank + m.qk_rope_head_dim) / d_qk) ** 0.5
+        if m.yarn is not None:
+            q_eff = q_eff * yarn_mscale(m.yarn.factor, m.yarn.mscale_all_dim) ** 2
         o_lat = _grouped_attention(q_eff, k_eff, ckv[:, :, None, :], causal=True,
                                    valid=token_mask)  # [B, S, H, r]
         out = torch.einsum("bshr,rhk->bshk", o_lat, wv_b)
@@ -256,7 +271,7 @@ def mla_forward(p: Params, cfg, x, positions, token_mask=None):
     k_nope, v = kvb.split([m.qk_nope_head_dim, m.v_head_dim], dim=-1)
     k = torch.cat([k_nope, krope.expand(*k_nope.shape[:3], m.qk_rope_head_dim)], dim=-1)
     qf = torch.cat([q_nope, q_rope], dim=-1)
-    out = _grouped_attention(qf, k, v, causal=True, valid=token_mask)
+    out = _grouped_attention(qf, k, v, causal=True, valid=token_mask, scale=_mla_scale(cfg))
     return torch.einsum("bshk,hkd->bsd", out, p["wo"]), (ckv, krope[:, :, 0, :])
 
 
@@ -346,17 +361,38 @@ def gqa_prefill_paged(p: Params, cfg, x, pool_k, pool_v, tables, past_len,
     return torch.einsum("bshk,hkd->bsd", out, p["wo"]), pool_k, pool_v
 
 
+def _mla_q(p: Params, cfg, x, positions):
+    """(q_nope [B, S, H, nope], q_rope [B, S, H, rd] roped) of x [B, S, D]:
+    the direct projection, or with `q_lora_rank` x wq_a, RMSNorm, wq_b."""
+    m = cfg.mla
+    if m.q_lora_rank:
+        qa = rmsnorm(p["q_norm"], torch.einsum("bsd,dr->bsr", x, p["wq_a"]), cfg.norm_eps)
+        q = torch.einsum("bsr,rhk->bshk", qa, p["wq_b"])
+    else:
+        q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+    q_nope, q_rope = q.split([m.qk_nope_head_dim, m.qk_rope_head_dim], dim=-1)
+    return q_nope, apply_rope(q_rope, positions, cfg.rope_theta, m.yarn)
+
+
+def _mla_kv(p: Params, cfg, x, positions):
+    """The tokens' cache entries of x [B, S, D]: (ckv [B, S, r], through
+    RMSNorm with `kv_norm`; krope [B, S, rd] roped)."""
+    m = cfg.mla
+    kv_a = torch.einsum("bsd,dr->bsr", x, p["wkv_a"])
+    ckv, krope = kv_a.split([m.kv_lora_rank, m.qk_rope_head_dim], dim=-1)
+    if m.kv_norm:
+        ckv = rmsnorm(p["kv_norm"], ckv, cfg.norm_eps)
+    krope = apply_rope(krope[:, :, None, :], positions, cfg.rope_theta, m.yarn)[:, :, 0, :]
+    return ckv, krope
+
+
 def _mla_project(p: Params, cfg, x, positions):
     """Absorbed MLA projections of x [B, S, D] at `positions` [B, S]:
     (q_lat [B, S, H, r] fp32, q_rope [B, S, H, rd] fp32, ckv_new [B, S, r],
     krope_new [B, S, rd], wv_b [r, H, v])."""
     m = cfg.mla
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
-    q_nope, q_rope = q.split([m.qk_nope_head_dim, m.qk_rope_head_dim], dim=-1)
-    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
-    kv_a = torch.einsum("bsd,dr->bsr", x, p["wkv_a"])
-    ckv_new, krope_new = kv_a.split([m.kv_lora_rank, m.qk_rope_head_dim], dim=-1)
-    krope_new = apply_rope(krope_new[:, :, None, :], positions, cfg.rope_theta)[:, :, 0, :]
+    q_nope, q_rope = _mla_q(p, cfg, x, positions)
+    ckv_new, krope_new = _mla_kv(p, cfg, x, positions)
     wk_b, wv_b = p["wkv_b"].split([m.qk_nope_head_dim, m.v_head_dim], dim=-1)
     q_lat = torch.einsum("bshk,rhk->bshr", q_nope.float(), wk_b.float())
     return q_lat.contiguous(), q_rope.float().contiguous(), ckv_new, krope_new, wv_b
@@ -370,7 +406,13 @@ def _mla_out(p: Params, o_lat, wv_b, dtype):
 
 
 def _mla_scale(cfg) -> float:
-    return (cfg.mla.qk_nope_head_dim + cfg.mla.qk_rope_head_dim) ** -0.5
+    """The scores' scale: d_qk^-0.5, under YaRN times mscale(factor,
+    mscale_all_dim)^2 (1.874 at DeepSeek-V3's factor 40)."""
+    m = cfg.mla
+    scale = (m.qk_nope_head_dim + m.qk_rope_head_dim) ** -0.5
+    if m.yarn is not None:
+        scale *= yarn_mscale(m.yarn.factor, m.yarn.mscale_all_dim) ** 2
+    return scale
 
 
 def mla_decode_paged(p: Params, cfg, x, pool_ckv, pool_krope, tables, pos):
@@ -593,6 +635,7 @@ def _mla_latents_mesh(tp, p, cfg, x, positions):
     its r + rd outputs (gathered: every rank needs the whole latent)."""
     from repro_torch.distributed import tensor_parallel as tpl
 
+    refuse_on_mesh(cfg, "MLA")
     m = cfg.mla
     q, q_lo = tpl.heads_proj(tp, x, p["wq"], "bsd,dhk->bshk")
     q_nope, q_rope = q.split([m.qk_nope_head_dim, m.qk_rope_head_dim], dim=-1)

@@ -8,6 +8,7 @@ params["stack"]) without changing the per-layer fan-in.
 """
 from __future__ import annotations
 
+import math
 from typing import Any, Dict, Optional, Sequence
 
 import torch
@@ -64,17 +65,45 @@ def rmsnorm(params: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
 
 
 # ------------------------------------------------------------------- RoPE
-def rope_frequencies(head_dim: int, theta: float, device=None) -> torch.Tensor:
+def yarn_mscale(factor: float, mscale: float) -> float:
+    """YaRN's magnitude correction 0.1 * mscale * ln(factor) + 1 (1 for no
+    stretch)."""
+    return 1.0 if factor <= 1 else 0.1 * mscale * math.log(factor) + 1.0
+
+
+def _yarn_dim(rotations: float, dim: int, theta: float, n_pos: int) -> float:
+    """The frequency index that turns `rotations` times over `n_pos`."""
+    return dim * math.log(n_pos / (rotations * 2 * math.pi)) / (2 * math.log(theta))
+
+
+def rope_frequencies(head_dim: int, theta: float, device=None, yarn=None) -> torch.Tensor:
     half = head_dim // 2
-    return 1.0 / (theta ** (torch.arange(0, half, dtype=torch.float32, device=device) / half))
+    freqs = 1.0 / (theta ** (torch.arange(0, half, dtype=torch.float32, device=device) / half))
+    if yarn is None:
+        return freqs
+    # extrapolated (as trained) below index `low`, interpolated (/ factor)
+    # above `high`, a linear ramp between
+    n = yarn.original_max_position_embeddings
+    low = max(math.floor(_yarn_dim(yarn.beta_fast, head_dim, theta, n)), 0)
+    high = min(math.ceil(_yarn_dim(yarn.beta_slow, head_dim, theta, n)), head_dim - 1)
+    ramp = ((torch.arange(half, dtype=torch.float32, device=device) - low)
+            / (high - low if high > low else 0.001)).clamp(0, 1)
+    return freqs / yarn.factor * ramp + freqs * (1 - ramp)
 
 
-def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
-    """x: [..., seq, n_heads, head_dim]; positions: [..., seq]."""
-    freqs = rope_frequencies(x.shape[-1], theta, x.device)  # [hd/2]
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+               yarn=None) -> torch.Tensor:
+    """x: [..., seq, n_heads, head_dim]; positions: [..., seq]. `yarn`
+    (configs.base.YarnScaling) stretches the frequencies and scales cos
+    and sin by mscale(factor, mscale) / mscale(factor, mscale_all_dim)."""
+    freqs = rope_frequencies(x.shape[-1], theta, x.device, yarn)  # [hd/2]
     ang = positions[..., None].float() * freqs  # [..., seq, hd/2]
     cos = torch.cos(ang)[..., None, :]  # broadcast over heads
     sin = torch.sin(ang)[..., None, :]
+    if yarn is not None:
+        m = yarn_mscale(yarn.factor, yarn.mscale) / yarn_mscale(yarn.factor, yarn.mscale_all_dim)
+        if m != 1.0:
+            cos, sin = cos * m, sin * m
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)

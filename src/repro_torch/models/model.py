@@ -74,9 +74,11 @@ def layer_signature(cfg: ModelConfig, i: int) -> Sig:
 
 
 def stack_plan(cfg: ModelConfig) -> Tuple[List[int], int, List[Sig]]:
-    """Return (unrolled_prefix_indices, n_scan_groups, period_sigs)."""
+    """Return (unrolled_prefix_indices, n_scan_groups, period_sigs): the
+    shortest unrolled prefix (at most 3 layers, DeepSeek-V3's leading
+    dense ones) after which the layers repeat a period of at most 16."""
     sigs = [layer_signature(cfg, i) for i in range(cfg.n_layers)]
-    for offset in range(0, 3):
+    for offset in range(0, 4):
         rest = sigs[offset:]
         for period in range(1, 17):
             if len(rest) % period:
@@ -340,11 +342,14 @@ def apply_layer(
     the encoder's K/V: the cache's `ck` / `cv`, or `cross_kv` in the
     cacheless mode. Returns (x, aux loss (fp32 scalar; None without a
     flat MoE), expert_counts [E] int32 or None). With a tracer installed
-    (repro_torch.obs.trace), the mixer runs in a `layer.mixer` span, a
-    dense FFN in `layer.ffn`."""
+    (repro_torch.obs.trace), the mixer runs in a `layer.mixer` span (its
+    `q_lora` arg MLA's q rank, 0 for a direct q), a dense FFN in
+    `layer.ffn`."""
     h = rmsnorm(p["norm1"], x, cfg.norm_eps)
     tr = active_tracer()
-    with tr.span("layer.mixer", cat="model", layer=layer, kind=sig[0]) if tr else NULL_SPAN:
+    with (tr.span("layer.mixer", cat="model", layer=layer, kind=sig[0],
+                  q_lora=cfg.mla.q_lora_rank if cfg.mla is not None else 0)
+          if tr else NULL_SPAN):
         y = _mixer(cfg, sig, p, x, h, positions, cache, tables, pos, past_len, token_mask)
     x = x + y
     if "cross" in p:

@@ -43,6 +43,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.configs.base import refuse_on_mesh
 from repro_torch.distributed import sharding as shd
 from repro_torch.distributed.collectives import (
     GatherDim,
@@ -115,11 +116,14 @@ def _experts(p, e: int):
 
 
 def init_moe(gen: torch.Generator, cfg, lead=()) -> Params:
+    """Router [D, routed] (fp32; with the noaux_tc router its selection
+    bias [routed], zeros), the held experts' weights [E, ...] and the
+    shared experts'."""
     mo = cfg.moe
     d, f, e = cfg.d_model, mo.d_expert, mo.n_experts
     dt = torch_dtype(cfg.param_dtype)
     p = {
-        "router": dense_init(gen, (d, e), torch.float32, lead=lead),
+        "router": dense_init(gen, (d, mo.routed), torch.float32, lead=lead),
         "w_gate": dense_init(gen, (e, d, f), dt, lead=lead),
         "w_up": dense_init(gen, (e, d, f), dt, lead=lead),
         "w_down": dense_init(gen, (e, f, d), dt, lead=lead),
@@ -130,6 +134,9 @@ def init_moe(gen: torch.Generator, cfg, lead=()) -> Params:
             "w_up": dense_init(gen, (mo.n_shared, d, f), dt, lead=lead),
             "w_down": dense_init(gen, (mo.n_shared, f, d), dt, lead=lead),
         }
+    if mo.router == "noaux_tc":
+        p["router_bias"] = torch.zeros((*lead, mo.routed), dtype=torch.float32,
+                                       device=gen.device)
     return p
 
 
@@ -139,6 +146,59 @@ def router_topk(logits: torch.Tensor, k: int):
     w, idx = torch.topk(probs, k, dim=-1)
     w = w / torch.clamp(w.sum(-1, keepdim=True), min=1e-9)
     return probs, w, idx
+
+
+def router_noaux_tc(logits: torch.Tensor, bias: torch.Tensor, mo):
+    """DeepSeek-V3's `noaux_tc` routing of logits [T, R]: scores s =
+    sigmoid(logits) in fp32; selection scores s + bias; a group of R /
+    n_group experts scores the sum of its two highest; all but the
+    `topk_group` best groups are masked to -inf and the top-k of the rest
+    chosen; each weight is the unbiased s renormalized over the k, times
+    `routed_scale`. Static shapes and no host sync (capturable). Returns
+    (s normalized to sum 1 a token: the aux loss's probs, w [T, k], idx
+    [T, k])."""
+    s = torch.sigmoid(logits.float())
+    t, r = s.shape
+    choice = s + bias
+    gscore = choice.reshape(t, mo.n_group, r // mo.n_group).topk(2, dim=-1).values.sum(-1)
+    gidx = gscore.topk(mo.topk_group, dim=-1).indices
+    keep = torch.zeros_like(gscore, dtype=torch.bool).scatter_(1, gidx, True)
+    choice = choice.masked_fill(~keep.repeat_interleave(r // mo.n_group, dim=1),
+                                float("-inf"))
+    idx = choice.topk(mo.top_k, dim=-1).indices
+    w = s.gather(1, idx)
+    w = w / w.sum(-1, keepdim=True) * mo.routed_scale
+    return s / s.sum(-1, keepdim=True), w, idx
+
+
+def route(p: Params, mo, logits: torch.Tensor):
+    """The layer's router over logits [..., routed]: (probs [..., routed],
+    w [..., k], idx [..., k]) by `mo.router`."""
+    if mo.router == "softmax":
+        return router_topk(logits, mo.top_k)
+    if mo.router == "noaux_tc":
+        lead = logits.shape[:-1]
+        return tuple(t.reshape(*lead, -1) for t in router_noaux_tc(
+            logits.reshape(-1, logits.shape[-1]), p["router_bias"], mo))
+    raise ValueError(f"unknown router {mo.router!r}")
+
+
+def held_ids(mo, idx: torch.Tensor):
+    """(idx as ids among the experts held, held [..., k] bool), or (idx,
+    None) when every expert is held. An assignment to an expert held
+    elsewhere keeps its place with held False (its id clamped to 0): the
+    caller neither dispatches, weights nor counts it."""
+    if not mo.holds_share:
+        return idx, None
+    lo, e = mo.held_from, mo.n_experts
+    held = (idx >= lo) & (idx < lo + e)
+    return torch.where(held, idx - lo, 0), held
+
+
+def _held_probs(mo, probs: torch.Tensor) -> torch.Tensor:
+    """The router's probs [..., routed] over the experts held (the aux
+    loss's)."""
+    return probs[..., mo.held_from:mo.held_from + mo.n_experts] if mo.holds_share else probs
 
 
 def moe_backend(cfg, backend: str | None = None) -> str:
@@ -250,8 +310,14 @@ def _moe_forward_global(p, cfg, x, capacity_factor, full_capacity, token_mask=No
     cap = n_all if full_capacity else _capacity(n_all, k, e, cf)
 
     flat = x.reshape(t, d)
-    probs, w, idx = router_topk(flat.float() @ p["router"] if logits is None else logits, k)
+    probs, w, idx = route(p, mo, flat.float() @ p["router"] if logits is None else logits)
+    idx, held = held_ids(mo, idx)
+    probs = _held_probs(mo, probs)
     live = None if token_mask is None else token_mask.reshape(t).repeat_interleave(k)
+    if held is not None:
+        live = held.reshape(-1) if live is None else live & held.reshape(-1)
+        if token_mask is None:  # the aux loss's live tokens
+            token_mask = torch.ones(b, s, dtype=torch.bool, device=x.device)
 
     # flatten (token, expert) assignments and sort them by expert
     a_tok = torch.arange(t, device=x.device).repeat_interleave(k)
@@ -335,10 +401,16 @@ def _moe_forward_grouped(p, cfg, x, capacity_factor, full_capacity=False,
 
     if logits is None:
         logits = x.float() @ p["router"]
-    probs, w, idx = router_topk(logits.reshape(b, s, e), k)  # [B, S, k]
+    probs, w, idx = route(p, mo, logits.reshape(b, s, -1))  # [B, S, k]
+    idx, held = held_ids(mo, idx)
+    probs = _held_probs(mo, probs)
     a_tok = torch.arange(s, device=x.device)[None, :, None].expand(b, s, k).reshape(b, s * k)
     a_exp = idx.reshape(b, s * k)
     live = None if token_mask is None else token_mask.repeat_interleave(k, dim=-1)
+    if held is not None:
+        live = held.reshape(b, s * k) if live is None else live & held.reshape(b, s * k)
+        if token_mask is None:  # the aux loss's live tokens
+            token_mask = torch.ones(b, s, dtype=torch.bool, device=x.device)
     a_key = a_exp if live is None else torch.where(live, a_exp, e)
 
     order = torch.argsort(a_key, dim=-1, stable=True)  # row-local sort
@@ -397,6 +469,7 @@ def moe_forward_mesh(tp, p, cfg, x: torch.Tensor, *, full_capacity: bool,
     its gradient this DP shard's part (`_aux_and_counts`)."""
     from repro_torch.distributed import tensor_parallel as tpl
 
+    refuse_on_mesh(cfg, "the flat MoE")
     b, s, d = x.shape
     logits = tpl.router_logits(tp, x.reshape(b * s, d), p["router"])
     ws = {key: tp.weight(p[key]) for key in ("w_gate", "w_up", "w_down")}

@@ -334,6 +334,14 @@ class ServingLoop:
         self._slot_req: Dict[int, Request] = {}  # paged: slot -> request
         self._prefill_tasks: List[_PrefillTask] = []  # FIFO piggyback queue
         self._pending_counts = None  # previous group's realized loads
+        self._pending_tokens = 0  # the live tokens those loads routed
+        self._picks_per_token = (cfg.moe.top_k * sum(
+            cfg.uses_moe_layer(i) for i in range(cfg.n_layers)) if cfg.moe else 0)
+        # decode top-k assignments observed so far: to the experts held
+        # here (the counts' sum), and routed (top_k x MoE layers x live
+        # tokens); each `decode` span carries both totals
+        self.held_picks = 0
+        self.routed_picks = 0
         self._planned: list = []  # plans drawn but not yet applied
         self._steps_since_replan = 0  # policy.replan_every cadence
         self._step_no = 0  # step_once calls: the `step` span's index
@@ -539,6 +547,8 @@ class ServingLoop:
             counts = self._pending_counts.cpu().numpy()
         self._pending_counts = None
         eng.observe(counts)
+        self.held_picks += int(counts.sum())
+        self.routed_picks += self._picks_per_token * self._pending_tokens
         self._steps_since_replan += 1
         if self._steps_since_replan < self.policy.replan_every:
             return
@@ -599,7 +609,11 @@ class ServingLoop:
                 # zigzag overlap: the host applies + replans migrations
                 # while this group's step runs on the device
                 self._flush_replan()
+                if tr.enabled:
+                    decode.args.update(held_picks=self.held_picks,
+                                       routed_picks=self.routed_picks)
                 self._pending_counts = counts
+                self._pending_tokens = int(np.count_nonzero(live))
                 with sync_span(tr, "next_tokens"):
                     nxt = torch.argmax(logits, -1).cpu().numpy()
             live_idx = [i for i, alive in zip(idxs, live) if alive]
@@ -659,6 +673,7 @@ class ServingLoop:
             # zigzag overlap, exactly as the plain decode step
             self._flush_replan()
             self._pending_counts = counts
+            self._pending_tokens = int(lens.sum())
             with sync_span(tr, "next_tokens"):
                 nxt = torch.argmax(logits, -1).cpu().numpy()  # [W, Kp]
         st.decode_steps += 1

@@ -10,6 +10,10 @@ prefill chunks, reading the buffer views in place) and combines.
 Migrations swap weights between buffers in place between steps.
 A decode call on a card replays a CUDA graph of that work
 (`DecodeGraphs`): one graph launch instead of ~60 small ones.
+A layer may hold a share of an expert-parallel layer's experts
+(`MoEConfig.held_from`, `n_routed`): the router scores every routed
+expert, and only assignments to the held ones are dispatched, weighted
+and counted ([E] counts over the experts held).
 """
 from __future__ import annotations
 
@@ -19,11 +23,19 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from repro_torch.configs.base import refuse_on_mesh
 from repro_torch.hardware import TPU_V5E
 from repro_torch.kernels.backend import wants_grad
 from repro_torch.kernels.expert_gemv.kernel import expert_ffn_gemv
 from repro_torch.models.layers import Params, dense_init, torch_dtype
-from repro_torch.models.moe import expert_ffn, moe_backend, router_topk, shared_ffn
+from repro_torch.models.moe import (
+    expert_ffn,
+    held_ids,
+    moe_backend,
+    route,
+    router_topk,
+    shared_ffn,
+)
 from repro_torch.obs.trace import NULL_SPAN, active_tracer, install_tracer
 
 HOT_T, WARM_T, COLD_T = 0, 1, 2
@@ -51,7 +63,9 @@ class TierSizes(NamedTuple):
 
 
 def validate_tier_sizes(cfg, sizes: TierSizes) -> TierSizes:
-    """Reject impossible tier splits before any buffer is allocated."""
+    """Reject impossible tier splits before any buffer is allocated: the
+    tiers hold the experts held here (`n_experts`, a share of the routed
+    ones under expert parallelism)."""
     n_hot, n_warm, n_cold = sizes
     e = cfg.moe.n_experts
     if n_hot < 1 or n_warm < 0 or n_cold < 0:
@@ -184,7 +198,10 @@ def tiered_moe_forward(
     tr = active_tracer()
     key = DECODE_GRAPHS.key(p, state, cfg, x, cold_capacity_frac, token_mask, backend)
     mode = "eager" if key is None else "replay" if key in DECODE_GRAPHS else "capture"
-    with (tr.span("moe", cat="moe", layer=layer, tokens=x.shape[0] * x.shape[1], graph=mode)
+    mo = cfg.moe
+    with (tr.span("moe", cat="moe", layer=layer, tokens=x.shape[0] * x.shape[1], graph=mode,
+                  held=f"{mo.held_from}-{mo.held_from + mo.n_experts - 1}/{mo.routed}",
+                  router=mo.router)
           if tr else NULL_SPAN):
         if mode == "eager":
             return _tiered_moe(p, state, cfg, x, cold_capacity_frac, token_mask, backend, tr)
@@ -202,9 +219,16 @@ def _tiered_moe(p, state, cfg, x, cold_capacity_frac, token_mask, backend, tr):
     kind = moe_backend(cfg, backend)
     t = b * s
     flat = x.reshape(t, d)
-    with tr.span("moe.route", cat="moe") if tr else NULL_SPAN:
+    with (tr.span("moe.route", cat="moe", groups=f"{mo.topk_group}/{mo.n_group}")
+          if tr else NULL_SPAN):
         logits = flat.float() @ p["router"]
-        _, w, idx = router_topk(logits, k)
+        # the softmax router is called by its name here, where the parity
+        # tests record the tiered path's router scores
+        if mo.router == "softmax":
+            _, w, idx = router_topk(logits, k)
+        else:
+            _, w, idx = route(p, mo, logits)
+        idx, held = held_ids(mo, idx)
         # each token's k assignments in a row (no host sync: capturable)
         a_tok = torch.arange(t * k, device=x.device) // k
         a_exp = idx.reshape(-1)
@@ -212,6 +236,8 @@ def _tiered_moe(p, state, cfg, x, cold_capacity_frac, token_mask, backend, tr):
         a_live = None
         if token_mask is not None:
             a_live = token_mask.reshape(t)[a_tok]
+        if held is not None:  # experts held elsewhere: not live here
+            a_live = held.reshape(-1) if a_live is None else a_live & held.reshape(-1)
         a_tier = state["expert_tier"][a_exp]
         a_slot = state["expert_slot"][a_exp].long()
 
@@ -277,12 +303,15 @@ def graph_key(p, state, cfg, x, cold_capacity_frac, token_mask, backend) -> tupl
     tier buffers, routing tables), x's shape, dtype and device, the mask's
     dtype (or its absence) and the settings the body branches on."""
     mo = cfg.moe
+    # routing other than the default softmax over every expert held
+    routing = (() if mo.router == "softmax" and not mo.holds_share else
+               (mo.router, mo.n_group, mo.topk_group, mo.routed_scale, mo.routed, mo.held_from))
     return (tuple(x.shape), x.dtype, x.device,
             None if token_mask is None else token_mask.dtype,
             float(cold_capacity_frac), moe_backend(cfg, backend),
             mo.n_experts, mo.top_k, mo.n_shared,
             tuple((t.data_ptr(), tuple(t.shape), t.stride(), t.dtype)
-                  for t in _leaves(p) + _leaves(state)))
+                  for t in _leaves(p) + _leaves(state))) + routing
 
 
 class DecodeGraphs:
@@ -401,6 +430,7 @@ def tiered_moe_forward_mesh(tp, p, state, cfg, x: torch.Tensor, cold_capacity_fr
     shards: the whole batch's, replicated rows counted once)."""
     from repro_torch.distributed import tensor_parallel as tpl
 
+    refuse_on_mesh(cfg, "the tiered MoE")
     mo = cfg.moe
     e, k = mo.n_experts, mo.top_k
     b, s, d = x.shape

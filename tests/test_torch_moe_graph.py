@@ -94,7 +94,9 @@ def test_decode_call_is_eager_on_the_cpu(tracer, arch):
     assert len(DECODE_GRAPHS) == n
     spans = [e for e in tracer.events if e.get("ph") == "X"]
     (moe,) = [e for e in spans if e["name"] == "moe"]
-    assert moe["args"] == {"layer": 3, "tokens": 4, "graph": "eager"}
+    e = cfg.moe.n_experts
+    assert moe["args"] == {"layer": 3, "tokens": 4, "graph": "eager",
+                           "held": f"0-{e - 1}/{e}", "router": "softmax"}
     names = [e["name"] for e in spans]
     assert names.count("moe.route") == 1 and names.count("moe.tier") == 3
     assert names.count("moe.combine") == 1
